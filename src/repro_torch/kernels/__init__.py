@@ -1,0 +1,11 @@
+"""Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
+
+  csrc/<name>.cu — the CUDA C++ kernel, built with nvcc on first use (build.py),
+  <name>.py      — its ctypes wrapper (checks, launch, launch count),
+  ops.py         — model-layout wrappers: plain version on CPU, kernel on CUDA,
+  ref.py         — the plain versions the kernels are held against.
+"""
+from . import ops, ref
+from .ops import flash_attention
+
+__all__ = ["ops", "ref", "flash_attention"]

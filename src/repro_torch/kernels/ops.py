@@ -1,0 +1,23 @@
+"""Public wrappers around the hand-written kernels, in the model layout.
+
+Each takes its kernel's plain version (``ref.py``) for tensors that lie on
+the CPU, and launches the kernel for CUDA tensors, or raises: a CUDA tensor
+never falls back to the plain version. Forward only for now; the backward
+through the plain version comes with the training slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import ref
+from .flash_attention import flash_attention_fwd
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    causal: bool = True, window: int | None = None,
+) -> torch.Tensor:
+    """q [B,Sq,H,Dh]; k/v [B,Sk,KV,Dh] -> [B,Sq,H,Dh]."""
+    if q.device.type == "cpu":
+        return ref.attention_ref(q, k, v, causal, window)
+    return flash_attention_fwd(q, k, v, causal=causal, window=window)

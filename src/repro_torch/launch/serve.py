@@ -1,0 +1,144 @@
+"""Serving launcher: batched prefill + greedy decode (port of
+``repro.launch.serve``), on randomly initialised weights.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_0_6b \\
+        --batch 8 --prompt-len 64 --gen 32 [--full] [--device cuda] [--dtype bfloat16]
+
+Runs on CUDA unless ``--device cpu`` is given. One prefill and one decode
+step warm up (kernel build and library start-up) before anything is timed;
+each timed step is bracketed by ``torch.cuda.synchronize()``. Restoring a
+checkpoint (the reference's ``--repo``) waits for ROADMAP.md §A item 2.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import time
+from collections.abc import Callable
+from contextlib import AbstractContextManager
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .. import configs, resolve_device
+from ..models import transformer as T
+from ..models.params import init_params
+from ..train.steps import greedy_token, make_decode_step, make_prefill_step
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclass
+class ServeResult:
+    tokens: torch.Tensor  # [B, gen] on the CPU
+    prefill_ms: float
+    decode_ms: list[float]  # one per decode step
+    logits_finite: bool  # every step's logits
+    prefills: int  # prefills run, the warm-up included
+    peak_memory_bytes: int | None  # CUDA only
+
+    @property
+    def decode_p50_ms(self) -> float:
+        return float(np.percentile(self.decode_ms, 50))
+
+    @property
+    def decode_p95_ms(self) -> float:
+        return float(np.percentile(self.decode_ms, 95))
+
+    @property
+    def tokens_per_s(self) -> float:
+        """Decode throughput: batch tokens per mean decode step."""
+        return self.tokens.shape[0] * 1e3 / float(np.mean(self.decode_ms))
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run(arch: str = "qwen3_0_6b", *, batch: int = 8, prompt_len: int = 64, gen: int = 32,
+        full: bool = False, device: str | torch.device = "cuda", dtype: str = "bfloat16",
+        seed: int = 0,
+        window: Callable[[str], AbstractContextManager] | None = None) -> ServeResult:
+    """Serve one batch of random prompts; returns the tokens and timings.
+
+    ``window(name)``, if given, is entered around the timed prefill
+    (``"prefill"``) and around the timed decode loop (``"decode"``), for a
+    profiler to wrap exactly the work that is timed here.
+    """
+    window = window or (lambda name: contextlib.nullcontext())
+    if gen < 2:
+        raise ValueError("gen must be >= 2 (one token from prefill, then decode steps)")
+    dev = resolve_device(device)
+    cfg = configs.get(arch) if full else configs.get_smoke(arch)
+    params = init_params(T.param_defs(cfg), seed=seed, dtype=DTYPES[dtype], device=dev)
+    prefill_step = make_prefill_step(cfg, cache_len=prompt_len + gen)
+    step = make_decode_step(cfg)
+    prefills = 0
+
+    def prefill(params, batch_in):
+        nonlocal prefills
+        prefills += 1
+        return prefill_step(params, batch_in)
+
+    rng = np.random.default_rng(seed)
+    batch_in = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (batch, prompt_len))).to(dev)}
+
+    caches, logits = prefill(params, batch_in)  # warm-up
+    step(params, caches, greedy_token(cfg, logits), prompt_len)
+    del caches, logits
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    with window("prefill"):
+        _sync(dev)
+        t0 = time.perf_counter()
+        caches, logits = prefill(params, batch_in)
+        _sync(dev)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    finite = torch.isfinite(logits).all()
+    tok = greedy_token(cfg, logits)
+    out, lat = [tok], []
+    with window("decode"):
+        for i in range(gen - 1):
+            _sync(dev)
+            t0 = time.perf_counter()
+            logits, caches = step(params, caches, tok, prompt_len + i)
+            _sync(dev)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            finite &= torch.isfinite(logits).all()
+            tok = greedy_token(cfg, logits)
+            out.append(tok)
+    return ServeResult(
+        tokens=torch.cat(out, dim=1).cpu(),
+        prefill_ms=prefill_ms,
+        decode_ms=lat,
+        logits_finite=bool(finite),
+        prefills=prefills,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
+    )
+
+
+def main(argv: list[str] | None = None) -> ServeResult:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=configs.ARCH_IDS, required=True)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="bfloat16")
+    args = ap.parse_args(argv)
+
+    res = run(args.arch, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
+              full=args.full, device=args.device, dtype=args.dtype)
+    print(f"prefill: {res.prefill_ms:.1f} ms (after one warm-up prefill)")
+    print(f"decode: p50={res.decode_p50_ms:.2f} ms  p95={res.decode_p95_ms:.2f} ms  "
+          f"throughput={res.tokens_per_s:.0f} tok/s")
+    return res
+
+
+if __name__ == "__main__":
+    main()

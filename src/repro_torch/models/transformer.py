@@ -1,0 +1,256 @@
+"""The dense attention stack of ``repro.models.transformer``, in PyTorch.
+
+Layers of ``LayerKind("attn", moe=False)`` (dense GQA, optional qk-norm,
+RoPE, SwiGLU, tied or separate LM head). Weights keep the reference layout:
+``[in, out]`` matrices applied as ``x @ W``, stacked along a leading
+``n_repeats`` axis per pattern position, under the same nested keys; the
+stack runs as a Python loop over the repeats.
+
+Three entry points: ``forward_train`` (full causal sequence, forward only),
+``prefill`` (returns the KV caches and the last position's logits) and
+``decode_step`` (one token against the caches). Decode state per pattern
+position: ``{"k", "v"}`` caches [n_repeats, B, S_cache, KV, Dh].
+
+Prefill and train attention go through the flash-attention kernel when
+``use_pallas`` selects it, else through the plain blockwise ``attention``.
+The reference also needs the sequence length to be a multiple of 64, for
+its Pallas tiling; the CUDA kernel masks ragged tiles, so the port takes
+the kernel at any length. Unlike the reference, whose kernel branch returns
+no KV cache (ROADMAP.md §C), both branches build the prefill cache.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..kernels.ops import flash_attention
+from .attention import attention, cache_insert, decode_attention
+from .layers import apply_rope, rmsnorm, swiglu
+from .params import ParamDef
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for the parts of ``cfg`` the port does not run yet, naming the
+    ROADMAP.md §A item that brings each."""
+    if cfg.enc_dec:
+        raise NotImplementedError("encoder-decoder models: ROADMAP.md §A item 7")
+    if cfg.mrope_sections or cfg.vision_len_ratio:
+        raise NotImplementedError("M-RoPE and vision inputs: ROADMAP.md §A item 7")
+    for kind in cfg.pattern:
+        if kind.mixer == "rwkv6":
+            raise NotImplementedError("rwkv6 mixers: ROADMAP.md §A item 4")
+        if kind.mixer == "mamba":
+            raise NotImplementedError("mamba mixers: ROADMAP.md §A item 5")
+        if kind.moe:
+            raise NotImplementedError("MoE feed-forward layers: ROADMAP.md §A item 6")
+
+
+def _use_kernels(cfg: ModelConfig, x: torch.Tensor) -> bool:
+    """'on' forces the kernels' wrappers (which take the plain versions on
+    CPU tensors); 'off' keeps the plain paths; 'auto' means on for CUDA."""
+    if cfg.use_pallas == "on":
+        return True
+    if cfg.use_pallas == "off":
+        return False
+    return x.is_cuda
+
+
+# ================================================================ param defs
+def _attn_defs(cfg: ModelConfig) -> dict:
+    H, KV, Dh, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    d = {
+        "wq": ParamDef((D, H * Dh)),
+        "wk": ParamDef((D, KV * Dh)),
+        "wv": ParamDef((D, KV * Dh)),
+        "wo": ParamDef((H * Dh, D)),
+    }
+    if cfg.qk_norm:
+        d["q_norm"] = ParamDef((Dh,), "ones")
+        d["k_norm"] = ParamDef((Dh,), "ones")
+    return d
+
+
+def _block_defs(cfg: ModelConfig) -> dict:
+    D, F = cfg.d_model, cfg.d_ff
+    return {
+        "ln1": ParamDef((D,), "ones"),
+        "attn": _attn_defs(cfg),
+        "ln2": ParamDef((D,), "ones"),
+        "ffn": {"w1": ParamDef((D, F)), "w3": ParamDef((D, F)), "w2": ParamDef((F, D))},
+    }
+
+
+def _stack(defs: dict, n: int) -> dict:
+    return {
+        k: ParamDef((n,) + v.shape, v.init, v.scale) if isinstance(v, ParamDef) else _stack(v, n)
+        for k, v in defs.items()
+    }
+
+
+def param_defs(cfg: ModelConfig) -> dict:
+    check_supported(cfg)
+    D, Vp = cfg.d_model, cfg.padded_vocab
+    defs: dict = {
+        "embed": ParamDef((Vp, D), "normal", 0.02),
+        "final_norm": ParamDef((D,), "ones"),
+    }
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = ParamDef((D, Vp), "normal", 0.02)
+    blocks = {f"p{i}": _block_defs(cfg) for i, _ in enumerate(cfg.pattern)}
+    defs["blocks"] = _stack(blocks, cfg.n_repeats)
+    return defs
+
+
+# ================================================================== context
+@dataclass
+class Ctx:
+    mode: str  # 'train' | 'prefill' | 'decode'
+    positions: torch.Tensor | None = None  # [B, S]
+    pos: int | None = None  # decode: position of the new token
+    cache_len: int = 0
+    causal: bool = True
+
+
+# ================================================================ sub-layers
+def _project_qkv(cfg: ModelConfig, p_attn: dict, h: torch.Tensor):
+    B, S, _ = h.shape
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (h @ p_attn["wq"]).reshape(B, S, H, Dh)
+    k = (h @ p_attn["wk"]).reshape(B, S, KV, Dh)
+    v = (h @ p_attn["wv"]).reshape(B, S, KV, Dh)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p_attn["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p_attn["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def _rope(cfg: ModelConfig, ctx: Ctx, q: torch.Tensor, k: torch.Tensor):
+    if not cfg.rope:
+        return q, k
+    pos = ctx.positions
+    if pos is None:
+        pos = torch.full(q.shape[:2], ctx.pos, dtype=torch.int32, device=q.device)
+    return apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos, cfg.rope_theta)
+
+
+def _self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, ctx: Ctx, cache):
+    """Returns (mixer_out, new_cache_entries)."""
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _project_qkv(cfg, p["attn"], h)
+    q, k = _rope(cfg, ctx, q, k)
+    new_cache = {}
+    if ctx.mode == "decode":
+        kc, vc = cache_insert(cache["k"], cache["v"], k, v, ctx.pos)
+        out = decode_attention(q, kc, vc, ctx.pos, ring=cfg.sliding_window is not None)
+        new_cache = {"k": kc, "v": vc}
+    else:
+        if _use_kernels(cfg, q):
+            out = flash_attention(q, k, v, ctx.causal, cfg.sliding_window)
+        else:
+            out = attention(q, k, v, causal=ctx.causal, window=cfg.sliding_window,
+                            q_chunk=cfg.attn_q_chunk)
+        if ctx.mode == "prefill":
+            new_cache = _prefill_kv_cache(cfg, ctx, k, v)
+    B, S = x.shape[:2]
+    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["attn"]["wo"]
+    return out, new_cache
+
+
+def _prefill_kv_cache(cfg: ModelConfig, ctx: Ctx, k: torch.Tensor, v: torch.Tensor) -> dict:
+    B, S, KV, Dh = k.shape
+    L = ctx.cache_len
+
+    def build(t):
+        buf = t.new_zeros((B, L, KV, Dh))
+        if cfg.sliding_window is not None and S > L:
+            # ring discipline: token s lives at slot s % L
+            slots = torch.arange(S - L, S, device=t.device) % L
+            buf[:, slots] = t[:, S - L :]
+        else:
+            n = min(S, L)
+            buf[:, :n] = t[:, :n]
+        return buf
+
+    return {"k": build(k), "v": build(v)}
+
+
+def apply_block(cfg: ModelConfig, p: dict, x: torch.Tensor, ctx: Ctx, cache):
+    """One pattern-position layer (dense attention). Returns (x, new_cache)."""
+    mix, new_cache = _self_attention(cfg, p, x, ctx, cache)
+    x = x + mix
+    h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    f = p["ffn"]
+    return x + swiglu(h, f["w1"], f["w3"], f["w2"]), new_cache
+
+
+# ================================================================ stacks
+def _at(tree: dict, i: int) -> dict:
+    return {k: _at(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def _run_blocks(cfg: ModelConfig, blocks: dict, x: torch.Tensor, ctx: Ctx, caches=None):
+    """Loop over the stacked repeats. Returns (x, caches): in decode the
+    given caches, updated in place; in prefill new caches stacked along the
+    repeat axis; in train None."""
+    new = {f"p{i}": [] for i in range(len(cfg.pattern))}
+    for rep in range(cfg.n_repeats):
+        for key, layers in new.items():
+            c_in = _at(caches[key], rep) if caches is not None else None
+            x, nc = apply_block(cfg, _at(blocks[key], rep), x, ctx, c_in)
+            layers.append(nc)
+    if ctx.mode == "decode":
+        return x, caches
+    if ctx.mode == "prefill":
+        return x, {key: {n: torch.stack([c[n] for c in cs]) for n in cs[0]}
+                   for key, cs in new.items()}
+    return x, None
+
+
+def _embed_inputs(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"][tokens.long()]
+
+
+def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ head
+
+
+def _positions(batch: dict, B: int, S: int, device) -> torch.Tensor:
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+    return positions
+
+
+# ================================================================ entry points
+def forward_train(cfg: ModelConfig, params: dict, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence causal forward. Returns (logits [B,S,Vp], aux_loss)."""
+    check_supported(cfg)
+    x = _embed_inputs(params, batch["tokens"])
+    B, S, _ = x.shape
+    ctx = Ctx(mode="train", positions=_positions(batch, B, S, x.device))
+    x, _ = _run_blocks(cfg, params["blocks"], x, ctx)
+    return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int):
+    """Process a full prompt; returns (caches, last-token logits [B,Vp])."""
+    check_supported(cfg)
+    x = _embed_inputs(params, batch["tokens"])
+    B, S, _ = x.shape
+    eff_cache = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
+    ctx = Ctx(mode="prefill", positions=_positions(batch, B, S, x.device), cache_len=eff_cache)
+    x, caches = _run_blocks(cfg, params["blocks"], x, ctx)
+    return caches, _logits(cfg, params, x[:, -1:, :])[:, 0]
+
+
+def decode_step(cfg: ModelConfig, params: dict, caches: dict, token: torch.Tensor, pos: int):
+    """One decode step. token [B,1] int; pos: position of the new token.
+    Returns (logits [B,Vp], caches) — the caches are updated in place."""
+    check_supported(cfg)
+    x = _embed_inputs(params, token)
+    x, caches = _run_blocks(cfg, params["blocks"], x, Ctx(mode="decode", pos=int(pos)), caches)
+    return _logits(cfg, params, x)[:, 0], caches

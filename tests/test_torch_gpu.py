@@ -1,0 +1,86 @@
+"""Tests of the port that need the card: the CUDA kernel against its plain
+version, and the smoke model with the kernel on against off. They skip
+without a CUDA device; run them on the card with
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+This file imports only the port (the machine with the card has no JAX).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.params import init_params  # noqa: E402
+from repro_torch.train.steps import make_prefill_step  # noqa: E402
+
+# tests/test_kernels.py:24 and :29-38 (b, sq, sk, h, kv, dh, causal, window)
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+SHAPES = [
+    (2, 128, 128, 4, 4, 64, True, None),
+    (1, 256, 256, 8, 2, 64, True, None),
+    (2, 128, 128, 4, 1, 128, True, None),
+    (1, 256, 256, 4, 4, 64, True, 64),
+    (1, 128, 128, 2, 2, 96, False, None),
+    (2, 64, 64, 4, 2, 32, True, 16),
+    (1, 100, 130, 4, 2, 16, False, None),  # ragged tiles, Dh of the smoke config
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the card with -m gpu")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_cuda_kernel_matches_plain_version(cuda, shape, dtype):
+    b, sq, sk, h, kv, dh, causal, window = shape
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, s).astype(np.float32)).to(cuda, getattr(torch, dtype))
+               for s in ((b, sq, h, dh), (b, sk, kv, dh), (b, sk, kv, dh)))
+    before = flash_attention_fwd.launches
+    got = ops.flash_attention(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    want = ref.attention_ref(q, k, v, causal, window)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 64, 4, 48, device=cuda)  # head dim 48 is not built
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_fwd(q, q[:, :, :2], q[:, :, :2])
+    q = torch.zeros(1, 64, 4, 32, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention_fwd(q, q, q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prompt", [64, 100])
+def test_smoke_prefill_kernel_on_matches_off(cuda, prompt):
+    """fp32 smoke prefill with the kernel against the plain path, on the card
+    (tests/test_pallas_model_parity.py's 2e-3 bar); both return the cache.
+    A prompt that is no multiple of 64 goes through the kernel all the same."""
+    cfg = configs.get_smoke("qwen3_0_6b").replace(use_pallas="off")
+    params = init_params(T.param_defs(cfg), seed=0, dtype=torch.float32, device=cuda)
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (2, prompt))).to(cuda)
+    c_off, l_off = make_prefill_step(cfg, prompt + 8)(params, {"tokens": tokens})
+    before = flash_attention_fwd.launches
+    c_on, l_on = make_prefill_step(cfg.replace(use_pallas="auto"), prompt + 8)(
+        params, {"tokens": tokens})
+    assert flash_attention_fwd.launches == before + cfg.n_layers
+    torch.testing.assert_close(l_on, l_off, rtol=2e-3, atol=2e-3)
+    for name in ("k", "v"):
+        torch.testing.assert_close(c_on["p0"][name], c_off["p0"][name], rtol=2e-3, atol=2e-3)

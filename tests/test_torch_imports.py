@@ -1,0 +1,74 @@
+"""The port stands alone: it imports neither jax nor anything of ``repro``,
+its configs are copies of the JAX package's, and what it does not run yet
+raises and names the ROADMAP item that brings it."""
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.configs.base import MoEConfig  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.", "jaxlib")))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_neither_jax_nor_repro():
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], capture_output=True,
+                         text=True, env=env, timeout=120, check=True).stdout.split(maxsplit=1)
+    n_modules = len([p for p in (SRC / "repro_torch").rglob("*.py") if p.name != "__init__.py"])
+    assert int(out[0]) >= n_modules
+    assert out[1].strip() == "[]"
+
+
+@pytest.mark.parametrize("which", ["config", "smoke_config"])
+def test_config_is_a_copy_of_the_reference(which):
+    pytest.importorskip("jax")
+    from repro import configs as jconfigs
+
+    get = {"config": (configs.get, jconfigs.get),
+           "smoke_config": (configs.get_smoke, jconfigs.get_smoke)}[which]
+    for arch in configs.ARCH_IDS:
+        ours, ref = get[0](arch), get[1](arch)
+        assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+        assert [dataclasses.asdict(k) for k in ours.pattern] == [
+            dataclasses.asdict(k) for k in ref.pattern]
+        assert (ours.n_repeats, ours.padded_vocab, ours.param_counts()) == (
+            ref.n_repeats, ref.padded_vocab, ref.param_counts())
+
+
+def test_registry_names_the_roadmap_item_for_unported_archs():
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §A item 6"):
+        configs.get("mixtral_8x22b")
+    with pytest.raises(KeyError):
+        configs.get_smoke("no_such_arch")
+
+
+@pytest.mark.parametrize("change,item", [
+    (dict(ssm="rwkv6"), "item 4"),
+    (dict(attn_period=2, attn_offset=1), "item 5"),
+    (dict(moe=MoEConfig(n_experts=4)), "item 6"),
+    (dict(enc_dec=True, n_enc_layers=2), "item 7"),
+    (dict(mrope_sections=(2, 3, 3)), "item 7"),
+])
+def test_unported_layers_raise(change, item):
+    cfg = configs.get_smoke("qwen3_0_6b").replace(**change)
+    with pytest.raises(NotImplementedError, match=item):
+        T.param_defs(cfg)
