@@ -11,6 +11,7 @@ import torch
 
 from . import ref
 from .flash_attention import flash_attention_fwd
+from .rwkv6 import rwkv6_fwd
 
 
 def flash_attention(
@@ -21,3 +22,14 @@ def flash_attention(
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal, window)
     return flash_attention_fwd(q, k, v, causal=causal, window=window)
+
+
+def rwkv6(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+    u: torch.Tensor, state0: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """r, k, v, logw [B,S,H,Dh]; u [H,Dh]; state0 [B,H,Dh,Dh] fp32 or None
+    (zeros). Returns (out [B,S,H,Dh] in r's dtype, state [B,H,Dh,Dh] fp32)."""
+    if r.device.type == "cpu":
+        return ref.rwkv6_ref(r, k, v, logw, u, state0)
+    return rwkv6_fwd(r, k, v, logw, u, state0)

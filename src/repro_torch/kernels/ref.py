@@ -36,3 +36,27 @@ def attention_ref(
         scores = torch.where(mask[None, None], scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def rwkv6_ref(
+    r: torch.Tensor,  # [B, S, H, Dh]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    logw: torch.Tensor,  # [B, S, H, Dh] (negative log decays)
+    u: torch.Tensor,  # [H, Dh]
+    state0: torch.Tensor | None = None,  # [B, H, Dh, Dh] fp32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequential WKV recurrence in fp32:
+    out_t = r_t · (S_{t-1} + diag(u) k_t v_tᵀ); S_t = diag(w_t) S_{t-1} + k_t v_tᵀ.
+    Returns (out [B, S, H, Dh] in r's dtype, final S [B, H, Dh, Dh] fp32)."""
+    b, s, h, dh = r.shape
+    S = (torch.zeros((b, h, dh, dh), dtype=torch.float32, device=r.device) if state0 is None
+         else state0.float())
+    r32, k32, v32, lw32 = (t.float() for t in (r, k, v, logw))
+    u32 = u.float()[None, :, :, None]
+    out = []
+    for t in range(s):
+        kv = k32[:, t, :, :, None] * v32[:, t, :, None, :]
+        out.append(torch.einsum("bhd,bhde->bhe", r32[:, t], S + u32 * kv))
+        S = torch.exp(lw32[:, t])[..., None] * S + kv
+    return torch.stack(out, dim=1).to(r.dtype), S

@@ -3,7 +3,7 @@ timed prefill and its timed decode loop each under ``torch.profiler``, and
 the device's busy and idle share of each window.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --full \\
-        [--batch 8 --prompt-len 512 --steps 8]
+        [--arch rwkv6_1_6b] [--batch 8 --prompt-len 512 --steps 8]
 
 Needs a CUDA device. Busy time is the sum of the device-side events' time
 (kernels, copies and fills on one stream, so they do not overlap); idle

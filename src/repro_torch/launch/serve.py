@@ -1,13 +1,16 @@
 """Serving launcher: batched prefill + greedy decode (port of
 ``repro.launch.serve``), on randomly initialised weights.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_0_6b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch {qwen3_0_6b,rwkv6_1_6b} \\
         --batch 8 --prompt-len 64 --gen 32 [--full] [--device cuda] [--dtype bfloat16]
 
-Runs on CUDA unless ``--device cpu`` is given. One prefill and one decode
-step warm up (kernel build and library start-up) before anything is timed;
-each timed step is bracketed by ``torch.cuda.synchronize()``. Restoring a
-checkpoint (the reference's ``--repo``) waits for ROADMAP.md §A item 2.
+Runs on CUDA unless ``--device cpu`` is given. The decode state is a KV
+cache of ``prompt_len + gen`` positions for attention layers, and a fixed
+[B, H, Dh, Dh] state with two token-shift carries for RWKV6 layers, which
+take no cache length. One prefill and one decode step warm up (kernel build
+and library start-up) before anything is timed; each timed step is bracketed
+by ``torch.cuda.synchronize()``. Restoring a checkpoint (the reference's
+``--repo``) waits for ROADMAP.md §A item 2.
 """
 from __future__ import annotations
 

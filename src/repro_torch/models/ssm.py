@@ -1,0 +1,74 @@
+"""Attention-free mixers (port of ``repro.models.ssm``), RWKV6 half; the
+Mamba functions come with ROADMAP.md §A item 5.
+
+Three paths for the RWKV6 (Finch) WKV recurrence, as in the reference:
+  - ``rwkv6_naive``  : step by step over time — the oracle, which is the
+                       kernel's plain version ``kernels.ref.rwkv6_ref``;
+  - ``rwkv6_chunked``: the chunk-parallel form of train and prefill when the
+                       kernel is off (falls back to naive when S % 16 != 0);
+  - ``rwkv6_step``   : the single-token decode update.
+
+Numerics: the per-channel log-decay is clamped to ``-MAX_DECAY`` per step
+and chunks are short (16), so ``exp(±Σ log w)`` stays inside fp32 range.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kernels.ref import rwkv6_ref as rwkv6_naive
+
+MAX_DECAY = 4.0  # clamp on exp(w_raw): decay factor >= exp(-4) per step
+RWKV_CHUNK = 16
+
+
+def rwkv6_decay(w_raw: torch.Tensor) -> torch.Tensor:
+    """Raw decay projection -> log decay in [-MAX_DECAY, 0), in fp32."""
+    return -torch.exp(w_raw.float()).clamp(max=MAX_DECAY)
+
+
+def rwkv6_chunked(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+    u: torch.Tensor, state0: torch.Tensor | None = None, chunk: int = RWKV_CHUNK,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunk-parallel WKV: intra-chunk via a masked score matrix, cross-chunk
+    via the carried state. Matches :func:`rwkv6_naive` to fp32 tolerance."""
+    b, s, h, dh = r.shape
+    if s % chunk != 0:  # fall back (decode tails etc.)
+        return rwkv6_naive(r, k, v, logw, u, state0)
+    state = (torch.zeros((b, h, dh, dh), dtype=torch.float32, device=r.device)
+             if state0 is None else state0)
+    n = s // chunk
+    rs, ks, vs, lws = (t.float().reshape(b, n, chunk, h, dh) for t in (r, k, v, logw))
+    u32 = u.float()
+    tri = torch.tril(torch.ones((chunk, chunk), device=r.device), diagonal=-1)  # s < t strictly
+    eye = torch.eye(chunk, device=r.device)
+    outs = []
+    for c in range(n):
+        r_c, k_c, v_c, lw_c = rs[:, c], ks[:, c], vs[:, c], lws[:, c]  # [B, L, H, Dh]
+        la = torch.cumsum(lw_c, dim=1)  # inclusive log-decay products
+        q_ = r_c * torch.exp(la - lw_c)  # r_t * A_{t-1}
+        k_ = k_c * torch.exp(-la)  # k_s / A_s
+        scores = torch.einsum("blhd,bmhd->bhlm", q_, k_) * tri
+        diag = torch.einsum("blhd,hd,blhd->bhl", r_c, u32, k_c)
+        scores = scores + torch.einsum("bhl,lm->bhlm", diag, eye)
+        intra = torch.einsum("bhlm,bmhd->blhd", scores, v_c)
+        cross = torch.einsum("blhd,bhde->blhe", q_, state)
+        outs.append(intra + cross)
+        la_last = la[:, -1]  # [B, H, Dh]
+        kd = k_c * torch.exp(la_last[:, None] - la)
+        state = state * torch.exp(la_last)[..., None] + torch.einsum("blhd,blhe->bhde", kd, v_c)
+    out = torch.stack(outs, dim=1).reshape(b, s, h, dh)
+    return out.to(r.dtype), state
+
+
+def rwkv6_step(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+    u: torch.Tensor, state: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single-token decode. Inputs [B, H, Dh]; state [B, H, Dh, Dh] fp32.
+    Returns (out [B, H, Dh] fp32, new state)."""
+    r, k, v, logw = (t.float() for t in (r, k, v, logw))
+    kv = k[..., :, None] * v[..., None, :]
+    out = torch.einsum("bhd,bhde->bhe", r, state + u.float()[None, :, :, None] * kv)
+    new_state = torch.exp(logw)[..., :, None] * state + kv
+    return out, new_state

@@ -1,15 +1,20 @@
-"""The dense attention stack of ``repro.models.transformer``, in PyTorch.
+"""The dense attention and RWKV6 stacks of ``repro.models.transformer``,
+in PyTorch.
 
 Layers of ``LayerKind("attn", moe=False)`` (dense GQA, optional qk-norm,
-RoPE, SwiGLU, tied or separate LM head). Weights keep the reference layout:
-``[in, out]`` matrices applied as ``x @ W``, stacked along a leading
-``n_repeats`` axis per pattern position, under the same nested keys; the
-stack runs as a Python loop over the repeats.
+RoPE, SwiGLU, tied or separate LM head) and ``LayerKind("rwkv6")`` (time mix
+with token shift, LoRA decay and the WKV recurrence, then channel mix).
+Weights keep the reference layout: ``[in, out]`` matrices applied as
+``x @ W``, stacked along a leading ``n_repeats`` axis per pattern position,
+under the same nested keys; the stack runs as a Python loop over the repeats.
 
 Three entry points: ``forward_train`` (full causal sequence, forward only),
-``prefill`` (returns the KV caches and the last position's logits) and
-``decode_step`` (one token against the caches). Decode state per pattern
-position: ``{"k", "v"}`` caches [n_repeats, B, S_cache, KV, Dh].
+``prefill`` (returns the decode state and the last position's logits) and
+``decode_step`` (one token against the state). Decode state per pattern
+position, stacked along a leading ``n_repeats`` axis:
+  attn  : ``{"k", "v"}`` caches [B, S_cache, KV, Dh]
+  rwkv6 : ``{"wkv"}`` state [B, H, Dh, Dh] fp32 and token-shift carries
+          ``{"shift_t", "shift_c"}`` [B, D]
 
 Prefill and train attention go through the flash-attention kernel when
 ``use_pallas`` selects it, else through the plain blockwise ``attention``.
@@ -17,6 +22,13 @@ The reference also needs the sequence length to be a multiple of 64, for
 its Pallas tiling; the CUDA kernel masks ragged tiles, so the port takes
 the kernel at any length. Unlike the reference, whose kernel branch returns
 no KV cache (ROADMAP.md §C), both branches build the prefill cache.
+
+Prefill and train WKV recurrences go through the RWKV6 kernel when
+``use_pallas`` selects it, with logw cast to the model dtype as the reference
+does, else through ``ssm.rwkv6_chunked`` (logw in fp32). The reference takes
+its kernel only when the length is a multiple of its chunk (16); the CUDA
+kernel loops over time steps and stops at S, so the port takes the kernel at
+any length. Decode runs ``ssm.rwkv6_step``.
 """
 from __future__ import annotations
 
@@ -24,8 +36,9 @@ from dataclasses import dataclass
 
 import torch
 
-from ..configs.base import ModelConfig
-from ..kernels.ops import flash_attention
+from ..configs.base import LayerKind, ModelConfig
+from ..kernels.ops import flash_attention, rwkv6
+from . import ssm
 from .attention import attention, cache_insert, decode_attention
 from .layers import apply_rope, rmsnorm, swiglu
 from .params import ParamDef
@@ -39,8 +52,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.mrope_sections or cfg.vision_len_ratio:
         raise NotImplementedError("M-RoPE and vision inputs: ROADMAP.md §A item 7")
     for kind in cfg.pattern:
-        if kind.mixer == "rwkv6":
-            raise NotImplementedError("rwkv6 mixers: ROADMAP.md §A item 4")
         if kind.mixer == "mamba":
             raise NotImplementedError("mamba mixers: ROADMAP.md §A item 5")
         if kind.moe:
@@ -72,8 +83,33 @@ def _attn_defs(cfg: ModelConfig) -> dict:
     return d
 
 
-def _block_defs(cfg: ModelConfig) -> dict:
+def _rwkv_defs(cfg: ModelConfig) -> dict:
+    H, Dh, D, F = cfg.n_heads, cfg.head_dim, cfg.d_model, cfg.d_ff
+    lora = 64
+    return {
+        "tm_mu": ParamDef((5, D), "zeros"),
+        "tm_wr": ParamDef((D, H * Dh)),
+        "tm_wk": ParamDef((D, H * Dh)),
+        "tm_wv": ParamDef((D, H * Dh)),
+        "tm_wg": ParamDef((D, H * Dh)),
+        "tm_wo": ParamDef((H * Dh, D)),
+        "tm_w0": ParamDef((D,), "normal", 1.0),
+        "tm_w1": ParamDef((D, lora), "zeros"),
+        "tm_w2": ParamDef((lora, D), "zeros"),
+        "tm_u": ParamDef((H, Dh), "normal", 0.5),
+        "tm_ln": ParamDef((H * Dh,), "ones"),
+        "cm_mu": ParamDef((2, D), "zeros"),
+        "cm_k": ParamDef((D, F)),
+        "cm_v": ParamDef((F, D)),
+        "cm_r": ParamDef((D, D)),
+    }
+
+
+def _block_defs(cfg: ModelConfig, kind: LayerKind) -> dict:
     D, F = cfg.d_model, cfg.d_ff
+    if kind.mixer == "rwkv6":  # time mix + channel mix, no swiglu
+        return {"ln1": ParamDef((D,), "ones"), "rwkv": _rwkv_defs(cfg),
+                "ln2": ParamDef((D,), "ones")}
     return {
         "ln1": ParamDef((D,), "ones"),
         "attn": _attn_defs(cfg),
@@ -98,7 +134,7 @@ def param_defs(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((D, Vp), "normal", 0.02)
-    blocks = {f"p{i}": _block_defs(cfg) for i, _ in enumerate(cfg.pattern)}
+    blocks = {f"p{i}": _block_defs(cfg, kind) for i, kind in enumerate(cfg.pattern)}
     defs["blocks"] = _stack(blocks, cfg.n_repeats)
     return defs
 
@@ -176,8 +212,61 @@ def _prefill_kv_cache(cfg: ModelConfig, ctx: Ctx, k: torch.Tensor, v: torch.Tens
     return {"k": build(k), "v": build(v)}
 
 
-def apply_block(cfg: ModelConfig, p: dict, x: torch.Tensor, ctx: Ctx, cache):
-    """One pattern-position layer (dense attention). Returns (x, new_cache)."""
+def _shift(x: torch.Tensor, prev: torch.Tensor | None) -> torch.Tensor:
+    """Token shift: x_{t-1} with ``prev`` as the t=0 predecessor."""
+    if prev is None:
+        prev = torch.zeros_like(x[:, :1])
+    return torch.cat([prev.to(x.dtype), x[:, :-1]], dim=1)
+
+
+def _rwkv_block(cfg: ModelConfig, p: dict, x: torch.Tensor, ctx: Ctx, cache):
+    """RWKV6 layer: time mix + channel mix (its own FFN form). Returns
+    (x, new_cache)."""
+    pr = p["rwkv"]
+    H, Dh = cfg.n_heads, cfg.head_dim
+    B, S, _ = x.shape
+    # ---- time mix
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    dh = _shift(h, cache["shift_t"][:, None, :] if cache else None) - h
+    mu = pr["tm_mu"]
+
+    def lerp(i):
+        return h + dh * mu[i]
+
+    r = (lerp(0) @ pr["tm_wr"]).reshape(B, S, H, Dh)
+    k = (lerp(1) @ pr["tm_wk"]).reshape(B, S, H, Dh)
+    v = (lerp(2) @ pr["tm_wv"]).reshape(B, S, H, Dh)
+    w_raw = pr["tm_w0"] + torch.tanh(lerp(3) @ pr["tm_w1"]) @ pr["tm_w2"]
+    logw = ssm.rwkv6_decay(w_raw).reshape(B, S, H, Dh)
+    g = torch.nn.functional.silu(lerp(4) @ pr["tm_wg"])
+    state0 = cache["wkv"] if cache else None
+    if ctx.mode == "decode":
+        out1, wkv = ssm.rwkv6_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0], pr["tm_u"], state0)
+        out = out1[:, None].to(x.dtype)
+    elif _use_kernels(cfg, r):
+        out, wkv = rwkv6(r, k, v, logw.to(r.dtype), pr["tm_u"], state0)
+    else:
+        out, wkv = ssm.rwkv6_chunked(r, k, v, logw, pr["tm_u"], state0)
+    out = rmsnorm(out.reshape(B, S, H * Dh), pr["tm_ln"], cfg.norm_eps) * g
+    x = x + out @ pr["tm_wo"]
+    # ---- channel mix
+    h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    dh2 = _shift(h2, cache["shift_c"][:, None, :] if cache else None) - h2
+    cmu = pr["cm_mu"]
+    xk = h2 + dh2 * cmu[0]
+    xr = h2 + dh2 * cmu[1]
+    kk = torch.square(torch.relu(xk @ pr["cm_k"]))
+    x = x + torch.sigmoid(xr @ pr["cm_r"]) * (kk @ pr["cm_v"])
+    new_cache = {}
+    if ctx.mode in ("prefill", "decode"):
+        new_cache = {"wkv": wkv, "shift_t": h[:, -1, :], "shift_c": h2[:, -1, :]}
+    return x, new_cache
+
+
+def apply_block(cfg: ModelConfig, kind: LayerKind, p: dict, x: torch.Tensor, ctx: Ctx, cache):
+    """One pattern-position layer. Returns (x, new_cache)."""
+    if kind.mixer == "rwkv6":
+        return _rwkv_block(cfg, p, x, ctx, cache)
     mix, new_cache = _self_attention(cfg, p, x, ctx, cache)
     x = x + mix
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
@@ -192,14 +281,20 @@ def _at(tree: dict, i: int) -> dict:
 
 def _run_blocks(cfg: ModelConfig, blocks: dict, x: torch.Tensor, ctx: Ctx, caches=None):
     """Loop over the stacked repeats. Returns (x, caches): in decode the
-    given caches, updated in place; in prefill new caches stacked along the
-    repeat axis; in train None."""
+    given caches, updated in place (the KV caches by ``cache_insert``, the
+    RWKV state and carries by copying each layer's new values in); in
+    prefill new caches stacked along the repeat axis; in train None."""
     new = {f"p{i}": [] for i in range(len(cfg.pattern))}
     for rep in range(cfg.n_repeats):
-        for key, layers in new.items():
+        for kind, (key, layers) in zip(cfg.pattern, new.items()):
             c_in = _at(caches[key], rep) if caches is not None else None
-            x, nc = apply_block(cfg, _at(blocks[key], rep), x, ctx, c_in)
-            layers.append(nc)
+            x, nc = apply_block(cfg, kind, _at(blocks[key], rep), x, ctx, c_in)
+            if ctx.mode == "decode":
+                for name, t in nc.items():
+                    if t is not c_in[name]:
+                        c_in[name].copy_(t)
+            else:
+                layers.append(nc)
     if ctx.mode == "decode":
         return x, caches
     if ctx.mode == "prefill":

@@ -30,8 +30,9 @@ def _flatten(tree, prefix=""):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_jax_tree_converts_bit_for_bit(dtype):
-    cfg = jconfigs.get_smoke(ARCH)
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_jax_tree_converts_bit_for_bit(arch, dtype):
+    cfg = jconfigs.get_smoke(arch)
     defs = JT.param_defs(cfg)
     tree = jax.tree.map(np.asarray, jax_init_params(defs, seed=0, dtype=getattr(jnp, dtype)))
     converted = params_from_numpy(tree, device="cpu")
@@ -46,11 +47,12 @@ def test_jax_tree_converts_bit_for_bit(dtype):
         )
 
 
-def test_port_param_defs_match_reference():
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_port_param_defs_match_reference(arch):
     """Same /-paths, shapes and init kinds; the port's own init fills the
     same tree."""
-    jdefs = dict(jax_tree_paths(JT.param_defs(jconfigs.get_smoke(ARCH))))
-    cfg = configs.get_smoke(ARCH)
+    jdefs = dict(jax_tree_paths(JT.param_defs(jconfigs.get_smoke(arch))))
+    cfg = configs.get_smoke(arch)
     tdefs = dict(tree_paths(T.param_defs(cfg)))
     assert list(tdefs) == list(jdefs)
     for path, d in tdefs.items():

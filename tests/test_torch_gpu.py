@@ -1,5 +1,5 @@
-"""Tests of the port that need the card: the CUDA kernel against its plain
-version, and the smoke model with the kernel on against off. They skip
+"""Tests of the port that need the card: the CUDA kernels against their plain
+versions, and the smoke models with the kernels on against off. They skip
 without a CUDA device; run them on the card with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
+from repro_torch.kernels.rwkv6 import rwkv6_fwd  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.params import init_params  # noqa: E402
 from repro_torch.train.steps import make_prefill_step  # noqa: E402
@@ -83,4 +84,81 @@ def test_smoke_prefill_kernel_on_matches_off(cuda, prompt):
     assert flash_attention_fwd.launches == before + cfg.n_layers
     torch.testing.assert_close(l_on, l_off, rtol=2e-3, atol=2e-3)
     for name in ("k", "v"):
+        torch.testing.assert_close(c_on["p0"][name], c_off["p0"][name], rtol=2e-3, atol=2e-3)
+
+
+# tests/test_kernels.py:94-95 (b, s, h, dh), then a ragged length at the smoke
+# config's head dim (started from a zero state) and the serving head count.
+RWKV_SHAPES = [(2, 64, 2, 32), (1, 128, 4, 64), (1, 32, 1, 128), (2, 40, 4, 16), (1, 37, 32, 64)]
+RWKV_STATE_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=3e-3, atol=3e-3)}
+
+
+def _rwkv_inputs(shape, dtype, device):
+    """tests/test_kernels.py's inputs: logw = -|N(0, 1)| - 0.05 in the dtype,
+    u fp32, state0 ~ N(0, 0.3) fp32 (None for the ragged shapes)."""
+    b, s, h, dh = shape
+    rng = np.random.default_rng(42)
+    dt = getattr(torch, dtype)
+
+    def t(x, d=dt):
+        return torch.from_numpy(x.astype(np.float32)).to(device, d)
+
+    r, k, v = (t(rng.normal(0, 1, shape)) for _ in range(3))
+    logw = t(-np.abs(rng.normal(0, 1, shape)) - 0.05)
+    u = t(rng.normal(0, 1, (h, dh)), torch.float32)
+    s0 = t(rng.normal(0, 0.3, (b, h, dh, dh)), torch.float32) if s % 16 == 0 else None
+    return r, k, v, logw, u, s0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", RWKV_SHAPES)
+def test_rwkv6_kernel_matches_plain_version(cuda, shape, dtype):
+    r, k, v, logw, u, s0 = _rwkv_inputs(shape, dtype, cuda)
+    before = rwkv6_fwd.launches
+    out, state = ops.rwkv6(r, k, v, logw, u, s0)
+    torch.cuda.synchronize()
+    assert rwkv6_fwd.launches == before + 1
+    assert out.dtype == r.dtype and out.shape == r.shape and state.dtype == torch.float32
+    want_out, want_state = ref.rwkv6_ref(r, k, v, logw, u, s0)
+    np.testing.assert_allclose(out.float().cpu().numpy(), want_out.float().cpu().numpy(), **TOL[dtype])
+    np.testing.assert_allclose(state.cpu().numpy(), want_state.cpu().numpy(), **RWKV_STATE_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_rwkv6_kernel_rejects_what_it_does_not_take(cuda):
+    r, k, v, logw, u, s0 = _rwkv_inputs((1, 32, 2, 32), "float32", cuda)
+    with pytest.raises(ValueError, match="CUDA device"):
+        rwkv6_fwd(r.cpu(), k.cpu(), v.cpu(), logw.cpu(), u.cpu(), s0.cpu())
+    with pytest.raises(ValueError, match="CUDA device"):
+        rwkv6_fwd(r, k, v, logw, u, s0.cpu())
+    with pytest.raises(ValueError, match="float32 or bfloat16 alike"):
+        rwkv6_fwd(r, k, v, logw.bfloat16(), u, s0)
+    with pytest.raises(ValueError, match="float32 or bfloat16 alike"):
+        rwkv6_fwd(*(t.half() for t in (r, k, v, logw)), u, s0)
+    strided = torch.zeros(1, 32, 2, 64, device=cuda)[..., ::2]  # head dim with stride 2
+    with pytest.raises(ValueError, match="must be contiguous"):
+        rwkv6_fwd(strided, k, v, logw, u, s0)
+    with pytest.raises(ValueError, match="head dim"):
+        rwkv6_fwd(*(torch.zeros(1, 8, 2, 48, device=cuda) for _ in range(4)),
+                  torch.zeros(2, 48, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prompt", [64, 40])
+def test_smoke_rwkv6_prefill_kernel_on_matches_off(cuda, prompt):
+    """fp32 rwkv6 smoke prefill with the kernel against the chunked plain
+    path (the naive one at 40), on the card, at tests/test_pallas_model_parity.py's
+    2e-3 bar: last logits and every layer's state and carries."""
+    cfg = configs.get_smoke("rwkv6_1_6b").replace(use_pallas="off")
+    params = init_params(T.param_defs(cfg), seed=0, dtype=torch.float32, device=cuda)
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (2, prompt))).to(cuda)
+    c_off, l_off = make_prefill_step(cfg, prompt + 8)(params, {"tokens": tokens})
+    before = rwkv6_fwd.launches
+    c_on, l_on = make_prefill_step(cfg.replace(use_pallas="auto"), prompt + 8)(
+        params, {"tokens": tokens})
+    assert rwkv6_fwd.launches == before + cfg.n_layers
+    torch.testing.assert_close(l_on, l_off, rtol=2e-3, atol=2e-3)
+    for name in ("wkv", "shift_t", "shift_c"):
         torch.testing.assert_close(c_on["p0"][name], c_off["p0"][name], rtol=2e-3, atol=2e-3)

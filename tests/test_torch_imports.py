@@ -62,7 +62,6 @@ def test_registry_names_the_roadmap_item_for_unported_archs():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(ssm="rwkv6"), "item 4"),
     (dict(attn_period=2, attn_offset=1), "item 5"),
     (dict(moe=MoEConfig(n_experts=4)), "item 6"),
     (dict(enc_dec=True, n_enc_layers=2), "item 7"),
