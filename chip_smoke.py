@@ -9,8 +9,9 @@ Phases; any failure exits non-zero before the result lines are printed.
   2. build        — builds every CUDA source of the port with nvcc, all at once,
                     and prints each one's ptxas registers and spills.
   3. kernel flash — holds the flash-attention kernel against its plain version
-                    at the serving shape and the six shapes of the kernel tests,
-                    and times the kernel, the plain version and PyTorch's SDPA.
+                    at qwen3's and jamba's serving shapes and the six shapes of
+                    the kernel tests, and times the kernel, the plain version
+                    and PyTorch's SDPA at both serving shapes.
   4. kernel rwkv6 — holds the RWKV6 WKV kernel against its plain version at the
                     serving shape, the three shapes of the kernel tests and a
                     ragged length, fp32 and bf16, and times the kernel and the
@@ -23,12 +24,26 @@ Phases; any failure exits non-zero before the result lines are printed.
                     kernel must have launched once per layer per prefill.
   8. parity rwkv6 — full-width fp32 prefill, B=2 x 512, kernel on against off
                     (the chunked plain path): last logits and every layer's state.
-Then one JSON line with the kernels' numbers, the card's name and power
-limit, and the final line {"ok": true, "device": {...}}.
+  9. kernel mamba — holds the Mamba selective-scan kernel against its plain
+                    version at jamba's serving shape, the two shapes of the
+                    kernel tests and a ragged length, fp32 and bf16, and times
+                    the kernel and the plain version (no single PyTorch call
+                    computes the scan).
+ 10. serve jamba  — jamba-1.5-large at full width without its experts, depth
+                    cut from 72 to 16 layers (2 repeats), the same shape; the
+                    Mamba kernel must have launched once per Mamba layer and
+                    the flash kernel once per attention layer per prefill.
+ 11. parity jamba — full-width fp32 prefill at one repeat (8 layers), B=2 x
+                    512, kernels on against off: last logits, every Mamba
+                    layer's state and conv tail, the attention layer's k/v.
+Each serve phase sets every kernel's count to 0 just before it serves and
+reads the counts just after. Then one JSON line with the kernels' numbers,
+the card's name and power limit, and the final line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import re
 import subprocess
@@ -43,10 +58,12 @@ H100_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense; fp32 outside the t
 FP32_TOL = 2e-5  # tests/test_kernels.py: fp32 kernel against its reference
 BF16_TOL = 2e-2  # tests/test_kernels.py: bf16
 STATE_TOL = {"float32": 1e-4, "bfloat16": 3e-3}  # tests/test_kernels.py:110-111: the WKV state
+MAMBA_STATE_TOL = 1e-3  # tests/test_kernels.py:144-145: the Mamba state, fp32 and bf16
 PARITY_TOL = 2e-3  # tests/test_pallas_model_parity.py: kernels on vs off, fp32 logits
 
 # (B, Sq, Sk, H, KV, Dh, causal, window): the serving shape, then tests/test_kernels.py:29-38.
 SERVE_SHAPE = (8, 512, 512, 16, 8, 128, True, None)
+JAMBA_ATTN_SHAPE = (8, 512, 512, 64, 8, 128, True, None)  # jamba's attention layer: GQA group 8
 TEST_SHAPES = [
     (2, 128, 128, 4, 4, 64, True, None),
     (1, 256, 256, 8, 2, 64, True, None),
@@ -58,7 +75,12 @@ TEST_SHAPES = [
 # (B, S, H, Dh): rwkv6-1.6B's serving shape, tests/test_kernels.py:94-95, a ragged length.
 RWKV_SERVE_SHAPE = (8, 512, 32, 64)
 RWKV_SHAPES = [RWKV_SERVE_SHAPE, (2, 64, 2, 32), (1, 128, 4, 64), (1, 32, 1, 128), (2, 40, 4, 16)]
+# (B, S, Di, St): jamba's serving shape, tests/test_kernels.py:130, a ragged length.
+MAMBA_SERVE_SHAPE = (8, 512, 16384, 16)
+MAMBA_SHAPES = [MAMBA_SERVE_SHAPE, (2, 64, 64, 8), (1, 128, 256, 16), (2, 40, 96, 4)]
 SERVE = dict(batch=8, prompt_len=512, gen=32)
+JAMBA = "jamba_1_5_large_398b"
+JAMBA_CUTS = {"moe": None, "n_layers": 16}  # MoE is not ported; 16 of 72 layers fit the card
 
 
 def fail(msg: str) -> None:
@@ -121,15 +143,28 @@ def rwkv6_bound_ms(r, u, state0) -> tuple[float, str]:
     return bound(nbytes, 4 * (16 * d + d * d) * b * h * s, "float32")
 
 
-def ptxas_report(log: str) -> list[str]:
-    """'<dtype> Dh=<d>: <n> registers[, <b> B spilled]' per kernel instantiation
-    in nvcc's -Xptxas -v report."""
+def mamba_bound_ms(u, A, B_) -> tuple[float, str]:
+    """Least time for the selective scan from a zero state on an H100: u,
+    dt, B, C and A read once, y and the final h written once, against 6 fp32
+    operations per state update (dt A, its exponential, the decay, dt u B,
+    the add, h C) at the fp32 rate of the CUDA cores."""
+    b, s, di = u.shape
+    st = A.shape[1]
+    nbytes = 3 * u.numel() * u.element_size() + 2 * B_.numel() * B_.element_size()
+    nbytes += A.numel() * 4 + b * di * st * 4
+    return bound(nbytes, 6 * b * s * di * st, "float32")
+
+
+def ptxas_report(log: str, dim: str) -> list[str]:
+    """'<dtype> <dim>=<d>: <n> registers[, <b> B spilled]' per kernel
+    instantiation in nvcc's -Xptxas -v report; ``dim`` names the template's
+    integer parameter."""
     out, inst, spilled = [], None, ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             m = re.search(r"kernelI(.*?)E+v", ln)
-            inst = m.group(1).replace("13__nv_bfloat16", "bf16 ").replace("Li", "Dh=") if m else ln
-            inst = "fp32 " + inst[1:] if inst.startswith("fDh=") else inst
+            inst = m.group(1).replace("13__nv_bfloat16", "bf16 ").replace("Li", f"{dim}=") if m else ln
+            inst = "fp32 " + inst[1:] if inst.startswith(f"f{dim}=") else inst
             spilled = ""
         elif inst and "bytes spill stores" in ln:
             n = int(ln.split(" bytes spill stores")[0].split(",")[-1])
@@ -149,19 +184,36 @@ def check_close(torch, name: str, got, want, tol: float) -> float:
     return err
 
 
-def serve_phase(torch, serve, configs, arch: str, counter, dev, seed: int):
-    """Serve at full width with the kernel's count set to 0 just before and
-    read just after; fails unless it launched once per layer per prefill."""
-    cfg = configs.get(arch)
-    counter.launches = 0
-    res = serve.run(arch, full=True, device=dev, dtype="bfloat16", seed=seed, **SERVE)
-    launches = counter.launches
-    print(f"serve {arch} bf16 B=8 prompt=512 gen=32: prefill {res.prefill_ms:.2f} ms, "
+def serve_phase(torch, serve, configs, arch: str, kernels: dict, dev, seed: int,
+                overrides: dict | None = None):
+    """Serve at full width (with the config ``overrides``) with every kernel's
+    count set to 0 just before and read just after. ``kernels`` maps a mixer
+    kind to the wrapper of its kernel; fails unless each launched once per
+    layer of its kind per prefill, and none launched for a kind the model
+    lacks. Returns (cfg, result, {wrapper name: launches})."""
+    cfg = configs.get(arch).replace(**(overrides or {}))
+    for counter in kernels.values():
+        counter.launches = 0
+    res = serve.run(arch, full=True, device=dev, dtype="bfloat16", seed=seed,
+                    overrides=overrides, **SERVE)
+    launches = {counter.__name__: counter.launches for counter in kernels.values()}
+
+    def show(v):
+        return getattr(v, "n_experts", v) if v is not None else 0
+
+    cuts = "".join(f", {'experts' if k == 'moe' else k} {show(getattr(configs.get(arch), k))} -> {show(v)}"
+                   for k, v in (overrides or {}).items())
+    print(f"serve {arch}{cuts} bf16 B=8 prompt=512 gen=32: prefill {res.prefill_ms:.2f} ms, "
           f"decode p50 {res.decode_p50_ms:.3f} ms p95 {res.decode_p95_ms:.3f} ms, "
           f"{res.tokens_per_s:.1f} tok/s, peak memory {res.peak_memory_bytes / 2**30:.3f} GiB, "
-          f"{counter.__name__} launches {launches} over {res.prefills} prefills (warm-up included)")
-    if launches == 0 or launches != cfg.n_layers * res.prefills:
-        fail(f"{counter.__name__} launched {launches} times, expected {cfg.n_layers} per prefill")
+          f"launches over {res.prefills} prefills (warm-up included): {launches}")
+    for mixer, counter in kernels.items():
+        per_prefill = cfg.n_repeats * sum(kind.mixer == mixer for kind in cfg.pattern)
+        if launches[counter.__name__] != per_prefill * res.prefills:
+            fail(f"{counter.__name__} launched {launches[counter.__name__]} times, expected "
+                 f"{per_prefill} per prefill ({mixer} layers)")
+    if not any(launches.values()):
+        fail(f"serving {arch} launched no kernel")
     if res.tokens.shape != (SERVE["batch"], SERVE["gen"]):
         fail(f"tokens of shape {tuple(res.tokens.shape)}, expected (8, 32)")
     if not (0 <= int(res.tokens.min()) and int(res.tokens.max()) < cfg.vocab_size):
@@ -201,6 +253,7 @@ def main() -> None:
     from repro_torch import configs
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.mamba import mamba_scan_fwd
     from repro_torch.kernels.rwkv6 import rwkv6_fwd
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
@@ -213,7 +266,7 @@ def main() -> None:
     for name in build.sources():
         log = build.build_log(name)
         print(f"{name}: {log.splitlines()[0] if log else 'library already built'}; ptxas: "
-              + "; ".join(ptxas_report(log)))
+              + "; ".join(ptxas_report(log, "St" if name == "mamba" else "Dh")))
     print(f"build phase {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -226,9 +279,9 @@ def main() -> None:
         return [torch.randn(s, generator=gen, device=dev).to(dtype)
                 for s in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d))]
 
-    flash_err = None
+    flash_err = {}
     for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
-        for shape in [SERVE_SHAPE] + TEST_SHAPES:
+        for shape in [SERVE_SHAPE, JAMBA_ATTN_SHAPE] + TEST_SHAPES:
             causal, window = shape[6], shape[7]
             q, k, v = inputs(shape, dtype)
             got = flash_attention_fwd(q, k, v, causal=causal, window=window)
@@ -236,20 +289,30 @@ def main() -> None:
             err = check_close(torch, f"flash_attention_fwd {shape} {dtype}", got,
                               ref.attention_ref(q, k, v, causal, window), tol)
             print(f"  {str(dtype):15s} {shape}: max_abs_err {err:.3g} (tol {tol}) ok")
-            if shape == SERVE_SHAPE and dtype == torch.bfloat16:
-                flash_err = err
-    q, k, v = inputs(SERVE_SHAPE, torch.bfloat16)
-    causal = SERVE_SHAPE[6]
-    flash_ms = time_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=causal))
-    flash_plain_ms = time_ms(torch, lambda: ref.attention_ref(q, k, v, causal))
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    flash_library_ms = time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal, enable_gqa=True))
-    flash_bound_ms, flash_bound_by = attention_bound_ms(SERVE_SHAPE, "bfloat16", 2)
-    print(f"flash_attention_fwd at {SERVE_SHAPE} bf16: kernel {flash_ms:.4f} ms, plain "
-          f"{flash_plain_ms:.4f} ms, SDPA {flash_library_ms:.4f} ms, "
-          f"bound {flash_bound_ms:.4f} ms ({flash_bound_by})")
-    del q, k, v, qt, kt, vt
+            if dtype == torch.bfloat16:
+                flash_err[shape] = err
+
+    def time_flash(shape) -> dict:
+        """The kernel, its plain version and SDPA at a serving shape, bf16."""
+        q, k, v = inputs(shape, torch.bfloat16)
+        causal = shape[6]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        bound_ms, bound_by = attention_bound_ms(shape, "bfloat16", 2)
+        out = {
+            "max_abs_err": flash_err[shape],
+            "ms": time_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=causal)),
+            "plain_ms": time_ms(torch, lambda: ref.attention_ref(q, k, v, causal)),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)),
+        }
+        print(f"flash_attention_fwd at {shape} bf16: kernel {out['ms']:.4f} ms, plain "
+              f"{out['plain_ms']:.4f} ms, SDPA {out['library_ms']:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by})")
+        return out
+
+    flash_qwen3, flash_jamba = time_flash(SERVE_SHAPE), time_flash(JAMBA_ATTN_SHAPE)
     print(f"kernel flash phase {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------ 4. kernel rwkv6
@@ -292,8 +355,9 @@ def main() -> None:
 
     # ------------------------------------------------------- 5. serve qwen3
     t0 = phase("serve qwen3")
-    cfg, qwen_res, flash_launches = serve_phase(
-        torch, serve, configs, "qwen3_0_6b", flash_attention_fwd, dev, args.seed)
+    all_kernels = {"attn": flash_attention_fwd, "rwkv6": rwkv6_fwd, "mamba": mamba_scan_fwd}
+    cfg, qwen_res, qwen_launches = serve_phase(
+        torch, serve, configs, "qwen3_0_6b", all_kernels, dev, args.seed)
     print(f"serve qwen3 phase {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------ 6. parity qwen3
@@ -323,7 +387,7 @@ def main() -> None:
     # ------------------------------------------------------- 7. serve rwkv6
     t0 = phase("serve rwkv6")
     cfg, rwkv_res, rwkv_launches = serve_phase(
-        torch, serve, configs, "rwkv6_1_6b", rwkv6_fwd, dev, args.seed)
+        torch, serve, configs, "rwkv6_1_6b", all_kernels, dev, args.seed)
     print(f"serve rwkv6 phase {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------ 8. parity rwkv6
@@ -351,34 +415,139 @@ def main() -> None:
         if not torch.allclose(c_on["p0"][n], c_off["p0"][n], rtol=PARITY_TOL, atol=PARITY_TOL):
             fail(f"kernel-on rwkv6 prefill {n} disagrees with kernel-off")
     del params, c_off, c_on
-    print(f"parity rwkv6 phase {time.perf_counter() - t0:.1f} s; "
+    print(f"parity rwkv6 phase {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------------ 9. kernel mamba
+    t0 = phase("kernel mamba")
+    gc.collect()
+    torch.cuda.empty_cache()  # the earlier phases' models are gone; give their memory back
+
+    def mamba_inputs(shape, dtype):
+        """tests/test_kernels.py:133-139's inputs: u, B, C ~ N(0, 1) and
+        dt = 0.1 |N(0, 1)| in the dtype, A = -|N(0, 1)| fp32, h0 ~ N(0, 0.3)
+        fp32 (None at the ragged length)."""
+        b, s, di, st = shape
+        u = torch.randn((b, s, di), generator=gen, device=dev).to(dtype)
+        dt = (0.1 * torch.randn((b, s, di), generator=gen, device=dev).abs()).to(dtype)
+        A = -torch.randn((di, st), generator=gen, device=dev).abs()
+        B_, C_ = (torch.randn((b, s, st), generator=gen, device=dev).to(dtype) for _ in range(2))
+        h0 = 0.3 * torch.randn((b, di, st), generator=gen, device=dev) if s % 64 == 0 else None
+        return u, dt, A, B_, C_, h0
+
+    mamba_err = None
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        for shape in MAMBA_SHAPES:
+            args_ = mamba_inputs(shape, dtype)
+            y, h = mamba_scan_fwd(*args_)
+            torch.cuda.synchronize()
+            want_y, want_h = ref.mamba_ref(*args_)
+            err = check_close(torch, f"mamba_scan_fwd y {shape} {dtype}", y, want_y, tol)
+            h_err = check_close(torch, f"mamba_scan_fwd h {shape} {dtype}", h, want_h,
+                                MAMBA_STATE_TOL)
+            print(f"  {str(dtype):15s} {shape}: y max_abs_err {err:.3g} (tol {tol}), h "
+                  f"{h_err:.3g} (tol {MAMBA_STATE_TOL}) ok")
+            if shape == MAMBA_SERVE_SHAPE and dtype == torch.bfloat16:
+                mamba_err = err
+    # as the model calls it: B and C strided views of one projection, no h0
+    u, dt, A, _, _, _ = mamba_inputs(MAMBA_SERVE_SHAPE, torch.bfloat16)
+    st = MAMBA_SERVE_SHAPE[3]
+    dbl = torch.randn(u.shape[:2] + (u.shape[2] // 16 + 2 * st,), generator=gen, device=dev).to(u.dtype)
+    B_, C_ = dbl[..., -2 * st : -st], dbl[..., -st:]
+    mamba_ms = time_ms(torch, lambda: mamba_scan_fwd(u, dt, A, B_, C_))
+    mamba_plain_ms = time_ms(torch, lambda: ref.mamba_ref(u, dt, A, B_, C_), iters=3, warmup=1)
+    mamba_bound, mamba_bound_by = mamba_bound_ms(u, A, B_)
+    print(f"mamba_scan_fwd at {MAMBA_SERVE_SHAPE} bf16, B and C strided, no h0: kernel "
+          f"{mamba_ms:.4f} ms, plain {mamba_plain_ms:.4f} ms, bound {mamba_bound:.4f} ms "
+          f"({mamba_bound_by}); no single PyTorch call computes it")
+    del u, dt, A, B_, C_, dbl, args_
+    print(f"kernel mamba phase {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------------- 10. serve jamba
+    t0 = phase("serve jamba")
+    torch.cuda.empty_cache()
+    cfg, jamba_res, jamba_launches = serve_phase(
+        torch, serve, configs, JAMBA, all_kernels, dev, args.seed, overrides=JAMBA_CUTS)
+    print(f"serve jamba phase {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------------ 11. parity jamba
+    t0 = phase("parity jamba")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg32 = cfg.replace(use_pallas="off", n_layers=len(cfg.pattern))
+    params = init_params(T.param_defs(cfg32), seed=args.seed, dtype=torch.float32, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 512), generator=gen, device=dev)
+    c_off, l_off = make_prefill_step(cfg32, cache_len)(params, {"tokens": tokens})
+    for counter in all_kernels.values():
+        counter.launches = 0
+    c_on, l_on = make_prefill_step(cfg32.replace(use_pallas="on"), cache_len)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    n_mamba = sum(kind.mixer == "mamba" for kind in cfg32.pattern)
+    if (mamba_scan_fwd.launches, flash_attention_fwd.launches) != (n_mamba, cfg32.n_layers - n_mamba):
+        fail(f"kernel-on jamba prefill launched mamba_scan_fwd {mamba_scan_fwd.launches} and "
+             f"flash_attention_fwd {flash_attention_fwd.launches} times, expected "
+             f"{n_mamba} and {cfg32.n_layers - n_mamba}")
+    logit_err = (l_on - l_off).abs().max().item()
+    state_err: dict[str, float] = {}
+    for key, layer in zip(c_off, cfg32.pattern):
+        for n in c_off[key]:
+            err = (c_on[key][n] - c_off[key][n]).abs().max().item()
+            state_err[n] = max(state_err.get(n, 0.0), err)
+            if not torch.allclose(c_on[key][n], c_off[key][n], rtol=PARITY_TOL, atol=PARITY_TOL):
+                fail(f"kernel-on jamba prefill {key}/{n} ({layer.mixer}) disagrees with kernel-off")
+    print(f"parity jamba fp32 {cfg32.n_layers} layers B=2 prompt=512: last logits max_abs_err "
+          f"{logit_err:.3g}, max_abs_err over the layers: "
+          + ", ".join(f"{n} {e:.3g}" for n, e in state_err.items()) + f" (tol {PARITY_TOL}); "
+          f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+    if set(state_err) != {"h", "conv", "k", "v"}:
+        fail(f"jamba prefill caches hold {sorted(state_err)}, expected h, conv, k, v")
+    if not bool(torch.isfinite(l_on).all()):
+        fail("kernel-on jamba prefill logits are not finite")
+    if not torch.allclose(l_on, l_off, rtol=PARITY_TOL, atol=PARITY_TOL):
+        fail("kernel-on jamba prefill logits disagree with kernel-off")
+    del params, c_off, c_on
+    print(f"parity jamba phase {time.perf_counter() - t0:.1f} s; "
           f"all phases {time.perf_counter() - t_all:.1f} s")
+
+    serve_runs = {"qwen3_0_6b": (qwen_res, qwen_launches), "rwkv6_1_6b": (rwkv_res, rwkv_launches),
+                  JAMBA: (jamba_res, jamba_launches)}
+
+    def launch_counts(name: str) -> dict:
+        """The kernel's launches over the serve runs, by path, and per prefill."""
+        by_path = {a: n[name] for a, (_, n) in serve_runs.items() if n[name]}
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path,
+                "launches_per_prefill": {a: by_path[a] // serve_runs[a][0].prefills for a in by_path}}
 
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:30",
-        "launches": flash_launches,
-        "launches_per_prefill": flash_launches // qwen_res.prefills,
-        "max_abs_err": flash_err,
-        "ms": flash_ms,
-        "plain_ms": flash_plain_ms,
-        "bound_ms": flash_bound_ms,
-        "bound_by": flash_bound_by,
-        "library_ms": flash_library_ms,
+        **launch_counts("flash_attention_fwd"),
+        **flash_qwen3,
+        "at_jamba_shape": flash_jamba,
     }, {
         "name": "rwkv6_fwd",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv6.cu",
         "replaces": "src/repro/kernels/rwkv6.py:24",
-        "launches": rwkv_launches,
-        "launches_per_prefill": rwkv_launches // rwkv_res.prefills,
+        **launch_counts("rwkv6_fwd"),
         "max_abs_err": rwkv_err,
         "ms": rwkv_ms,
         "plain_ms": rwkv_plain_ms,
         "bound_ms": rwkv_bound_ms,
         "bound_by": rwkv_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "mamba_scan_fwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba.cu",
+        "replaces": "src/repro/kernels/mamba.py:23",
+        **launch_counts("mamba_scan_fwd"),
+        "max_abs_err": mamba_err,
+        "ms": mamba_ms,
+        "plain_ms": mamba_plain_ms,
+        "bound_ms": mamba_bound,
+        "bound_by": mamba_bound_by,
         "library_ms": None,
     }]}))
     print(smi)

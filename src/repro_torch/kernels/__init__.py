@@ -6,6 +6,6 @@
   ref.py         — the plain versions the kernels are held against.
 """
 from . import ops, ref
-from .ops import flash_attention, rwkv6
+from .ops import flash_attention, mamba_scan, rwkv6
 
-__all__ = ["ops", "ref", "flash_attention", "rwkv6"]
+__all__ = ["ops", "ref", "flash_attention", "mamba_scan", "rwkv6"]

@@ -11,6 +11,7 @@ import torch
 
 from . import ref
 from .flash_attention import flash_attention_fwd
+from .mamba import mamba_scan_fwd
 from .rwkv6 import rwkv6_fwd
 
 
@@ -33,3 +34,15 @@ def rwkv6(
     if r.device.type == "cpu":
         return ref.rwkv6_ref(r, k, v, logw, u, state0)
     return rwkv6_fwd(r, k, v, logw, u, state0)
+
+
+def mamba_scan(
+    u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
+    h0: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """u, dt [B,S,Di]; A [Di,St] fp32; B_, C_ [B,S,St] in u's dtype; h0
+    [B,Di,St] fp32 or None (zeros). Returns (y [B,S,Di] in u's dtype, h
+    [B,Di,St] fp32)."""
+    if u.device.type == "cpu":
+        return ref.mamba_ref(u, dt, A, B_, C_, h0)
+    return mamba_scan_fwd(u, dt, A, B_, C_, h0)

@@ -60,3 +60,28 @@ def rwkv6_ref(
         out.append(torch.einsum("bhd,bhde->bhe", r32[:, t], S + u32 * kv))
         S = torch.exp(lw32[:, t])[..., None] * S + kv
     return torch.stack(out, dim=1).to(r.dtype), S
+
+
+def mamba_ref(
+    u: torch.Tensor,  # [B, S, Di]
+    dt: torch.Tensor,  # [B, S, Di]
+    A: torch.Tensor,  # [Di, St]
+    B_: torch.Tensor,  # [B, S, St]
+    C_: torch.Tensor,  # [B, S, St]
+    h0: torch.Tensor | None = None,  # [B, Di, St] fp32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequential selective scan in fp32:
+    h_t = exp(dt_t A) h_{t-1} + (dt_t u_t) B_t; y_t = h_t · C_t.
+    Returns (y [B, S, Di] in u's dtype, final h [B, Di, St] fp32)."""
+    b, s, di = u.shape
+    st = A.shape[-1]
+    h = (torch.zeros((b, di, st), dtype=torch.float32, device=u.device) if h0 is None
+         else h0.float())
+    u32, dt32, b32, c32 = (t.float() for t in (u, dt, B_, C_))
+    a32 = A.float()[None]
+    ys = []
+    for t in range(s):
+        a = torch.exp(dt32[:, t, :, None] * a32)
+        h = a * h + (dt32[:, t] * u32[:, t])[..., None] * b32[:, t, None, :]
+        ys.append(torch.einsum("bds,bs->bd", h, c32[:, t]))
+    return torch.stack(ys, dim=1).to(u.dtype), h

@@ -4,6 +4,8 @@ the device's busy and idle share of each window.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --full \\
         [--arch rwkv6_1_6b] [--batch 8 --prompt-len 512 --steps 8]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --full \\
+        --arch jamba_1_5_large_398b --n-layers 16 --no-moe
 
 Needs a CUDA device. Busy time is the sum of the device-side events' time
 (kernels, copies and fills on one stream, so they do not overlap); idle
@@ -21,7 +23,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .. import configs
-from .serve import DTYPES, run
+from .serve import DTYPES, add_override_args, overrides_from_args, run
 
 
 @contextmanager
@@ -52,11 +54,12 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="bfloat16")
     ap.add_argument("--top", type=int, default=12)
+    add_override_args(ap)
     args = ap.parse_args(argv)
 
     shape = f"B={args.batch} S={args.prompt_len}"
     run(args.arch, batch=args.batch, prompt_len=args.prompt_len, gen=args.steps + 1,
-        full=args.full, device="cuda", dtype=args.dtype,
+        full=args.full, device="cuda", dtype=args.dtype, overrides=overrides_from_args(args),
         window=lambda name: _window(
             f"{name} {shape}" + (f" {args.steps} steps" if name == "decode" else ""), args.top))
 

@@ -1,16 +1,26 @@
 """Serving launcher: batched prefill + greedy decode (port of
 ``repro.launch.serve``), on randomly initialised weights.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch {qwen3_0_6b,rwkv6_1_6b} \\
-        --batch 8 --prompt-len 64 --gen 32 [--full] [--device cuda] [--dtype bfloat16]
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch {qwen3_0_6b,rwkv6_1_6b,jamba_1_5_large_398b} \\
+        --batch 8 --prompt-len 64 --gen 32 [--full] [--device cuda] [--dtype bfloat16] \\
+        [--n-layers N] [--no-moe]
 
-Runs on CUDA unless ``--device cpu`` is given. The decode state is a KV
-cache of ``prompt_len + gen`` positions for attention layers, and a fixed
-[B, H, Dh, Dh] state with two token-shift carries for RWKV6 layers, which
-take no cache length. One prefill and one decode step warm up (kernel build
-and library start-up) before anything is timed; each timed step is bracketed
-by ``torch.cuda.synchronize()``. Restoring a checkpoint (the reference's
-``--repo``) waits for ROADMAP.md §A item 2.
+Runs on CUDA unless ``--device cpu`` is given. ``--n-layers`` and
+``--no-moe`` override the registry's config (``run(overrides=...)``, applied
+with ``cfg.replace`` after the lookup, as ``repro.launch.dryrun`` does):
+jamba-1.5-large fits one H100 only without its experts and cut in depth,
+``--arch jamba_1_5_large_398b --full --n-layers 16 --no-moe`` (2 of its 9
+8-layer repeats, every layer a dense SwiGLU; MoE is not ported yet).
+
+The decode state is a KV cache of ``prompt_len + gen`` positions for
+attention layers, a fixed [B, H, Dh, Dh] state with two token-shift carries
+for RWKV6 layers, and a fixed [B, Di, St] state with a [B, K-1, Di] conv tail
+for Mamba layers; the last two take no cache length. One prefill and one
+decode step warm up (kernel build and library start-up) before anything is
+timed; each timed step is bracketed by ``torch.cuda.synchronize()``.
+Restoring a checkpoint (the reference's ``--repo``) waits for ROADMAP.md §A
+item 2.
 """
 from __future__ import annotations
 
@@ -62,9 +72,12 @@ def _sync(dev: torch.device) -> None:
 
 def run(arch: str = "qwen3_0_6b", *, batch: int = 8, prompt_len: int = 64, gen: int = 32,
         full: bool = False, device: str | torch.device = "cuda", dtype: str = "bfloat16",
-        seed: int = 0,
+        seed: int = 0, overrides: dict | None = None,
         window: Callable[[str], AbstractContextManager] | None = None) -> ServeResult:
     """Serve one batch of random prompts; returns the tokens and timings.
+
+    ``overrides``, if given, replaces fields of the registry's config (for
+    example ``{"moe": None, "n_layers": 16}``).
 
     ``window(name)``, if given, is entered around the timed prefill
     (``"prefill"``) and around the timed decode loop (``"decode"``), for a
@@ -75,6 +88,8 @@ def run(arch: str = "qwen3_0_6b", *, batch: int = 8, prompt_len: int = 64, gen: 
         raise ValueError("gen must be >= 2 (one token from prefill, then decode steps)")
     dev = resolve_device(device)
     cfg = configs.get(arch) if full else configs.get_smoke(arch)
+    if overrides:
+        cfg = cfg.replace(**overrides)
     params = init_params(T.param_defs(cfg), seed=seed, dtype=DTYPES[dtype], device=dev)
     prefill_step = make_prefill_step(cfg, cache_len=prompt_len + gen)
     step = make_decode_step(cfg)
@@ -124,6 +139,21 @@ def run(arch: str = "qwen3_0_6b", *, batch: int = 8, prompt_len: int = 64, gen: 
     )
 
 
+def add_override_args(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--n-layers", type=int, help="cut the depth (a multiple of the pattern)")
+    ap.add_argument("--no-moe", action="store_true", help="dense SwiGLU in place of every MoE layer")
+
+
+def overrides_from_args(args: argparse.Namespace) -> dict:
+    """The config overrides that ``--n-layers`` and ``--no-moe`` ask for."""
+    out: dict = {}
+    if args.n_layers is not None:
+        out["n_layers"] = args.n_layers
+    if args.no_moe:
+        out["moe"] = None
+    return out
+
+
 def main(argv: list[str] | None = None) -> ServeResult:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=configs.ARCH_IDS, required=True)
@@ -133,10 +163,12 @@ def main(argv: list[str] | None = None) -> ServeResult:
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="bfloat16")
+    add_override_args(ap)
     args = ap.parse_args(argv)
 
     res = run(args.arch, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
-              full=args.full, device=args.device, dtype=args.dtype)
+              full=args.full, device=args.device, dtype=args.dtype,
+              overrides=overrides_from_args(args))
     print(f"prefill: {res.prefill_ms:.1f} ms (after one warm-up prefill)")
     print(f"decode: p50={res.decode_p50_ms:.2f} ms  p95={res.decode_p95_ms:.2f} ms  "
           f"throughput={res.tokens_per_s:.0f} tok/s")

@@ -23,7 +23,7 @@ from .. import resolve_device
 @dataclass(frozen=True)
 class ParamDef:
     shape: tuple[int, ...]
-    init: str = "normal"  # normal | zeros | ones
+    init: str = "normal"  # normal | zeros | ones | mamba_a
     scale: float | None = None  # stddev; None -> 1/sqrt(fan_in)
 
 
@@ -55,6 +55,10 @@ def _init_one(path: str, d: ParamDef, seed: int, dtype: torch.dtype,
         return torch.zeros(d.shape, dtype=dtype, device=device)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=dtype, device=device)
+    if d.init == "mamba_a":
+        # S4D-real init: A_log[d, n] = log(n + 1), broadcast over channels
+        row = torch.log(torch.arange(1, d.shape[-1] + 1, dtype=torch.float32, device=device))
+        return row.expand(d.shape).to(dtype).contiguous()
     if d.init != "normal":
         raise NotImplementedError(f"init {d.init!r} of {path} is not ported yet")
     gen = torch.Generator(device=device)

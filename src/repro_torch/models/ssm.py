@@ -1,5 +1,4 @@
-"""Attention-free mixers (port of ``repro.models.ssm``), RWKV6 half; the
-Mamba functions come with ROADMAP.md §A item 5.
+"""Attention-free mixers (port of ``repro.models.ssm``): RWKV6 and Mamba.
 
 Three paths for the RWKV6 (Finch) WKV recurrence, as in the reference:
   - ``rwkv6_naive``  : step by step over time — the oracle, which is the
@@ -10,15 +9,26 @@ Three paths for the RWKV6 (Finch) WKV recurrence, as in the reference:
 
 Numerics: the per-channel log-decay is clamped to ``-MAX_DECAY`` per step
 and chunks are short (16), so ``exp(±Σ log w)`` stays inside fp32 range.
+
+And for the Mamba selective scan:
+  - ``mamba_conv``        : the depthwise causal conv, K shifted adds;
+  - ``mamba_scan_naive``  : the sequential scan — the oracle, which is the
+                            kernel's plain version ``kernels.ref.mamba_ref``;
+  - ``mamba_scan_chunked``: train and prefill when the kernel is off, chunk
+                            by chunk (falls back to naive unless S is a
+                            multiple of the chunk above one chunk);
+  - ``mamba_step``        : the single-token decode update.
 """
 from __future__ import annotations
 
 import torch
 
+from ..kernels.ref import mamba_ref as mamba_scan_naive
 from ..kernels.ref import rwkv6_ref as rwkv6_naive
 
 MAX_DECAY = 4.0  # clamp on exp(w_raw): decay factor >= exp(-4) per step
 RWKV_CHUNK = 16
+MAMBA_CHUNK = 256
 
 
 def rwkv6_decay(w_raw: torch.Tensor) -> torch.Tensor:
@@ -72,3 +82,57 @@ def rwkv6_step(
     out = torch.einsum("bhd,bhde->bhe", r, state + u.float()[None, :, :, None] * kv)
     new_state = torch.exp(logw)[..., :, None] * state + kv
     return out, new_state
+
+
+# ====================================================================== Mamba
+def mamba_conv(
+    x: torch.Tensor,  # [B, S, Di]
+    conv_w: torch.Tensor,  # [Di, K]
+    conv_b: torch.Tensor,  # [Di]
+    conv_state: torch.Tensor | None = None,  # [B, K-1, Di] trailing context
+) -> torch.Tensor:
+    """Depthwise causal conv along time via K shifted adds."""
+    k = conv_w.shape[-1]
+    if conv_state is None:
+        conv_state = x.new_zeros((x.shape[0], k - 1, x.shape[-1]))
+    xp = torch.cat([conv_state.to(x.dtype), x], dim=1)  # [B, S+K-1, Di]
+    out = torch.zeros_like(x)
+    for i in range(k):
+        out = out + xp[:, i : i + x.shape[1], :] * conv_w[:, i]
+    return out + conv_b
+
+
+def mamba_scan_chunked(
+    u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
+    h0: torch.Tensor | None = None, chunk: int = MAMBA_CHUNK,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's chunked scan, forward only: a loop over chunks, each
+    a sequential scan from the carried state. (The reference rematerialises
+    each chunk to keep backward residuals at O(S/chunk · state); forward
+    only, the same steps run in the same order.)"""
+    s = u.shape[1]
+    if s % chunk != 0 or s <= chunk:
+        return mamba_scan_naive(u, dt, A, B_, C_, h0)
+    h, ys = h0, []
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        y, h = mamba_scan_naive(u[:, sl], dt[:, sl], A, B_[:, sl], C_[:, sl], h)
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
+
+
+def mamba_step(
+    u_t: torch.Tensor,  # [B, Di]
+    dt_t: torch.Tensor,  # [B, Di]
+    A: torch.Tensor,  # [Di, St]
+    b_t: torch.Tensor,  # [B, St]
+    c_t: torch.Tensor,  # [B, St]
+    h: torch.Tensor,  # [B, Di, St]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single-token decode. Returns (y [B, Di] fp32, new h [B, Di, St]): as
+    in the reference, y is fp32 whatever the inputs' dtype; the mixer casts
+    it to the model dtype."""
+    u_t, dt_t, b_t, c_t = (t.float() for t in (u_t, dt_t, b_t, c_t))
+    a = torch.exp(dt_t[..., None] * A[None])
+    h = a * h + (dt_t * u_t)[..., None] * b_t[:, None, :]
+    return torch.einsum("bds,bs->bd", h, c_t), h

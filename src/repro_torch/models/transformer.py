@@ -1,9 +1,12 @@
-"""The dense attention and RWKV6 stacks of ``repro.models.transformer``,
-in PyTorch.
+"""The dense attention, RWKV6 and Mamba/attention hybrid stacks of
+``repro.models.transformer``, in PyTorch.
 
 Layers of ``LayerKind("attn", moe=False)`` (dense GQA, optional qk-norm,
-RoPE, SwiGLU, tied or separate LM head) and ``LayerKind("rwkv6")`` (time mix
-with token shift, LoRA decay and the WKV recurrence, then channel mix).
+RoPE, SwiGLU, tied or separate LM head), ``LayerKind("rwkv6")`` (time mix
+with token shift, LoRA decay and the WKV recurrence, then channel mix) and
+``LayerKind("mamba", moe=False)`` (the Mamba mixer, then SwiGLU), in the
+pattern the config gives: a hybrid puts attention at ``attn_offset`` of every
+``attn_period`` layers and Mamba elsewhere. MoE layers are not ported yet.
 Weights keep the reference layout: ``[in, out]`` matrices applied as
 ``x @ W``, stacked along a leading ``n_repeats`` axis per pattern position,
 under the same nested keys; the stack runs as a Python loop over the repeats.
@@ -15,6 +18,8 @@ position, stacked along a leading ``n_repeats`` axis:
   attn  : ``{"k", "v"}`` caches [B, S_cache, KV, Dh]
   rwkv6 : ``{"wkv"}`` state [B, H, Dh, Dh] fp32 and token-shift carries
           ``{"shift_t", "shift_c"}`` [B, D]
+  mamba : ``{"h"}`` state [B, Di, St] fp32 and ``{"conv"}`` tail
+          [B, K-1, Di], the last K-1 conv inputs
 
 Prefill and train attention go through the flash-attention kernel when
 ``use_pallas`` selects it, else through the plain blockwise ``attention``.
@@ -29,6 +34,13 @@ does, else through ``ssm.rwkv6_chunked`` (logw in fp32). The reference takes
 its kernel only when the length is a multiple of its chunk (16); the CUDA
 kernel loops over time steps and stops at S, so the port takes the kernel at
 any length. Decode runs ``ssm.rwkv6_step``.
+
+Prefill and train selective scans go through the Mamba kernel when
+``use_pallas`` selects it, with B and C in u's dtype as the reference casts
+them, else through ``ssm.mamba_scan_chunked``. The reference takes its
+kernel only when S and Di are multiples of 64 (its Pallas tiling); the CUDA
+kernel stops at S and masks the channels past Di, so the port takes the
+kernel at any S and Di. Decode runs ``ssm.mamba_step``.
 """
 from __future__ import annotations
 
@@ -37,7 +49,7 @@ from dataclasses import dataclass
 import torch
 
 from ..configs.base import LayerKind, ModelConfig
-from ..kernels.ops import flash_attention, rwkv6
+from ..kernels.ops import flash_attention, mamba_scan, rwkv6
 from . import ssm
 from .attention import attention, cache_insert, decode_attention
 from .layers import apply_rope, rmsnorm, swiglu
@@ -52,8 +64,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.mrope_sections or cfg.vision_len_ratio:
         raise NotImplementedError("M-RoPE and vision inputs: ROADMAP.md §A item 7")
     for kind in cfg.pattern:
-        if kind.mixer == "mamba":
-            raise NotImplementedError("mamba mixers: ROADMAP.md §A item 5")
         if kind.moe:
             raise NotImplementedError("MoE feed-forward layers: ROADMAP.md §A item 6")
 
@@ -105,14 +115,32 @@ def _rwkv_defs(cfg: ModelConfig) -> dict:
     }
 
 
+def _mamba_defs(cfg: ModelConfig) -> dict:
+    D = cfg.d_model
+    Di, St, K = cfg.mamba_d_inner, cfg.mamba.d_state, cfg.mamba.d_conv
+    Rdt = max(1, Di // 16)
+    return {
+        "in_proj": ParamDef((D, 2 * Di)),
+        "conv_w": ParamDef((Di, K), "normal", 0.5),
+        "conv_b": ParamDef((Di,), "zeros"),
+        "x_proj": ParamDef((Di, Rdt + 2 * St)),
+        "dt_proj": ParamDef((Rdt, Di)),
+        "dt_bias": ParamDef((Di,), "zeros"),
+        "a_log": ParamDef((Di, St), "mamba_a"),
+        "d_skip": ParamDef((Di,), "ones"),
+        "out_proj": ParamDef((Di, D)),
+    }
+
+
 def _block_defs(cfg: ModelConfig, kind: LayerKind) -> dict:
     D, F = cfg.d_model, cfg.d_ff
     if kind.mixer == "rwkv6":  # time mix + channel mix, no swiglu
         return {"ln1": ParamDef((D,), "ones"), "rwkv": _rwkv_defs(cfg),
                 "ln2": ParamDef((D,), "ones")}
+    mixer = {"mamba": _mamba_defs(cfg)} if kind.mixer == "mamba" else {"attn": _attn_defs(cfg)}
     return {
         "ln1": ParamDef((D,), "ones"),
-        "attn": _attn_defs(cfg),
+        **mixer,
         "ln2": ParamDef((D,), "ones"),
         "ffn": {"w1": ParamDef((D, F)), "w3": ParamDef((D, F)), "w2": ParamDef((F, D))},
     }
@@ -263,11 +291,50 @@ def _rwkv_block(cfg: ModelConfig, p: dict, x: torch.Tensor, ctx: Ctx, cache):
     return x, new_cache
 
 
+def _mamba_mixer(cfg: ModelConfig, p: dict, x: torch.Tensor, ctx: Ctx, cache):
+    """Mamba mixer: in_proj, causal conv, selective scan, gates, out_proj.
+    Returns (mixer_out, new_cache)."""
+    pm = p["mamba"]
+    Di, St, K = cfg.mamba_d_inner, cfg.mamba.d_state, cfg.mamba.d_conv
+    Rdt = max(1, Di // 16)
+    B, S, _ = x.shape
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    xr, z = torch.chunk(h @ pm["in_proj"], 2, dim=-1)  # [B, S, Di] each
+    u = torch.nn.functional.silu(
+        ssm.mamba_conv(xr, pm["conv_w"], pm["conv_b"], cache["conv"] if cache else None))
+    dbl = u @ pm["x_proj"]  # [B, S, Rdt + 2 St]
+    # B and C stay views in u's dtype: the reference casts them to fp32 and,
+    # for its kernel, back to u's dtype, which is exact; every path below
+    # computes in fp32.
+    B_, C_ = dbl[..., Rdt : Rdt + St], dbl[..., Rdt + St :]
+    dt = torch.nn.functional.softplus(dbl[..., :Rdt] @ pm["dt_proj"] + pm["dt_bias"])
+    A = -torch.exp(pm["a_log"].float())
+    h0 = cache["h"] if cache else None
+    if ctx.mode == "decode":
+        y1, hs = ssm.mamba_step(u[:, 0], dt[:, 0], A, B_[:, 0], C_[:, 0], h0)
+        y = y1[:, None].to(x.dtype)
+    elif _use_kernels(cfg, u):
+        y, hs = mamba_scan(u, dt, A, B_, C_, h0)
+    else:
+        y, hs = ssm.mamba_scan_chunked(u, dt, A, B_, C_, h0)
+    y = (y + pm["d_skip"] * u) * torch.nn.functional.silu(z)
+    out = y @ pm["out_proj"]
+    new_cache = {}
+    if ctx.mode == "decode":
+        new_cache = {"h": hs, "conv": torch.cat([cache["conv"][:, 1:],
+                                                 xr[:, -1:].to(cache["conv"].dtype)], dim=1)}
+    elif ctx.mode == "prefill":  # the last K-1 inputs, zero-padded in front when S < K-1
+        pad = xr.new_zeros((B, max(0, K - 1 - S), Di))
+        new_cache = {"h": hs, "conv": torch.cat([pad, xr[:, -(K - 1):]], dim=1)}
+    return out, new_cache
+
+
 def apply_block(cfg: ModelConfig, kind: LayerKind, p: dict, x: torch.Tensor, ctx: Ctx, cache):
     """One pattern-position layer. Returns (x, new_cache)."""
     if kind.mixer == "rwkv6":
         return _rwkv_block(cfg, p, x, ctx, cache)
-    mix, new_cache = _self_attention(cfg, p, x, ctx, cache)
+    mixer = _mamba_mixer if kind.mixer == "mamba" else _self_attention
+    mix, new_cache = mixer(cfg, p, x, ctx, cache)
     x = x + mix
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
     f = p["ffn"]
@@ -282,8 +349,9 @@ def _at(tree: dict, i: int) -> dict:
 def _run_blocks(cfg: ModelConfig, blocks: dict, x: torch.Tensor, ctx: Ctx, caches=None):
     """Loop over the stacked repeats. Returns (x, caches): in decode the
     given caches, updated in place (the KV caches by ``cache_insert``, the
-    RWKV state and carries by copying each layer's new values in); in
-    prefill new caches stacked along the repeat axis; in train None."""
+    RWKV and Mamba states, carries and conv tails by copying each layer's
+    new values in); in prefill new caches stacked along the repeat axis; in
+    train None."""
     new = {f"p{i}": [] for i in range(len(cfg.pattern))}
     for rep in range(cfg.n_repeats):
         for kind, (key, layers) in zip(cfg.pattern, new.items()):

@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
+from repro_torch.kernels.mamba import mamba_scan_fwd  # noqa: E402
 from repro_torch.kernels.rwkv6 import rwkv6_fwd  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.params import init_params  # noqa: E402
@@ -162,3 +163,91 @@ def test_smoke_rwkv6_prefill_kernel_on_matches_off(cuda, prompt):
     torch.testing.assert_close(l_on, l_off, rtol=2e-3, atol=2e-3)
     for name in ("wkv", "shift_t", "shift_c"):
         torch.testing.assert_close(c_on["p0"][name], c_off["p0"][name], rtol=2e-3, atol=2e-3)
+
+
+# tests/test_kernels.py:130 (b, s, di, st), a ragged length at the smoke
+# config's state size (started from a zero state), a channel count that is no
+# multiple of the kernel's 128-channel block, and a serving-width slice.
+MAMBA_SHAPES = [(2, 64, 64, 8), (1, 128, 256, 16), (2, 40, 96, 4), (1, 64, 200, 16),
+                (2, 37, 16384, 16)]
+MAMBA_STATE_TOL = dict(rtol=1e-3, atol=1e-3)  # tests/test_kernels.py:144-145
+
+
+def _mamba_inputs(shape, dtype, device):
+    """tests/test_kernels.py's inputs: u, B, C ~ N(0, 1), dt = 0.1 |N(0, 1)|
+    in the dtype, A = -|N(0, 1)| fp32, h0 ~ N(0, 0.3) fp32 (None for the
+    ragged lengths)."""
+    b, s, di, st = shape
+    rng = np.random.default_rng(3)
+    dt_ = getattr(torch, dtype)
+
+    def t(x, d=dt_):
+        return torch.from_numpy(x.astype(np.float32)).to(device, d)
+
+    u = t(rng.normal(0, 1, (b, s, di)))
+    dt = t(np.abs(rng.normal(0, 1, (b, s, di))) * 0.1)
+    A = t(-np.abs(rng.normal(0, 1, (di, st))), torch.float32)
+    B_, C_ = (t(rng.normal(0, 1, (b, s, st))) for _ in range(2))
+    h0 = t(rng.normal(0, 0.3, (b, di, st)), torch.float32) if s % 64 == 0 else None
+    return u, dt, A, B_, C_, h0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", MAMBA_SHAPES)
+def test_mamba_kernel_matches_plain_version(cuda, shape, dtype):
+    u, dt, A, B_, C_, h0 = _mamba_inputs(shape, dtype, cuda)
+    before = mamba_scan_fwd.launches
+    y, h = ops.mamba_scan(u, dt, A, B_, C_, h0)
+    torch.cuda.synchronize()
+    assert mamba_scan_fwd.launches == before + 1
+    assert y.dtype == u.dtype and y.shape == u.shape and h.dtype == torch.float32
+    want_y, want_h = ref.mamba_ref(u, dt, A, B_, C_, h0)
+    np.testing.assert_allclose(y.float().cpu().numpy(), want_y.float().cpu().numpy(), **TOL[dtype])
+    np.testing.assert_allclose(h.cpu().numpy(), want_h.cpu().numpy(), **MAMBA_STATE_TOL)
+
+
+@pytest.mark.gpu
+def test_mamba_kernel_rejects_what_it_does_not_take(cuda):
+    u, dt, A, B_, C_, h0 = _mamba_inputs((1, 64, 64, 8), "float32", cuda)
+    with pytest.raises(ValueError, match="CUDA device"):
+        mamba_scan_fwd(*(t.cpu() for t in (u, dt, A, B_, C_, h0)))
+    with pytest.raises(ValueError, match="CUDA device"):
+        mamba_scan_fwd(u, dt, A, B_, C_, h0.cpu())
+    with pytest.raises(ValueError, match="float32 or bfloat16 alike"):
+        mamba_scan_fwd(u, dt.bfloat16(), A, B_, C_, h0)
+    with pytest.raises(ValueError, match="float32 or bfloat16 alike"):
+        mamba_scan_fwd(u.half(), dt.half(), A, B_.half(), C_.half(), h0)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        mamba_scan_fwd(u, dt, A.bfloat16(), B_, C_, h0)
+    with pytest.raises(ValueError, match="must be contiguous"):
+        mamba_scan_fwd(torch.zeros(1, 64, 128, device=cuda)[..., ::2], dt, A, B_, C_, h0)
+    with pytest.raises(ValueError, match="state size"):
+        mamba_scan_fwd(u, dt, A[:, :6].contiguous(), B_[..., :6], C_[..., :6])
+    with pytest.raises(ValueError, match="B and C must be"):
+        mamba_scan_fwd(u, dt, A, B_[:, :32], C_, h0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prompt", [64, 40])
+def test_smoke_jamba_prefill_kernels_on_match_off(cuda, prompt):
+    """fp32 jamba smoke prefill without experts (16 layers: 14 Mamba, 2
+    attention) with the kernels against the plain paths (the chunked scan's
+    naive fallback at these lengths), on the card, at
+    tests/test_pallas_model_parity.py's 2e-3 bar: last logits, every Mamba
+    layer's state and conv tail, the attention layers' k/v."""
+    cfg = configs.get_smoke("jamba_1_5_large_398b").replace(use_pallas="off", moe=None, n_layers=16)
+    params = init_params(T.param_defs(cfg), seed=0, dtype=torch.float32, device=cuda)
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (2, prompt))).to(cuda)
+    c_off, l_off = make_prefill_step(cfg, prompt + 8)(params, {"tokens": tokens})
+    before = (mamba_scan_fwd.launches, flash_attention_fwd.launches)
+    c_on, l_on = make_prefill_step(cfg.replace(use_pallas="auto"), prompt + 8)(
+        params, {"tokens": tokens})
+    assert (mamba_scan_fwd.launches - before[0], flash_attention_fwd.launches - before[1]) == (14, 2)
+    torch.testing.assert_close(l_on, l_off, rtol=2e-3, atol=2e-3)
+    assert set(c_on) == set(c_off)
+    for key in c_off:
+        assert set(c_on[key]) == set(c_off[key])
+        for name in c_off[key]:
+            torch.testing.assert_close(c_on[key][name], c_off[key][name], rtol=2e-3, atol=2e-3)

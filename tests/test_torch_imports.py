@@ -62,7 +62,7 @@ def test_registry_names_the_roadmap_item_for_unported_archs():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(attn_period=2, attn_offset=1), "item 5"),
+    (dict(attn_period=2, attn_offset=1, moe=MoEConfig(n_experts=4)), "item 6"),
     (dict(moe=MoEConfig(n_experts=4)), "item 6"),
     (dict(enc_dec=True, n_enc_layers=2), "item 7"),
     (dict(mrope_sections=(2, 3, 3)), "item 7"),
