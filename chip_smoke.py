@@ -8,10 +8,14 @@ Phases; any failure exits non-zero before the result lines are printed.
                     turns TF32 off for matmuls and convolutions.
   2. build        — builds every CUDA source of the port with nvcc, all at once,
                     and prints each one's ptxas registers and spills.
-  3. kernel flash — holds the flash-attention kernel against its plain version
-                    at qwen3's and jamba's serving shapes and the six shapes of
-                    the kernel tests, and times the kernel, the plain version
-                    and PyTorch's SDPA at both serving shapes.
+  3. kernel flash — holds the flash-attention kernel (bf16: wgmma and TMA;
+                    fp32: CUDA cores) against its plain version at qwen3's and
+                    jamba's serving shapes, the six shapes of the kernel tests,
+                    ragged lengths, Dh=64 at the serving length and a strided
+                    q, fp32 and bf16; times the kernel, the plain version and
+                    PyTorch's SDPA at both serving shapes, bf16, and prints the
+                    kernel over SDPA and the bound over the kernel beside the
+                    bf16 kernel's ptxas line.
   4. kernel rwkv6 — holds the RWKV6 WKV kernel against its plain version at the
                     serving shape, the three shapes of the kernel tests and a
                     ragged length, fp32 and bf16, and times the kernel and the
@@ -19,7 +23,9 @@ Phases; any failure exits non-zero before the result lines are printed.
   5. serve qwen3  — full-width qwen3-0.6B serving (bf16, B=8, 512-token prompts,
                     32 generated tokens) through ``repro_torch.launch.serve.run``;
                     the flash kernel must have launched once per layer per prefill.
-  6. parity qwen3 — full-width fp32 prefill, kernel on against kernel off.
+  6. parity qwen3 — full-width fp32 prefill, kernel on against kernel off; then
+                    bf16 on the same weights cast: kernel on against off must
+                    stay within twice the bf16 plain path's error against fp32.
   7. serve rwkv6  — full-width rwkv6-1.6B serving, the same shape; the RWKV6
                     kernel must have launched once per layer per prefill.
   8. parity rwkv6 — full-width fp32 prefill, B=2 x 512, kernel on against off
@@ -60,6 +66,7 @@ BF16_TOL = 2e-2  # tests/test_kernels.py: bf16
 STATE_TOL = {"float32": 1e-4, "bfloat16": 3e-3}  # tests/test_kernels.py:110-111: the WKV state
 MAMBA_STATE_TOL = 1e-3  # tests/test_kernels.py:144-145: the Mamba state, fp32 and bf16
 PARITY_TOL = 2e-3  # tests/test_pallas_model_parity.py: kernels on vs off, fp32 logits
+QUEUE_AHEAD_CYCLES = 20_000_000  # ~10 ms of spinning at the H100's clocks
 
 # (B, Sq, Sk, H, KV, Dh, causal, window): the serving shape, then tests/test_kernels.py:29-38.
 SERVE_SHAPE = (8, 512, 512, 16, 8, 128, True, None)
@@ -71,6 +78,13 @@ TEST_SHAPES = [
     (1, 256, 256, 4, 4, 64, True, 64),
     (1, 128, 128, 2, 2, 96, False, None),
     (2, 64, 64, 4, 2, 32, True, 16),
+]
+# Ragged query and KV tiles (Sq != Sk; S=300 at jamba's GQA group of 8) and
+# the serving length at Dh=64, whose tiles are one 128-byte-swizzled box wide.
+EDGE_SHAPES = [
+    (1, 100, 130, 4, 2, 16, False, None),
+    (1, 300, 300, 8, 1, 128, True, None),
+    (2, 512, 512, 8, 2, 64, True, None),
 ]
 # (B, S, H, Dh): rwkv6-1.6B's serving shape, tests/test_kernels.py:94-95, a ragged length.
 RWKV_SERVE_SHAPE = (8, 512, 32, 64)
@@ -93,12 +107,17 @@ def phase(name: str) -> float:
     return time.perf_counter()
 
 
-def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of one call, from CUDA events around ``iters`` calls."""
+def time_ms(torch, fn, iters: int = 50, warmup: int = 5, queue_ahead: bool = True) -> float:
+    """Mean time of one call, from CUDA events around ``iters`` calls. With
+    ``queue_ahead`` the stream first spins for ~10 ms, so that the host
+    queues the calls while the device waits and the events time the device
+    alone; without it the calls run as fast as the host issues them."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queue_ahead:
+        torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -158,13 +177,14 @@ def mamba_bound_ms(u, A, B_) -> tuple[float, str]:
 def ptxas_report(log: str, dim: str) -> list[str]:
     """'<dtype> <dim>=<d>: <n> registers[, <b> B spilled]' per kernel
     instantiation in nvcc's -Xptxas -v report; ``dim`` names the template's
-    integer parameter."""
+    integer parameter. The flash kernel's bf16 instances read 'bf16 wgmma'."""
     out, inst, spilled = [], None, ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             m = re.search(r"kernelI(.*?)E+v", ln)
             inst = m.group(1).replace("13__nv_bfloat16", "bf16 ").replace("Li", f"{dim}=") if m else ln
             inst = "fp32 " + inst[1:] if inst.startswith(f"f{dim}=") else inst
+            inst = "bf16 wgmma " + inst if "wgmma_kernel" in ln else inst
             spilled = ""
         elif inst and "bytes spill stores" in ln:
             n = int(ln.split(" bytes spill stores")[0].split(",")[-1])
@@ -182,6 +202,11 @@ def check_close(torch, name: str, got, want, tol: float) -> float:
     if not bool(((got - want).abs() <= tol + tol * want.abs()).all()):
         fail(f"{name}: max_abs_err {err:.3g} above tol {tol}")
     return err
+
+
+def cast_tree(tree: dict, dtype) -> dict:
+    """The nested parameter dict with every tensor cast to ``dtype``."""
+    return {k: cast_tree(v, dtype) if isinstance(v, dict) else v.to(dtype) for k, v in tree.items()}
 
 
 def serve_phase(torch, serve, configs, arch: str, kernels: dict, dev, seed: int,
@@ -263,10 +288,12 @@ def main() -> None:
     # ------------------------------------------------------------- 2. build
     t0 = phase("build")
     build.build_all()
+    ptxas = {}
     for name in build.sources():
         log = build.build_log(name)
+        ptxas[name] = ptxas_report(log, "St" if name == "mamba" else "Dh")
         print(f"{name}: {log.splitlines()[0] if log else 'library already built'}; ptxas: "
-              + "; ".join(ptxas_report(log, "St" if name == "mamba" else "Dh")))
+              + "; ".join(ptxas[name]))
     print(f"build phase {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -281,7 +308,7 @@ def main() -> None:
 
     flash_err = {}
     for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
-        for shape in [SERVE_SHAPE, JAMBA_ATTN_SHAPE] + TEST_SHAPES:
+        for shape in [SERVE_SHAPE, JAMBA_ATTN_SHAPE] + TEST_SHAPES + EDGE_SHAPES:
             causal, window = shape[6], shape[7]
             q, k, v = inputs(shape, dtype)
             got = flash_attention_fwd(q, k, v, causal=causal, window=window)
@@ -291,6 +318,16 @@ def main() -> None:
             print(f"  {str(dtype):15s} {shape}: max_abs_err {err:.3g} (tol {tol}) ok")
             if dtype == torch.bfloat16:
                 flash_err[shape] = err
+        # q as a head slice of a wider tensor: not contiguous, but aligned for TMA
+        wb, ws, _, wh, wkv, wd = SERVE_SHAPE[:6]
+        wide, k, v = inputs((wb, ws, ws, 2 * wh, wkv, wd), dtype)
+        q = wide[:, :, wh:]
+        got = flash_attention_fwd(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = check_close(torch, f"flash_attention_fwd strided q {dtype}", got,
+                          ref.attention_ref(q, k, v, True, None), tol)
+        print(f"  {str(dtype):15s} q strides {q.stride()} (a head slice): max_abs_err {err:.3g} "
+              f"(tol {tol}) ok")
 
     def time_flash(shape) -> dict:
         """The kernel, its plain version and SDPA at a serving shape, bf16."""
@@ -301,15 +338,20 @@ def main() -> None:
         out = {
             "max_abs_err": flash_err[shape],
             "ms": time_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=causal)),
+            "host_paced_ms": time_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=causal),
+                                     queue_ahead=False),
             "plain_ms": time_ms(torch, lambda: ref.attention_ref(q, k, v, causal)),
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=True)),
         }
-        print(f"flash_attention_fwd at {shape} bf16: kernel {out['ms']:.4f} ms, plain "
+        print(f"flash_attention_fwd at {shape} bf16: kernel {out['ms']:.4f} ms "
+              f"({out['host_paced_ms']:.4f} ms a call as fast as the host issues them), plain "
               f"{out['plain_ms']:.4f} ms, SDPA {out['library_ms']:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by})")
+              f"bound {bound_ms:.4f} ms ({bound_by}); kernel / SDPA "
+              f"{out['ms'] / out['library_ms']:.2f}, bound / kernel {bound_ms / out['ms']:.3f}; ptxas "
+              + "; ".join(r for r in ptxas["flash_attention"] if r.startswith(f"bf16 wgmma Dh={shape[5]}:")))
         return out
 
     flash_qwen3, flash_jamba = time_flash(SERVE_SHAPE), time_flash(JAMBA_ATTN_SHAPE)
@@ -381,7 +423,27 @@ def main() -> None:
         for n in ("k", "v")
     ):
         fail("kernel-on prefill caches disagree with kernel-off")
-    del params, c_off, c_on
+    del c_off, c_on
+
+    # bf16 reaches the tensor-core kernel: on against off, both bf16, held to
+    # twice the plain path's own bf16 error against fp32 on the same weights.
+    params16 = cast_tree(params, torch.bfloat16)
+    _, l16_off = make_prefill_step(cfg32, cache_len)(params16, {"tokens": tokens})
+    flash_attention_fwd.launches = 0
+    _, l16_on = make_prefill_step(cfg32.replace(use_pallas="on"), cache_len)(params16, {"tokens": tokens})
+    torch.cuda.synchronize()
+    if flash_attention_fwd.launches != cfg.n_layers:
+        fail(f"bf16 kernel-on prefill launched flash_attention_fwd {flash_attention_fwd.launches} "
+             f"times, expected {cfg.n_layers}")
+    err_kernel = (l16_on.float() - l16_off.float()).abs().max().item()
+    err_bf16 = (l16_off.float() - l_off.float()).abs().max().item()
+    print(f"parity qwen3 bf16 B=2 prompt=512: last logits kernel on vs off max_abs_err "
+          f"{err_kernel:.4g}; bf16 off vs fp32 off {err_bf16:.4g} (bar: twice that, {2 * err_bf16:.4g})")
+    if not bool(torch.isfinite(l16_on.float()).all()):
+        fail("bf16 kernel-on prefill logits are not finite")
+    if not err_kernel <= 2 * err_bf16:
+        fail("bf16 kernel-on prefill logits differ from kernel-off by more than twice bf16's own error")
+    del params, params16
     print(f"parity qwen3 phase {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------- 7. serve rwkv6

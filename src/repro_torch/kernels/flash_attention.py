@@ -4,7 +4,10 @@
 It replaces ``repro.kernels.flash_attention.flash_attention_bhsd`` (the
 Pallas TPU kernel ``_flash_fwd_kernel``). The kernel reads q, k and v in the
 model layout [B, S, heads, Dh] from their strides, so the wrapper makes no
-transposed copies. The kernel library is built with nvcc on first use.
+transposed copies. bfloat16 runs on the tensor cores with TMA loads, which
+need q, k and v to start on 16 bytes and their strides to be multiples of 16
+bytes; float32 runs on the CUDA cores. The kernel library is built with nvcc
+on first use.
 """
 from __future__ import annotations
 
@@ -52,6 +55,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None
         raise ValueError("the head dim of q, k and v must be contiguous")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(t.stride(i) % 8 for i in range(3)):
+                raise ValueError(f"bfloat16 {name} must start on 16 bytes and have strides that are "
+                                 f"multiples of 8 elements (TMA), got strides {t.stride()}")
 
 
 def flash_attention_fwd(

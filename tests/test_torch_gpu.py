@@ -30,6 +30,8 @@ SHAPES = [
     (1, 128, 128, 2, 2, 96, False, None),
     (2, 64, 64, 4, 2, 32, True, 16),
     (1, 100, 130, 4, 2, 16, False, None),  # ragged tiles, Dh of the smoke config
+    (1, 300, 300, 8, 1, 128, True, None),  # ragged query and KV tiles at jamba's GQA group
+    (2, 512, 512, 8, 2, 64, True, None),  # serving length at Dh=64 (128-byte swizzle, one box)
 ]
 
 
@@ -56,6 +58,36 @@ def test_cuda_kernel_matches_plain_version(cuda, shape, dtype):
     assert got.dtype == q.dtype and got.shape == q.shape
     want = ref.attention_ref(q, k, v, causal, window)
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_takes_a_strided_q(cuda, dtype):
+    """q as a head slice of a wider tensor: not contiguous, but 16-byte
+    aligned with strides in multiples of 8 elements, so TMA takes it."""
+    b, s, h, kv, dh = 2, 200, 4, 2, 128
+    rng = np.random.default_rng(1)
+    wide, k, v = (torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(cuda, getattr(torch, dtype))
+                  for shape in ((b, s, 3 * h, dh), (b, s, kv, dh), (b, s, kv, dh)))
+    q = wide[:, :, h : 2 * h]
+    assert not q.is_contiguous()
+    got = flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = ref.attention_ref(q, k, v, True, None)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_rejects_misaligned_bf16(cuda):
+    """TMA needs a 16-byte-aligned start: a view one element in raises
+    before any launch."""
+    buf = torch.zeros(1 + 64 * 4 * 64, device=cuda, dtype=torch.bfloat16)
+    q = buf[1:].view(1, 64, 4, 64)
+    k = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.bfloat16)
+    before = flash_attention_fwd.launches
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention_fwd(q, k, k)
+    assert flash_attention_fwd.launches == before
 
 
 @pytest.mark.gpu
