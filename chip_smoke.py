@@ -16,10 +16,13 @@ Phases; any failure exits non-zero before the result lines are printed.
                     PyTorch's SDPA at both serving shapes, bf16, and prints the
                     kernel over SDPA and the bound over the kernel beside the
                     bf16 kernel's ptxas line.
-  4. kernel rwkv6 — holds the RWKV6 WKV kernel against its plain version at the
-                    serving shape, the three shapes of the kernel tests and a
-                    ragged length, fp32 and bf16, and times the kernel and the
-                    plain version (no single PyTorch call computes the recurrence).
+  4. kernel rwkv6 — holds the RWKV6 WKV kernel (bf16: chunked form on the
+                    tensor cores; fp32: per-step loop on the CUDA cores)
+                    against its plain version at the serving shape, the three
+                    shapes of the kernel tests and ragged lengths (S=40, 17),
+                    fp32 and bf16, and times the kernel and the plain version
+                    (no single PyTorch call computes the recurrence), with the
+                    bf16 instance's ptxas line.
   5. serve qwen3  — full-width qwen3-0.6B serving (bf16, B=8, 512-token prompts,
                     32 generated tokens) through ``repro_torch.launch.serve.run``;
                     the flash kernel must have launched once per layer per prefill.
@@ -29,19 +32,24 @@ Phases; any failure exits non-zero before the result lines are printed.
   7. serve rwkv6  — full-width rwkv6-1.6B serving, the same shape; the RWKV6
                     kernel must have launched once per layer per prefill.
   8. parity rwkv6 — full-width fp32 prefill, B=2 x 512, kernel on against off
-                    (the chunked plain path): last logits and every layer's state.
-  9. kernel mamba — holds the Mamba selective-scan kernel against its plain
-                    version at jamba's serving shape, the two shapes of the
-                    kernel tests and a ragged length, fp32 and bf16, and times
-                    the kernel and the plain version (no single PyTorch call
-                    computes the scan).
+                    (the chunked plain path): last logits and every layer's
+                    state; then bf16 on the same weights cast: kernel on against
+                    off within twice the bf16 plain path's error against fp32.
+  9. kernel mamba — holds the Mamba selective-scan kernel (bf16: exp2 and
+                    fused updates; fp32: rounded as the plain version) against
+                    its plain version at jamba's serving shape, the two shapes
+                    of the kernel tests, a ragged length and Di=200, fp32 and
+                    bf16, and times the kernel and the plain version (no single
+                    PyTorch call computes the scan), with the bf16 instance's
+                    ptxas line.
  10. serve jamba  — jamba-1.5-large at full width without its experts, depth
                     cut from 72 to 16 layers (2 repeats), the same shape; the
                     Mamba kernel must have launched once per Mamba layer and
                     the flash kernel once per attention layer per prefill.
  11. parity jamba — full-width fp32 prefill at one repeat (8 layers), B=2 x
                     512, kernels on against off: last logits, every Mamba
-                    layer's state and conv tail, the attention layer's k/v.
+                    layer's state and conv tail, the attention layer's k/v;
+                    then the bf16 check of phase 8.
 Each serve phase sets every kernel's count to 0 just before it serves and
 reads the counts just after. Then one JSON line with the kernels' numbers,
 the card's name and power limit, and the final line {"ok": true, "device": {...}}.
@@ -86,12 +94,16 @@ EDGE_SHAPES = [
     (1, 300, 300, 8, 1, 128, True, None),
     (2, 512, 512, 8, 2, 64, True, None),
 ]
-# (B, S, H, Dh): rwkv6-1.6B's serving shape, tests/test_kernels.py:94-95, a ragged length.
+# (B, S, H, Dh): rwkv6-1.6B's serving shape, tests/test_kernels.py:94-95, ragged lengths
+# (a zero-filled tail chunk, S=17 one step past a chunk), and Dh=96, whose bf16 blocks
+# own 48 value columns each (three mma warps, two blocks a head).
 RWKV_SERVE_SHAPE = (8, 512, 32, 64)
-RWKV_SHAPES = [RWKV_SERVE_SHAPE, (2, 64, 2, 32), (1, 128, 4, 64), (1, 32, 1, 128), (2, 40, 4, 16)]
-# (B, S, Di, St): jamba's serving shape, tests/test_kernels.py:130, a ragged length.
+RWKV_SHAPES = [RWKV_SERVE_SHAPE, (2, 64, 2, 32), (1, 128, 4, 64), (1, 32, 1, 128), (2, 40, 4, 16),
+               (2, 17, 4, 64), (1, 40, 2, 96)]
+# (B, S, Di, St): jamba's serving shape, tests/test_kernels.py:130, a ragged length, and
+# Di=200, no multiple of the 128-channel block.
 MAMBA_SERVE_SHAPE = (8, 512, 16384, 16)
-MAMBA_SHAPES = [MAMBA_SERVE_SHAPE, (2, 64, 64, 8), (1, 128, 256, 16), (2, 40, 96, 4)]
+MAMBA_SHAPES = [MAMBA_SERVE_SHAPE, (2, 64, 64, 8), (1, 128, 256, 16), (2, 40, 96, 4), (1, 64, 200, 16)]
 SERVE = dict(batch=8, prompt_len=512, gen=32)
 JAMBA = "jamba_1_5_large_398b"
 JAMBA_CUTS = {"moe": None, "n_layers": 16}  # MoE is not ported; 16 of 72 layers fit the card
@@ -152,14 +164,22 @@ def attention_bound_ms(shape, dtype_name: str, elem_bytes: int) -> tuple[float, 
 def rwkv6_bound_ms(r, u, state0) -> tuple[float, str]:
     """Least time for the WKV recurrence on an H100: r, k, v, logw, u and
     state0 read once, out and the final state written once, against the TPU
-    kernel's four fp32 products, 4 (L Dh + Dh^2) flops per step per (b, h)
-    with L = 16 (at S = 512 the same count as the plain recurrence's
-    5 Dh^2 per step), at the fp32 rate of the CUDA cores."""
+    kernel's four products, 4 (L Dh + Dh^2) flops per step per (b, h) with
+    L = 16 (at S = 512 the same count as the plain recurrence's 5 Dh^2 per
+    step). The products run on the tensor cores, so they count at the rate
+    of r's type there (bf16 989 TFLOP/s); fp32 has none but the CUDA cores'."""
     b, s, h, d = r.shape
     nbytes = 5 * r.numel() * r.element_size() + u.numel() * u.element_size() + 4 * b * h * d * d
     if state0 is not None:
         nbytes += state0.numel() * 4
-    return bound(nbytes, 4 * (16 * d + d * d) * b * h * s, "float32")
+    return bound(nbytes, 4 * (16 * d + d * d) * b * h * s, str(r.dtype).removeprefix("torch."))
+
+
+def rwkv6_products_fp32_ms(r) -> float:
+    """The TPU kernel's four products at the CUDA cores' fp32 rate (the bound
+    this script used before the bf16 kernel moved them to the tensor cores)."""
+    b, s, h, d = r.shape
+    return 4 * (16 * d + d * d) * b * h * s / H100_FLOPS["float32"] * 1e3
 
 
 def mamba_bound_ms(u, A, B_) -> tuple[float, str]:
@@ -177,14 +197,16 @@ def mamba_bound_ms(u, A, B_) -> tuple[float, str]:
 def ptxas_report(log: str, dim: str) -> list[str]:
     """'<dtype> <dim>=<d>: <n> registers[, <b> B spilled]' per kernel
     instantiation in nvcc's -Xptxas -v report; ``dim`` names the template's
-    integer parameter. The flash kernel's bf16 instances read 'bf16 wgmma'."""
+    integer parameter. The bf16 instances of the redesigned kernels read
+    'bf16 wgmma' (flash), 'bf16 mma' (WKV) and 'bf16 exp2' (Mamba)."""
     out, inst, spilled = [], None, ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             m = re.search(r"kernelI(.*?)E+v", ln)
             inst = m.group(1).replace("13__nv_bfloat16", "bf16 ").replace("Li", f"{dim}=") if m else ln
             inst = "fp32 " + inst[1:] if inst.startswith(f"f{dim}=") else inst
-            inst = "bf16 wgmma " + inst if "wgmma_kernel" in ln else inst
+            for kernel, label in (("wgmma_kernel", "wgmma"), ("chunk_kernel", "mma"), ("bf16_kernel", "exp2")):
+                inst = f"bf16 {label} " + inst if kernel in ln else inst
             spilled = ""
         elif inst and "bytes spill stores" in ln:
             n = int(ln.split(" bytes spill stores")[0].split(",")[-1])
@@ -207,6 +229,33 @@ def check_close(torch, name: str, got, want, tol: float) -> float:
 def cast_tree(tree: dict, dtype) -> dict:
     """The nested parameter dict with every tensor cast to ``dtype``."""
     return {k: cast_tree(v, dtype) if isinstance(v, dict) else v.to(dtype) for k, v in tree.items()}
+
+
+def bf16_check(torch, make_prefill_step, name: str, cfg32, cache_len: int, params: dict, tokens,
+               l_off, counts: dict) -> None:
+    """bf16 prefill on ``params`` cast, kernels on against off: the last
+    logits may differ by at most twice the bf16 plain path's own error
+    against the fp32 plain path's ``l_off``. ``counts`` maps each kernel's
+    wrapper to the launches the kernel-on prefill must make."""
+    params16 = cast_tree(params, torch.bfloat16)
+    _, l16_off = make_prefill_step(cfg32, cache_len)(params16, {"tokens": tokens})
+    for counter in counts:
+        counter.launches = 0
+    _, l16_on = make_prefill_step(cfg32.replace(use_pallas="on"), cache_len)(params16, {"tokens": tokens})
+    torch.cuda.synchronize()
+    for counter, want in counts.items():
+        if counter.launches != want:
+            fail(f"bf16 kernel-on {name} prefill launched {counter.__name__} {counter.launches} times, "
+                 f"expected {want}")
+    err_kernel = (l16_on.float() - l16_off.float()).abs().max().item()
+    err_bf16 = (l16_off.float() - l_off.float()).abs().max().item()
+    print(f"parity {name} bf16 B={tokens.shape[0]} prompt={tokens.shape[1]}: last logits kernel on vs off "
+          f"max_abs_err {err_kernel:.4g}; bf16 off vs fp32 off {err_bf16:.4g} (bar: twice that, "
+          f"{2 * err_bf16:.4g}; ratio {err_kernel / err_bf16:.3f})")
+    if not bool(torch.isfinite(l16_on.float()).all()):
+        fail(f"bf16 kernel-on {name} prefill logits are not finite")
+    if not err_kernel <= 2 * err_bf16:
+        fail(f"bf16 kernel-on {name} prefill logits differ from kernel-off by more than twice bf16's own error")
 
 
 def serve_phase(torch, serve, configs, arch: str, kernels: dict, dev, seed: int,
@@ -390,8 +439,10 @@ def main() -> None:
     rwkv_plain_ms = time_ms(torch, lambda: ref.rwkv6_ref(*args_), iters=3, warmup=1)
     rwkv_bound_ms, rwkv_bound_by = rwkv6_bound_ms(args_[0], args_[4], args_[5])
     print(f"rwkv6_fwd at {RWKV_SERVE_SHAPE} bf16: kernel {rwkv_ms:.4f} ms, plain "
-          f"{rwkv_plain_ms:.4f} ms, bound {rwkv_bound_ms:.4f} ms ({rwkv_bound_by}); "
-          f"no single PyTorch call computes it")
+          f"{rwkv_plain_ms:.4f} ms, bound {rwkv_bound_ms:.4f} ms ({rwkv_bound_by}; the products at the "
+          f"CUDA cores' fp32 rate would take {rwkv6_products_fp32_ms(args_[0]):.4f} ms), bound / kernel "
+          f"{rwkv_bound_ms / rwkv_ms:.3f}; no single PyTorch call computes it; ptxas "
+          + "; ".join(r for r in ptxas["rwkv6"] if r.startswith(f"bf16 mma Dh={RWKV_SERVE_SHAPE[3]}:")))
     del args_
     print(f"kernel rwkv6 phase {time.perf_counter() - t0:.1f} s")
 
@@ -427,23 +478,9 @@ def main() -> None:
 
     # bf16 reaches the tensor-core kernel: on against off, both bf16, held to
     # twice the plain path's own bf16 error against fp32 on the same weights.
-    params16 = cast_tree(params, torch.bfloat16)
-    _, l16_off = make_prefill_step(cfg32, cache_len)(params16, {"tokens": tokens})
-    flash_attention_fwd.launches = 0
-    _, l16_on = make_prefill_step(cfg32.replace(use_pallas="on"), cache_len)(params16, {"tokens": tokens})
-    torch.cuda.synchronize()
-    if flash_attention_fwd.launches != cfg.n_layers:
-        fail(f"bf16 kernel-on prefill launched flash_attention_fwd {flash_attention_fwd.launches} "
-             f"times, expected {cfg.n_layers}")
-    err_kernel = (l16_on.float() - l16_off.float()).abs().max().item()
-    err_bf16 = (l16_off.float() - l_off.float()).abs().max().item()
-    print(f"parity qwen3 bf16 B=2 prompt=512: last logits kernel on vs off max_abs_err "
-          f"{err_kernel:.4g}; bf16 off vs fp32 off {err_bf16:.4g} (bar: twice that, {2 * err_bf16:.4g})")
-    if not bool(torch.isfinite(l16_on.float()).all()):
-        fail("bf16 kernel-on prefill logits are not finite")
-    if not err_kernel <= 2 * err_bf16:
-        fail("bf16 kernel-on prefill logits differ from kernel-off by more than twice bf16's own error")
-    del params, params16
+    bf16_check(torch, make_prefill_step, "qwen3", cfg32, cache_len, params, tokens, l_off,
+               {flash_attention_fwd: cfg.n_layers})
+    del params
     print(f"parity qwen3 phase {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------- 7. serve rwkv6
@@ -476,7 +513,10 @@ def main() -> None:
     for n in state_err:
         if not torch.allclose(c_on["p0"][n], c_off["p0"][n], rtol=PARITY_TOL, atol=PARITY_TOL):
             fail(f"kernel-on rwkv6 prefill {n} disagrees with kernel-off")
-    del params, c_off, c_on
+    del c_off, c_on
+    bf16_check(torch, make_prefill_step, "rwkv6", cfg32, cache_len, params, tokens, l_off,
+               {rwkv6_fwd: cfg.n_layers})
+    del params
     print(f"parity rwkv6 phase {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------ 9. kernel mamba
@@ -520,7 +560,8 @@ def main() -> None:
     mamba_bound, mamba_bound_by = mamba_bound_ms(u, A, B_)
     print(f"mamba_scan_fwd at {MAMBA_SERVE_SHAPE} bf16, B and C strided, no h0: kernel "
           f"{mamba_ms:.4f} ms, plain {mamba_plain_ms:.4f} ms, bound {mamba_bound:.4f} ms "
-          f"({mamba_bound_by}); no single PyTorch call computes it")
+          f"({mamba_bound_by}), bound / kernel {mamba_bound / mamba_ms:.3f}; no single PyTorch call "
+          f"computes it; ptxas " + "; ".join(r for r in ptxas["mamba"] if r.startswith(f"bf16 exp2 St={st}:")))
     del u, dt, A, B_, C_, dbl, args_
     print(f"kernel mamba phase {time.perf_counter() - t0:.1f} s")
 
@@ -566,7 +607,11 @@ def main() -> None:
         fail("kernel-on jamba prefill logits are not finite")
     if not torch.allclose(l_on, l_off, rtol=PARITY_TOL, atol=PARITY_TOL):
         fail("kernel-on jamba prefill logits disagree with kernel-off")
-    del params, c_off, c_on
+    del c_off, c_on
+    torch.cuda.empty_cache()
+    bf16_check(torch, make_prefill_step, f"jamba {cfg32.n_layers} layers", cfg32, cache_len, params, tokens,
+               l_off, {mamba_scan_fwd: n_mamba, flash_attention_fwd: cfg32.n_layers - n_mamba})
+    del params
     print(f"parity jamba phase {time.perf_counter() - t0:.1f} s; "
           f"all phases {time.perf_counter() - t_all:.1f} s")
 

@@ -120,9 +120,12 @@ def test_smoke_prefill_kernel_on_matches_off(cuda, prompt):
         torch.testing.assert_close(c_on["p0"][name], c_off["p0"][name], rtol=2e-3, atol=2e-3)
 
 
-# tests/test_kernels.py:94-95 (b, s, h, dh), then a ragged length at the smoke
-# config's head dim (started from a zero state) and the serving head count.
-RWKV_SHAPES = [(2, 64, 2, 32), (1, 128, 4, 64), (1, 32, 1, 128), (2, 40, 4, 16), (1, 37, 32, 64)]
+# tests/test_kernels.py:94-95 (b, s, h, dh), then ragged lengths (started from
+# a zero state) at the smoke config's head dim, the serving head count, one
+# step past a 16-step chunk, and Dh=96, whose bf16 blocks own 48 value columns
+# each (three mma warps, two blocks a head).
+RWKV_SHAPES = [(2, 64, 2, 32), (1, 128, 4, 64), (1, 32, 1, 128), (2, 40, 4, 16), (1, 37, 32, 64),
+               (2, 17, 4, 64), (1, 40, 2, 96)]
 RWKV_STATE_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=3e-3, atol=3e-3)}
 
 
@@ -156,6 +159,25 @@ def test_rwkv6_kernel_matches_plain_version(cuda, shape, dtype):
     want_out, want_state = ref.rwkv6_ref(r, k, v, logw, u, s0)
     np.testing.assert_allclose(out.float().cpu().numpy(), want_out.float().cpu().numpy(), **TOL[dtype])
     np.testing.assert_allclose(state.cpu().numpy(), want_state.cpu().numpy(), **RWKV_STATE_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 128])
+def test_rwkv6_kernel_takes_unaligned_views(cuda, dh):
+    """r, k, v, logw as head-dim slices one element into a wider tensor: not
+    16-byte aligned, so the bf16 kernel loads them element by element."""
+    b, s, h = 2, 40, 2
+    rng = np.random.default_rng(7)
+    wide = [rng.normal(0, 1, (b, s, h, dh + 1)) for _ in range(4)]
+    wide[3] = -np.abs(wide[3]) - 0.05
+    r, k, v, logw = (torch.from_numpy(x.astype(np.float32)).to(cuda, torch.bfloat16)[..., 1:] for x in wide)
+    u = torch.from_numpy(rng.normal(0, 1, (h, dh)).astype(np.float32)).to(cuda)
+    s0 = torch.from_numpy(rng.normal(0, 0.3, (b, h, dh, dh)).astype(np.float32)).to(cuda)
+    out, state = rwkv6_fwd(r, k, v, logw, u, s0)
+    torch.cuda.synchronize()
+    want_out, want_state = ref.rwkv6_ref(r, k, v, logw, u, s0)
+    np.testing.assert_allclose(out.float().cpu().numpy(), want_out.float().cpu().numpy(), **TOL["bfloat16"])
+    np.testing.assert_allclose(state.cpu().numpy(), want_state.cpu().numpy(), **RWKV_STATE_TOL["bfloat16"])
 
 
 @pytest.mark.gpu
@@ -240,6 +262,21 @@ def test_mamba_kernel_matches_plain_version(cuda, shape, dtype):
 
 
 @pytest.mark.gpu
+def test_mamba_kernel_takes_unaligned_views(cuda):
+    """u and dt as channel slices one element into a wider tensor: not
+    16-byte aligned, so the bf16 kernel loads them element by element; y
+    has an odd channel count, so it is stored element by element too."""
+    b, s, di, st = 2, 40, 201, 16
+    u, dt, A, B_, C_, _ = _mamba_inputs((b, s, di + 1, st), "bfloat16", cuda)
+    u, dt, A = u[..., 1:], dt[..., 1:], A[1:].contiguous()
+    y, h = mamba_scan_fwd(u, dt, A, B_, C_)
+    torch.cuda.synchronize()
+    want_y, want_h = ref.mamba_ref(u, dt, A, B_, C_)
+    np.testing.assert_allclose(y.float().cpu().numpy(), want_y.float().cpu().numpy(), **TOL["bfloat16"])
+    np.testing.assert_allclose(h.cpu().numpy(), want_h.cpu().numpy(), **MAMBA_STATE_TOL)
+
+
+@pytest.mark.gpu
 def test_mamba_kernel_rejects_what_it_does_not_take(cuda):
     u, dt, A, B_, C_, h0 = _mamba_inputs((1, 64, 64, 8), "float32", cuda)
     with pytest.raises(ValueError, match="CUDA device"):
@@ -283,3 +320,33 @@ def test_smoke_jamba_prefill_kernels_on_match_off(cuda, prompt):
         assert set(c_on[key]) == set(c_off[key])
         for name in c_off[key]:
             torch.testing.assert_close(c_on[key][name], c_off[key][name], rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,overrides,counts", [
+    ("rwkv6_1_6b", {}, {"rwkv6_fwd": 2}),
+    ("jamba_1_5_large_398b", {"moe": None, "n_layers": 16}, {"mamba_scan_fwd": 14, "flash_attention_fwd": 2}),
+])
+def test_smoke_bf16_prefill_kernels_on_stay_within_twice_bf16_error(cuda, arch, overrides, counts):
+    """bf16 smoke prefill (B=2 x 64) with the redesigned bf16 kernels against
+    the plain paths on the same weights cast: the last logits may differ by
+    at most twice the bf16 plain path's own error against fp32 (chip_smoke.py
+    holds the full-width models to the same bar)."""
+    cfg = configs.get_smoke(arch).replace(use_pallas="off", **overrides)
+    params = init_params(T.param_defs(cfg), seed=0, dtype=torch.float32, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 64))).to(cuda)
+    _, l32 = make_prefill_step(cfg, 72)(params, {"tokens": tokens})
+
+    def cast(tree):
+        return {k: cast(v) if isinstance(v, dict) else v.bfloat16() for k, v in tree.items()}
+
+    params16 = cast(params)
+    wrappers = {"rwkv6_fwd": rwkv6_fwd, "mamba_scan_fwd": mamba_scan_fwd, "flash_attention_fwd": flash_attention_fwd}
+    before = {n: wrappers[n].launches for n in counts}
+    _, l_off = make_prefill_step(cfg, 72)(params16, {"tokens": tokens})
+    _, l_on = make_prefill_step(cfg.replace(use_pallas="auto"), 72)(params16, {"tokens": tokens})
+    assert {n: wrappers[n].launches - before[n] for n in counts} == counts
+    err_kernel = (l_on.float() - l_off.float()).abs().max().item()
+    err_bf16 = (l_off.float() - l32.float()).abs().max().item()
+    assert torch.isfinite(l_on.float()).all()
+    assert err_kernel <= 2 * err_bf16, (err_kernel, err_bf16)
