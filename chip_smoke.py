@@ -50,9 +50,25 @@ Phases; any failure exits non-zero before the result lines are printed.
                     512, kernels on against off: last logits, every Mamba
                     layer's state and conv tail, the attention layer's k/v;
                     then the bf16 check of phase 8.
-Each serve phase sets every kernel's count to 0 just before it serves and
-reads the counts just after. Then one JSON line with the kernels' numbers,
-the card's name and power limit, and the final line {"ok": true, "device": {...}}.
+ 12. checkpoint qwen3 — full-width qwen3-0.6B bf16 weights (seed 0) saved by
+                    ``CheckpointManager`` into a new repository (whole-object
+                    tier) and restored onto the card bit for bit; the annex
+                    holds exactly the manifest's keys; times and rates of the
+                    save, the restore, its host read and verify, and its
+                    host-to-device copy. Then ``serve.run(..., repo=...)`` from
+                    that commit: the flash kernel once per layer per prefill,
+                    and phase 5's greedy tokens.
+ 13. checkpoint chunked — one 64 MiB bf16 leaf through the chunk tier (1 MiB
+                    threshold), saved twice with 3% of its bytes changed in
+                    between; each save restores bit for bit, and the second
+                    writes few new chunks. Prints the chunks written and the
+                    cutter's rate on this host.
+Phases 3, 4 and 9 also run one backward through each kernel op
+(``ops.flash_attention``, ``ops.rwkv6``, ``ops.mamba_scan``) at a small fp32
+shape and hold its gradients against the plain version's autograd.
+Each serve sets every kernel's count to 0 just before it serves and reads the
+counts just after. Then one JSON line with the kernels' numbers, the card's
+name and power limit, and the final line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -62,6 +78,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -107,6 +124,10 @@ MAMBA_SHAPES = [MAMBA_SERVE_SHAPE, (2, 64, 64, 8), (1, 128, 256, 16), (2, 40, 96
 SERVE = dict(batch=8, prompt_len=512, gen=32)
 JAMBA = "jamba_1_5_large_398b"
 JAMBA_CUTS = {"moe": None, "n_layers": 16}  # MoE is not ported; 16 of 72 layers fit the card
+GRAD_TOL = 1e-5  # fp32: the backward recomputes through the plain version
+CHUNKED_LEAF_BYTES = 64 << 20  # phase 13: one bf16 leaf
+CHUNK_THRESHOLD = 1 << 20
+CHANGED_SHARE = 0.03  # of the leaf's bytes, one contiguous run, between the two saves
 
 
 def fail(msg: str) -> None:
@@ -258,18 +279,65 @@ def bf16_check(torch, make_prefill_step, name: str, cfg32, cache_len: int, param
         fail(f"bf16 kernel-on {name} prefill logits differ from kernel-off by more than twice bf16's own error")
 
 
+def grad_check(torch, name: str, op, plain, args: list, n_diff: int) -> float:
+    """One backward through the kernel op ``op`` on the card against the
+    plain version's own autograd, for a random weighting of every output:
+    each output must carry a grad_fn and the gradients of the first
+    ``n_diff`` arguments agree within GRAD_TOL. Returns the max abs error."""
+    grads = []
+    for fn in (op, plain):
+        leaves = [a.detach().clone().requires_grad_() for a in args[:n_diff]]
+        outs = fn(*leaves, *args[n_diff:])
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        if any(o.grad_fn is None for o in outs):
+            fail(f"{name}: an output of {fn.__name__} on the card carries no grad_fn")
+        gen = torch.Generator(device=outs[0].device).manual_seed(1)
+        sum((o * torch.randn(o.shape, generator=gen, device=o.device)).sum() for o in outs).backward()
+        grads.append([x.grad for x in leaves])
+    torch.cuda.synchronize()
+    err = max(check_close(torch, f"{name} gradient {i}", g, w, GRAD_TOL)
+              for i, (g, w) in enumerate(zip(*grads)))
+    print(f"  {name} backward (through the plain version) against the plain version's autograd, "
+          f"fp32 {tuple(args[0].shape)}: max_abs_err {err:.3g} over {n_diff} inputs (tol {GRAD_TOL}) ok")
+    return err
+
+
+def leaves(tree: dict, prefix: str = ""):
+    """(path, tensor) of every leaf of a nested dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+def check_bit_equal(torch, name: str, got: dict, want: dict, dev) -> None:
+    """Fails unless ``got`` holds the same paths as ``want``, each on ``dev``
+    with the same dtype, shape and bits."""
+    if sorted(got) != sorted(want):
+        fail(f"{name}: leaves {sorted(set(got) ^ set(want))} differ")
+    for p, w in want.items():
+        g = got[p]
+        if g.device != dev or g.dtype != w.dtype or g.shape != w.shape:
+            fail(f"{name}: {p} is {g.dtype} {tuple(g.shape)} on {g.device}, saved {w.dtype} {tuple(w.shape)}")
+        bits = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[w.element_size()]
+        if not torch.equal(g.view(bits), w.view(bits)):
+            fail(f"{name}: {p} differs from what was saved")
+
+
 def serve_phase(torch, serve, configs, arch: str, kernels: dict, dev, seed: int,
-                overrides: dict | None = None):
-    """Serve at full width (with the config ``overrides``) with every kernel's
-    count set to 0 just before and read just after. ``kernels`` maps a mixer
-    kind to the wrapper of its kernel; fails unless each launched once per
-    layer of its kind per prefill, and none launched for a kind the model
-    lacks. Returns (cfg, result, {wrapper name: launches})."""
+                overrides: dict | None = None, repo: str | None = None):
+    """Serve at full width (with the config ``overrides``; from the newest
+    checkpoint in ``repo`` if given) with every kernel's count set to 0 just
+    before and read just after. ``kernels`` maps a mixer kind to the wrapper
+    of its kernel; fails unless each launched once per layer of its kind per
+    prefill, and none launched for a kind the model lacks. Returns (cfg,
+    result, {wrapper name: launches})."""
     cfg = configs.get(arch).replace(**(overrides or {}))
     for counter in kernels.values():
         counter.launches = 0
     res = serve.run(arch, full=True, device=dev, dtype="bfloat16", seed=seed,
-                    overrides=overrides, **SERVE)
+                    overrides=overrides, repo=repo, **SERVE)
     launches = {counter.__name__: counter.launches for counter in kernels.values()}
 
     def show(v):
@@ -277,7 +345,8 @@ def serve_phase(torch, serve, configs, arch: str, kernels: dict, dev, seed: int,
 
     cuts = "".join(f", {'experts' if k == 'moe' else k} {show(getattr(configs.get(arch), k))} -> {show(v)}"
                    for k, v in (overrides or {}).items())
-    print(f"serve {arch}{cuts} bf16 B=8 prompt=512 gen=32: prefill {res.prefill_ms:.2f} ms, "
+    source = f" from checkpoint step {res.checkpoint_step}" if repo else ""
+    print(f"serve {arch}{cuts}{source} bf16 B=8 prompt=512 gen=32: prefill {res.prefill_ms:.2f} ms, "
           f"decode p50 {res.decode_p50_ms:.3f} ms p95 {res.decode_p95_ms:.3f} ms, "
           f"{res.tokens_per_s:.1f} tok/s, peak memory {res.peak_memory_bytes / 2**30:.3f} GiB, "
           f"launches over {res.prefills} prefills (warm-up included): {launches}")
@@ -325,13 +394,16 @@ def main() -> None:
     torch.cuda.set_device(dev)
 
     from repro_torch import configs
-    from repro_torch.kernels import build, ref
+    from repro_torch.core.chunks import Cutter
+    from repro_torch.core.repo import Repository
+    from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.mamba import mamba_scan_fwd
     from repro_torch.kernels.rwkv6 import rwkv6_fwd
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
     from repro_torch.models.params import init_params
+    from repro_torch.train.checkpoint import CheckpointManager
     from repro_torch.train.steps import make_prefill_step
 
     # ------------------------------------------------------------- 2. build
@@ -346,6 +418,10 @@ def main() -> None:
     print(f"build phase {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
+    grad_gen = torch.Generator(device=dev).manual_seed(args.seed + 1)  # leaves gen's stream as it was
+
+    def grad_inputs(*shapes):
+        return [torch.randn(s, generator=grad_gen, device=dev) for s in shapes]
 
     # ------------------------------------------------------ 3. kernel flash
     t0 = phase("kernel flash")
@@ -377,6 +453,10 @@ def main() -> None:
                           ref.attention_ref(q, k, v, True, None), tol)
         print(f"  {str(dtype):15s} q strides {q.stride()} (a head slice): max_abs_err {err:.3g} "
               f"(tol {tol}) ok")
+
+    b, s, h, kv, d = 2, 128, 4, 2, 64
+    grad_check(torch, "ops.flash_attention", ops.flash_attention, ref.attention_ref,
+               grad_inputs((b, s, h, d), (b, s, kv, d), (b, s, kv, d)) + [True, None], 3)
 
     def time_flash(shape) -> dict:
         """The kernel, its plain version and SDPA at a serving shape, bf16."""
@@ -434,6 +514,10 @@ def main() -> None:
                   f"{state_err:.3g} (tol {STATE_TOL[dname]}) ok")
             if shape == RWKV_SERVE_SHAPE and dtype == torch.bfloat16:
                 rwkv_err = err
+    b, s, h, d = 2, 64, 2, 32
+    r, k, v, lw, u, s0 = grad_inputs((b, s, h, d), (b, s, h, d), (b, s, h, d), (b, s, h, d), (h, d),
+                                     (b, h, d, d))
+    grad_check(torch, "ops.rwkv6", ops.rwkv6, ref.rwkv6_ref, [r, k, v, -lw.abs() - 0.05, u, 0.3 * s0], 6)
     args_ = rwkv_inputs(RWKV_SERVE_SHAPE, torch.bfloat16)
     rwkv_ms = time_ms(torch, lambda: rwkv6_fwd(*args_))
     rwkv_plain_ms = time_ms(torch, lambda: ref.rwkv6_ref(*args_), iters=3, warmup=1)
@@ -550,6 +634,10 @@ def main() -> None:
                   f"{h_err:.3g} (tol {MAMBA_STATE_TOL}) ok")
             if shape == MAMBA_SERVE_SHAPE and dtype == torch.bfloat16:
                 mamba_err = err
+    b, s, di, st = 2, 64, 64, 8
+    u, dt, A, B_, C_, h0 = grad_inputs((b, s, di), (b, s, di), (di, st), (b, s, st), (b, s, st), (b, di, st))
+    grad_check(torch, "ops.mamba_scan", ops.mamba_scan, ref.mamba_ref,
+               [u, 0.1 * dt.abs(), -A.abs(), B_, C_, 0.3 * h0], 6)
     # as the model calls it: B and C strided views of one projection, no h0
     u, dt, A, _, _, _ = mamba_inputs(MAMBA_SERVE_SHAPE, torch.bfloat16)
     st = MAMBA_SERVE_SHAPE[3]
@@ -612,11 +700,112 @@ def main() -> None:
     bf16_check(torch, make_prefill_step, f"jamba {cfg32.n_layers} layers", cfg32, cache_len, params, tokens,
                l_off, {mamba_scan_fwd: n_mamba, flash_attention_fwd: cfg32.n_layers - n_mamba})
     del params
-    print(f"parity jamba phase {time.perf_counter() - t0:.1f} s; "
+    print(f"parity jamba phase {time.perf_counter() - t0:.1f} s")
+
+    # -------------------------------------------------- 12. checkpoint qwen3
+    t0 = phase("checkpoint qwen3")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get("qwen3_0_6b")
+    params = init_params(T.param_defs(cfg), seed=args.seed, dtype=torch.bfloat16, device=dev)
+    saved = dict(leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in saved.values())
+    with tempfile.TemporaryDirectory() as repo_dir:
+        ckpt = CheckpointManager(Repository.init(repo_dir))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        oid = ckpt.save(1, params, {})
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        state, manifest = ckpt.restore(device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        check_bit_equal(torch, "restored qwen3_0_6b params", dict(leaves(state["params"])), saved, dev)
+        keys = {m["key"] for m in manifest["leaves"].values()}
+        if set(ckpt.repo.annex.keys()) != keys:
+            fail("the annex does not hold exactly the keys the checkpoint manifest names")
+        if ckpt.repo.entry_at(oid, "checkpoints/step_00000001/manifest.json")["t"] != "blob":
+            fail("the checkpoint manifest is not a blob of the commit")
+        del state
+        t = time.perf_counter()
+        host_state, _ = ckpt.restore(device="cpu")
+        host_s = time.perf_counter() - t
+        t = time.perf_counter()
+        on_card = {p: v.to(dev) for p, v in leaves(host_state["params"])}
+        torch.cuda.synchronize()
+        h2d_s = time.perf_counter() - t
+        check_bit_equal(torch, "host-restored qwen3_0_6b params", on_card, saved, dev)
+        del host_state, on_card
+
+        def rate(sec):
+            return f"{sec:.3f} s, {n_bytes / sec / 1e9:.3f} GB/s"
+
+        print(f"checkpoint qwen3_0_6b bf16: {len(saved)} leaves, {n_bytes} bytes, {len(keys)} annex keys "
+              f"(identical leaves share one; the manifest is a blob); restored bit for bit. save ({rate(save_s)}: "
+              f"device-to-host copy, sha256, write, commit); restore onto the card ({rate(restore_s)}), of which "
+              f"host read and verify ({rate(host_s)}, restore to the CPU) and host-to-device ({rate(h2d_s)})")
+        cfg, ckpt_res, ckpt_launches = serve_phase(
+            torch, serve, configs, "qwen3_0_6b", all_kernels, dev, args.seed, repo=repo_dir)
+    if ckpt_res.checkpoint_step != 1:
+        fail(f"served checkpoint step {ckpt_res.checkpoint_step}, expected 1")
+    if not torch.equal(ckpt_res.tokens, qwen_res.tokens):
+        again = [serve.run("qwen3_0_6b", full=True, device=dev, dtype="bfloat16", seed=args.seed, **SERVE).tokens
+                 for _ in range(2)]
+        fail(f"greedy tokens served from the checkpoint differ from phase 5's in "
+             f"{int((ckpt_res.tokens != qwen_res.tokens).sum())} of {qwen_res.tokens.numel()} places; two more "
+             f"serves of the seed weights: equal to each other {torch.equal(*again)}, to phase 5's "
+             f"{torch.equal(again[0], qwen_res.tokens)}")
+    print(f"greedy tokens served from the checkpoint commit equal phase 5's ({tuple(qwen_res.tokens.shape)})")
+    del params, saved
+    print(f"checkpoint qwen3 phase {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------ 13. checkpoint chunked
+    t0 = phase("checkpoint chunked")
+    n = CHUNKED_LEAF_BYTES // 2
+    n_changed = int(n * CHANGED_SHARE)
+    first = torch.randn(n, generator=gen, device=dev).to(torch.bfloat16)
+    second = first.clone()
+    second[n // 3 : n // 3 + n_changed] = torch.randn(n_changed, generator=gen, device=dev).to(torch.bfloat16)
+    with tempfile.TemporaryDirectory() as repo_dir:
+        repo = Repository.init(repo_dir, chunk_threshold=CHUNK_THRESHOLD)
+        ckpt = CheckpointManager(repo)
+        written, save_s, oids = [], [], []
+        for step, w in ((1, first), (2, second)):
+            before = {k for k in repo.annex.keys() if k.startswith("SHA256C-")}
+            t = time.perf_counter()
+            oids.append(ckpt.save(step, {"w": w}, {}))
+            save_s.append(time.perf_counter() - t)
+            written.append(len({k for k in repo.annex.keys() if k.startswith("SHA256C-")} - before))
+            if not repo.entry_at(oids[-1], f"checkpoints/step_{step:08d}/params.w.npy").get("chunked"):
+                fail(f"the {CHUNKED_LEAF_BYTES}-byte leaf of step {step} was not stored chunked")
+        restore_s = []
+        for oid, w in zip(oids, (first, second)):
+            t = time.perf_counter()
+            state, _ = ckpt.restore(oid, device=dev)
+            torch.cuda.synchronize()
+            restore_s.append(time.perf_counter() - t)
+            check_bit_equal(torch, f"chunked leaf of {oid[:12]}", {"w": state["params"]["w"]}, {"w": w}, dev)
+        data = first.view(torch.int16).cpu().numpy().tobytes()
+        cutter = Cutter(repo._chunk_params)
+        t = time.perf_counter()
+        n_cut = sum(len(cutter.feed(data[i : i + (1 << 20)])) for i in range(0, len(data), 1 << 20))
+        n_cut += len(cutter.finish())
+        cut_s = time.perf_counter() - t
+    allowed = 2 * int(written[0] * CHANGED_SHARE + 1) + 4
+    print(f"checkpoint chunked: one {CHUNKED_LEAF_BYTES}-byte bf16 leaf, chunk threshold {CHUNK_THRESHOLD}: "
+          f"save 1 wrote {written[0]} chunks in {save_s[0]:.3f} s; save 2, {CHANGED_SHARE:.0%} of the bytes "
+          f"changed in one run, wrote {written[1]} new chunks ({written[1] / written[0]:.2%}; bar {allowed}) in "
+          f"{save_s[1]:.3f} s; restores {restore_s[0]:.3f} s and {restore_s[1]:.3f} s, bit for bit; the cutter "
+          f"alone cuts {len(data) / cut_s / 1e6:.1f} MB/s on this host ({n_cut} chunks, 1 MiB blocks)")
+    if not 0 < written[1] <= allowed:
+        fail(f"the second save wrote {written[1]} new chunks, expected 1..{allowed}")
+    del first, second, data
+    print(f"checkpoint chunked phase {time.perf_counter() - t0:.1f} s; "
           f"all phases {time.perf_counter() - t_all:.1f} s")
 
     serve_runs = {"qwen3_0_6b": (qwen_res, qwen_launches), "rwkv6_1_6b": (rwkv_res, rwkv_launches),
-                  JAMBA: (jamba_res, jamba_launches)}
+                  JAMBA: (jamba_res, jamba_launches),
+                  "qwen3_0_6b from checkpoint": (ckpt_res, ckpt_launches)}
 
     def launch_counts(name: str) -> dict:
         """The kernel's launches over the serve runs, by path, and per prefill."""

@@ -13,13 +13,16 @@ import torch
 from . import resolve_device
 
 
+def bf16_tensor_from_bits(bits: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A bf16 tensor whose bit patterns are the 16-bit array ``bits``."""
+    bits = np.array(bits, order="C")  # own, writable copy: JAX hands out read-only views
+    return torch.from_numpy(bits.view(np.uint16)).view(torch.bfloat16).to(device)
+
+
 def tensor_from_numpy(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    arr = np.array(arr, order="C")  # own, writable copy: JAX hands out read-only views
     if arr.dtype.name == "bfloat16":  # ml_dtypes, detected without importing it
-        t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(arr)
-    return t.to(device)
+        return bf16_tensor_from_bits(arr.view(np.uint16), device)
+    return torch.from_numpy(np.array(arr, order="C")).to(device)
 
 
 def params_from_numpy(tree: dict, device: str | torch.device = "cuda") -> dict:

@@ -1,9 +1,13 @@
 """Public wrappers around the hand-written kernels, in the model layout.
 
 Each takes its kernel's plain version (``ref.py``) for tensors that lie on
-the CPU, and launches the kernel for CUDA tensors, or raises: a CUDA tensor
-never falls back to the plain version. Forward only for now; the backward
-through the plain version comes with the training slice.
+the CPU, and for CUDA tensors runs an ``autograd.Function`` whose forward
+launches the kernel, once, or raises: a CUDA tensor never falls back to the
+plain version. Its backward recomputes through the plain version and
+returns that version's vector-Jacobian product, as the reference's
+``custom_vjp``s do (``repro/kernels/ops.py``); there is no backward kernel.
+Under ``torch.inference_mode()`` or ``no_grad`` nothing is recorded, and the
+forward is the one launch.
 """
 from __future__ import annotations
 
@@ -15,6 +19,67 @@ from .mamba import mamba_scan_fwd
 from .rwkv6 import rwkv6_fwd
 
 
+def _recompute_vjp(ctx, plain, n_diff: int, grads_out):
+    """Gradients of ``plain(*saved, *ctx.static)`` with respect to the first
+    ``n_diff`` saved inputs, for the output gradients ``grads_out``; None for
+    an input that needs none or is None."""
+    saved = ctx.saved_tensors
+    needs = ctx.needs_input_grad[:n_diff]
+    with torch.enable_grad():
+        inputs = [None if t is None else t.detach().requires_grad_(bool(need))
+                  for t, need in zip(saved, needs)]
+        outputs = plain(*inputs, *ctx.static)
+        outputs = outputs if isinstance(outputs, tuple) else (outputs,)
+        # an output may depend on none of the inputs asked for (rwkv6's state on r)
+        pairs = [(o, g) for o, g in zip(outputs, grads_out) if o.requires_grad]
+        wrt = [t for t in inputs if t is not None and t.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                       allow_unused=True) if wrt and pairs else ())
+    return tuple(next(got) if t is not None and t.requires_grad else None for t in inputs)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention_fwd`` forward; backward through ``ref.attention_ref``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.static = (causal, window)
+        return flash_attention_fwd(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _recompute_vjp(ctx, ref.attention_ref, 3, (g,)) + (None, None)
+
+
+class RWKV6(torch.autograd.Function):
+    """``rwkv6_fwd`` forward; backward through ``ref.rwkv6_ref``."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, state0):
+        ctx.save_for_backward(r, k, v, logw, u, state0)
+        ctx.static = ()
+        return rwkv6_fwd(r, k, v, logw, u, state0)
+
+    @staticmethod
+    def backward(ctx, g_out, g_state):
+        return _recompute_vjp(ctx, ref.rwkv6_ref, 6, (g_out, g_state))
+
+
+class MambaScan(torch.autograd.Function):
+    """``mamba_scan_fwd`` forward; backward through ``ref.mamba_ref``."""
+
+    @staticmethod
+    def forward(ctx, u, dt, A, B_, C_, h0):
+        ctx.save_for_backward(u, dt, A, B_, C_, h0)
+        ctx.static = ()
+        return mamba_scan_fwd(u, dt, A, B_, C_, h0)
+
+    @staticmethod
+    def backward(ctx, g_y, g_h):
+        return _recompute_vjp(ctx, ref.mamba_ref, 6, (g_y, g_h))
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     causal: bool = True, window: int | None = None,
@@ -22,7 +87,7 @@ def flash_attention(
     """q [B,Sq,H,Dh]; k/v [B,Sk,KV,Dh] -> [B,Sq,H,Dh]."""
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal, window)
-    return flash_attention_fwd(q, k, v, causal=causal, window=window)
+    return FlashAttention.apply(q, k, v, causal, window)
 
 
 def rwkv6(
@@ -33,7 +98,7 @@ def rwkv6(
     (zeros). Returns (out [B,S,H,Dh] in r's dtype, state [B,H,Dh,Dh] fp32)."""
     if r.device.type == "cpu":
         return ref.rwkv6_ref(r, k, v, logw, u, state0)
-    return rwkv6_fwd(r, k, v, logw, u, state0)
+    return RWKV6.apply(r, k, v, logw, u, state0)
 
 
 def mamba_scan(
@@ -45,4 +110,4 @@ def mamba_scan(
     [B,Di,St] fp32)."""
     if u.device.type == "cpu":
         return ref.mamba_ref(u, dt, A, B_, C_, h0)
-    return mamba_scan_fwd(u, dt, A, B_, C_, h0)
+    return MambaScan.apply(u, dt, A, B_, C_, h0)

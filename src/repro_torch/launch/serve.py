@@ -1,10 +1,11 @@
 """Serving launcher: batched prefill + greedy decode (port of
-``repro.launch.serve``), on randomly initialised weights.
+``repro.launch.serve``), on randomly initialised weights or on the weights
+of a checkpoint commit in a repository.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch {qwen3_0_6b,rwkv6_1_6b,jamba_1_5_large_398b} \\
         --batch 8 --prompt-len 64 --gen 32 [--full] [--device cuda] [--dtype bfloat16] \\
-        [--n-layers N] [--no-moe]
+        [--n-layers N] [--no-moe] [--repo PATH [--commit OID]]
 
 Runs on CUDA unless ``--device cpu`` is given. ``--n-layers`` and
 ``--no-moe`` override the registry's config (``run(overrides=...)``, applied
@@ -19,8 +20,12 @@ for RWKV6 layers, and a fixed [B, Di, St] state with a [B, K-1, Di] conv tail
 for Mamba layers; the last two take no cache length. One prefill and one
 decode step warm up (kernel build and library start-up) before anything is
 timed; each timed step is bracketed by ``torch.cuda.synchronize()``.
-Restoring a checkpoint (the reference's ``--repo``) waits for ROADMAP.md §A
-item 2.
+
+``--repo`` restores ``params`` from the repository's newest checkpoint
+commit, or from ``--commit`` (an oid, a unique prefix or a branch), in the
+dtype they were saved in (``--dtype`` is refused beside it), and prints the
+restored step. Every restored leaf must have the shape the config gives it
+(``--full``, ``--n-layers`` and ``--no-moe`` included), else the run raises.
 """
 from __future__ import annotations
 
@@ -35,8 +40,10 @@ import numpy as np
 import torch
 
 from .. import configs, resolve_device
+from ..core.repo import Repository
 from ..models import transformer as T
 from ..models.params import init_params
+from ..train.checkpoint import CheckpointManager, _flatten
 from ..train.steps import greedy_token, make_decode_step, make_prefill_step
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -50,6 +57,7 @@ class ServeResult:
     logits_finite: bool  # every step's logits
     prefills: int  # prefills run, the warm-up included
     peak_memory_bytes: int | None  # CUDA only
+    checkpoint_step: int | None = None  # the restored step, with a repo
 
     @property
     def decode_p50_ms(self) -> float:
@@ -70,11 +78,28 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _check_shapes(arch: str, cfg, params: dict, repo: str) -> None:
+    """Raise unless ``params`` has exactly the leaves and shapes of the config."""
+    want = {p: tuple(d.shape) for p, d in _flatten(T.param_defs(cfg)).items()}
+    got = {p: tuple(t.shape) for p, t in _flatten(params).items()}
+    if got != want:
+        bad = sorted(p for p in want.keys() | got.keys() if want.get(p) != got.get(p))
+        raise ValueError(f"the checkpoint in {repo} does not fit {arch}'s config: {len(bad)} leaves differ, "
+                         f"e.g. {bad[0]}: saved {got.get(bad[0])}, config {want.get(bad[0])}")
+
+
 def run(arch: str = "qwen3_0_6b", *, batch: int = 8, prompt_len: int = 64, gen: int = 32,
         full: bool = False, device: str | torch.device = "cuda", dtype: str = "bfloat16",
         seed: int = 0, overrides: dict | None = None,
-        window: Callable[[str], AbstractContextManager] | None = None) -> ServeResult:
+        window: Callable[[str], AbstractContextManager] | None = None,
+        repo: str | None = None, commit: str | None = None) -> ServeResult:
     """Serve one batch of random prompts; returns the tokens and timings.
+
+    With ``repo``, the weights are the ``params`` of the checkpoint
+    ``commit`` (default: the newest) in that repository, in their saved
+    dtype: ``dtype`` is not used, and ``seed`` makes only the prompts. They
+    must have the shapes of ``T.param_defs`` of the config, else ValueError.
+    Without ``repo``, they are initialised from ``seed`` in ``dtype``.
 
     ``overrides``, if given, replaces fields of the registry's config (for
     example ``{"moe": None, "n_layers": 16}``).
@@ -90,7 +115,16 @@ def run(arch: str = "qwen3_0_6b", *, batch: int = 8, prompt_len: int = 64, gen: 
     cfg = configs.get(arch) if full else configs.get_smoke(arch)
     if overrides:
         cfg = cfg.replace(**overrides)
-    params = init_params(T.param_defs(cfg), seed=seed, dtype=DTYPES[dtype], device=dev)
+    step_restored = None
+    if repo:
+        state, manifest = CheckpointManager(Repository(repo)).restore(commit, device=dev)
+        if state is None:
+            raise FileNotFoundError(f"no checkpoint commit in {repo}")
+        params, step_restored = state["params"], manifest["step"]
+        _check_shapes(arch, cfg, params, repo)
+        print(f"restored checkpoint step {step_restored} from {repo}")
+    else:
+        params = init_params(T.param_defs(cfg), seed=seed, dtype=DTYPES[dtype], device=dev)
     prefill_step = make_prefill_step(cfg, cache_len=prompt_len + gen)
     step = make_decode_step(cfg)
     prefills = 0
@@ -136,6 +170,7 @@ def run(arch: str = "qwen3_0_6b", *, batch: int = 8, prompt_len: int = 64, gen: 
         logits_finite=bool(finite),
         prefills=prefills,
         peak_memory_bytes=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
+        checkpoint_step=step_restored,
     )
 
 
@@ -162,13 +197,18 @@ def main(argv: list[str] | None = None) -> ServeResult:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--dtype", choices=sorted(DTYPES), default="bfloat16")
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default=None,
+                    help="weights' dtype (default bfloat16); not with --repo")
+    ap.add_argument("--repo", default="", help="restore weights from this repository, in their saved dtype")
+    ap.add_argument("--commit", default=None, help="checkpoint commit (default: the newest)")
     add_override_args(ap)
     args = ap.parse_args(argv)
+    if args.repo and args.dtype:
+        ap.error("--dtype is not used with --repo: the restored weights keep their saved dtype")
 
     res = run(args.arch, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
-              full=args.full, device=args.device, dtype=args.dtype,
-              overrides=overrides_from_args(args))
+              full=args.full, device=args.device, dtype=args.dtype or "bfloat16",
+              overrides=overrides_from_args(args), repo=args.repo or None, commit=args.commit)
     print(f"prefill: {res.prefill_ms:.1f} ms (after one warm-up prefill)")
     print(f"decode: p50={res.decode_p50_ms:.2f} ms  p95={res.decode_p95_ms:.2f} ms  "
           f"throughput={res.tokens_per_s:.0f} tok/s")

@@ -1,0 +1,286 @@
+"""Checkpointing through the version store (port of
+``repro.train.checkpoint``).
+
+Every leaf of ``{"params": ..., "opt_state": ...}`` is streamed into the
+annex as an ``.npy`` file (content-addressed: a leaf that did not change
+between steps keeps its key and is stored once), the worktree records a
+pointer to it and a ``manifest.json``, and both are committed with a run
+record whose ``checkpoint_step`` names the step. A checkpoint is a commit
+hash. Leaves above the repository's chunk threshold go through the chunk
+tier, so a later step stores only the chunks that changed.
+
+The files are the reference's byte for byte: a bf16 leaf is stored as its
+uint16 bits with manifest dtype ``"bfloat16"``, and dtype names are
+numpy's. So the same values give the same annex keys and the same
+checkpoint subtree in either package, and a checkpoint written by one
+restores in the other.
+
+``save`` takes tensors on any device (or numpy arrays): each leaf is copied
+to the host once. ``save_async`` takes that copy, then writes and commits
+on a worker thread; a failure there is re-raised from ``wait()`` or the next
+``save_async``. ``restore`` reads, verifies and loads the leaves on a thread
+pool and returns tensors on ``device``.
+"""
+from __future__ import annotations
+
+import io
+import json
+import threading
+from multiprocessing.pool import ThreadPool
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..convert import bf16_tensor_from_bits, tensor_from_numpy
+from ..core.annex import make_pointer
+from ..core.records import RunRecord, command_spec_json
+from ..core.repo import Repository
+
+MARKER = "[REPRO CKPT]"
+SUBDIR = "checkpoints"  # the reference's default: step N lives in checkpoints/step_<N:08d>
+
+_BLOCK = 1 << 20  # streaming quantum for leaf serialization
+FETCH_WORKERS = 8  # restore's default thread count
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def _unflatten(flat: dict):
+    root: dict = {}
+    for path, v in flat.items():
+        parts = path.split("/")
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return root
+
+
+def _npy_header(raw: np.ndarray) -> bytes:
+    """The exact ``np.save`` prelude (magic + format-1.0 header) for ``raw``."""
+    buf = io.BytesIO()
+    np.lib.format.write_array_header_1_0(buf, np.lib.format.header_data_from_array_1_0(raw))
+    header = buf.getvalue()
+    magic = np.lib.format.magic(1, 0)
+    # numpy >= 2.0 writes the magic itself; older versions leave it to the caller
+    if not header.startswith(magic):
+        header = magic + header
+    return header
+
+
+def _npy_stream(header: bytes, raw: np.ndarray, block: int = _BLOCK):
+    """An npy file as bounded blocks: the header, then slices of the array's
+    own buffer."""
+    yield header
+    if raw.nbytes == 0:
+        return
+    mv = memoryview(raw).cast("B") if raw.ndim else memoryview(raw.tobytes())
+    for i in range(0, raw.nbytes, block):
+        yield mv[i : i + block]
+
+
+def _host(leaf) -> tuple[np.ndarray, str]:
+    """A host copy of one leaf as (array to serialise, manifest dtype name):
+    bf16 as its uint16 bits."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        arr = t.numpy()
+    else:
+        arr = np.array(leaf)
+        if arr.dtype.name == "bfloat16":  # ml_dtypes, detected without importing it
+            return arr.view(np.uint16), "bfloat16"
+    return arr, str(arr.dtype)
+
+
+class CheckpointManager:
+    def __init__(self, repo: Repository):
+        self.repo = repo
+        self._thread: threading.Thread | None = None
+        self._async_exc: BaseException | None = None
+        # checkpoints() cache, per branch: the tip it was computed at, every
+        # commit already walked, and the (timestamp, oid, step) rows
+        self._ckpt_cache: dict[str, dict] = {}
+
+    # ------------------------------------------------------------- save
+    @staticmethod
+    def _snapshot(params, opt_state) -> dict:
+        return {p: _host(v) for p, v in _flatten({"params": params, "opt_state": opt_state}).items()}
+
+    def save(self, step: int, params, opt_state) -> str:
+        """Write and commit one checkpoint; returns its commit oid."""
+        return self._write(step, self._snapshot(params, opt_state))
+
+    def save_async(self, step: int, params, opt_state) -> None:
+        """Copy the state to the host now, then write and commit on a worker
+        thread. The previous async save's failure, if any, is raised here."""
+        self.wait()
+        host = self._snapshot(params, opt_state)
+
+        def work():
+            try:
+                self._write(step, host)
+            except BaseException as e:  # re-raised from wait()
+                self._async_exc = e
+
+        self._thread = threading.Thread(target=work)
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Block until the async save in flight ends; re-raise its failure."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        exc, self._async_exc = self._async_exc, None
+        if exc is not None:
+            raise exc
+
+    def _write(self, step: int, host: dict) -> str:
+        reldir = f"{SUBDIR}/step_{step:08d}"
+        # data_step stays 0 until a training loop has a data position to record
+        manifest = {"step": step, "data_step": 0, "leaves": {}, "extra": {}}
+        for path, (raw, dtype_name) in host.items():
+            fname = path.replace("/", ".") + ".npy"
+            shape = list(raw.shape)
+            if not raw.flags.c_contiguous:
+                raw = np.ascontiguousarray(raw)  # only then: it would make a 0-d array 1-d
+            header = _npy_header(raw)
+            chunked = self.repo._should_chunk(len(header) + raw.nbytes)
+            key = self.repo.annex.put_stream(_npy_stream(header, raw), chunked=chunked)
+            self.repo.write_file(f"{reldir}/{fname}", make_pointer(key, chunked=chunked))
+            manifest["leaves"][path] = {"file": fname, "shape": shape, "dtype": dtype_name,
+                                        "key": key, "chunked": chunked}
+        self.repo.write_file(f"{reldir}/manifest.json",
+                             json.dumps(manifest, indent=1, sort_keys=True).encode())
+        cmd = f"checkpoint --step {step}"
+        record = RunRecord(cmd=cmd, dsid=self.repo.dsid, outputs=[reldir],
+                           extras={"checkpoint_step": step, "data_step": 0})
+        return self.repo.save(paths=[reldir], message=record.to_message(f"{MARKER} step {step}"),
+                              spec=command_spec_json(cmd, [reldir]))
+
+    # ---------------------------------------------------------- restore
+    def _walk(self, head: str, seen: set, old_head: str | None):
+        """Walk the ancestry of ``head``, stopping at commits already seen.
+        Returns (new (ts, oid, step) rows, whether ``old_head`` was met):
+        meeting it shows the history only grew since the cache was made."""
+        touched = old_head is None
+        out = []
+        frontier = [head]
+        while frontier:
+            oid = frontier.pop()
+            if oid == old_head:
+                touched = True
+            if oid in seen:
+                continue
+            seen.add(oid)
+            c = self.repo.objects.get_commit(oid)
+            if MARKER in c["message"]:
+                rec = RunRecord.from_message(c["message"])
+                if rec and "checkpoint_step" in rec.extras:
+                    out.append((c["timestamp"], oid, rec.extras["checkpoint_step"]))
+            frontier.extend(c["parents"])
+        return out, touched
+
+    def checkpoints(self) -> list[tuple[str, int]]:
+        """(commit, step) of every checkpoint commit, newest first. An
+        unchanged branch tip answers from the cache, an advanced one walks
+        only the new commits, a rewritten history is walked anew."""
+        head = self.repo.head_commit()
+        if head is None:
+            return []
+        branch = self.repo.current_branch()
+        cache = self._ckpt_cache.get(branch)
+        if cache is not None and cache["head"] == head:
+            return [(oid, s) for _, oid, s in cache["entries"]]
+        if cache is None:
+            cache = {"head": None, "seen": set(), "entries": []}
+        new, touched = self._walk(head, cache["seen"], cache["head"])
+        if not touched:
+            cache = {"head": None, "seen": set(), "entries": []}
+            new, _ = self._walk(head, cache["seen"], None)
+        entries = sorted(cache["entries"] + new, key=lambda e: (-e[0], -e[2]))
+        cache.update(head=head, entries=entries)
+        self._ckpt_cache[branch] = cache
+        return [(oid, s) for _, oid, s in entries]
+
+    def latest(self) -> tuple[str, int] | None:
+        cps = self.checkpoints()
+        return cps[0] if cps else None
+
+    def _tree_bytes(self, oid: str, rel: str) -> bytes:
+        """One committed file's content, from the object store or the annex."""
+        entry = self.repo.entry_at(oid, rel)
+        if entry is None:
+            raise FileNotFoundError(f"{rel} not in commit {oid}")
+        if entry["t"] == "blob":
+            return self.repo.objects.get_blob(entry["oid"])
+        self.repo.annex_fetch_key(entry["key"])
+        return self.repo.annex.read(entry["key"])
+
+    def restore(self, commitish: str | None = None, device: str | torch.device = "cuda",
+                fetch_workers: int = FETCH_WORKERS):
+        """(state tree of tensors on ``device``, manifest) of a checkpoint
+        commit (branch, oid or unique prefix; default the newest), or
+        (None, None) when there is none. Leaves are read and verified on
+        ``fetch_workers`` threads."""
+        dev = resolve_device(device)
+        if commitish is None:
+            latest = self.latest()
+            if latest is None:
+                return None, None
+            commitish = latest[0]
+        oid = self.repo.resolve(commitish)
+        rec = RunRecord.from_message(self.repo.objects.get_commit(oid)["message"])
+        if rec is None or "checkpoint_step" not in rec.extras:
+            raise ValueError(f"commit {oid} is not a checkpoint")
+        reldir = f"{SUBDIR}/step_{rec.extras['checkpoint_step']:08d}"
+        manifest = json.loads(self._tree_bytes(oid, f"{reldir}/manifest.json"))
+        leaves = manifest["leaves"]
+        # each leaf's annex key; a legacy manifest has none, and then the
+        # committed tree entry says where the leaf is (a small one may be a blob)
+        jobs: dict[str, tuple] = {}
+        for path, meta in leaves.items():
+            key = meta.get("key")
+            if key is None:
+                entry = self.repo.entry_at(oid, f"{reldir}/{meta['file']}")
+                if entry is None:
+                    raise FileNotFoundError(f"{reldir}/{meta['file']} not in commit {oid}")
+                if entry["t"] != "annex":
+                    jobs[path] = ("blob", entry["oid"])
+                    continue
+                key = entry["key"]
+            jobs[path] = ("key", key)
+
+        def fetch(item):
+            path, job = item
+            if job[0] == "blob":
+                data = self.repo.objects.get_blob(job[1])
+            else:
+                self.repo.annex_fetch_key(job[1])
+                data = self.repo.annex.read(job[1])
+            return path, np.load(io.BytesIO(data))
+
+        items = list(jobs.items())
+        if fetch_workers > 1 and len(items) > 1:
+            with ThreadPool(min(fetch_workers, len(items))) as pool:
+                arrays = dict(pool.map(fetch, items))
+        else:
+            arrays = dict(fetch(it) for it in items)
+        flat = {}
+        for path, meta in leaves.items():
+            arr = arrays[path]
+            flat[path] = (bf16_tensor_from_bits(arr, dev) if meta["dtype"] == "bfloat16"
+                          else tensor_from_numpy(arr, dev))
+        return _unflatten(flat), manifest

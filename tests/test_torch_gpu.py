@@ -350,3 +350,78 @@ def test_smoke_bf16_prefill_kernels_on_stay_within_twice_bf16_error(cuda, arch, 
     err_bf16 = (l_off.float() - l32.float()).abs().max().item()
     assert torch.isfinite(l_on.float()).all()
     assert err_kernel <= 2 * err_bf16, (err_kernel, err_bf16)
+
+
+def _grad_case(kernel, cuda):
+    """(op, fp32 inputs on the card, plain version, differentiable input
+    positions) at one shape per kernel; the state inputs are given."""
+    rng = np.random.default_rng(5)
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(0, 1, shape)).astype(np.float32)).to(cuda)
+
+    if kernel == "flash":
+        b, s, h, kv, dh = 2, 128, 4, 2, 64
+        return ops.flash_attention, [t((b, s, h, dh)), t((b, s, kv, dh)), t((b, s, kv, dh)), True, None], \
+            ref.attention_ref, 3
+    if kernel == "rwkv6":
+        b, s, h, dh = 2, 64, 2, 32
+        logw = -t((b, s, h, dh)).abs() - 0.05
+        return ops.rwkv6, [t((b, s, h, dh)), t((b, s, h, dh)), t((b, s, h, dh)), logw, t((h, dh)),
+                           t((b, h, dh, dh), 0.3)], ref.rwkv6_ref, 6
+    b, s, di, st = 2, 64, 64, 8
+    return ops.mamba_scan, [t((b, s, di)), 0.1 * t((b, s, di)).abs(), -t((di, st)).abs(), t((b, s, st)),
+                            t((b, s, st)), t((b, di, st), 0.3)], ref.mamba_ref, 6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["flash", "rwkv6", "mamba"])
+def test_kernel_ops_keep_their_gradients(cuda, kernel):
+    """On the card each op's outputs carry a grad_fn, and the gradients of a
+    random weighting of them equal the plain version's autograd (the
+    backward recomputes through it; fp32 1e-5)."""
+    op, args, plain, n_diff = _grad_case(kernel, cuda)
+    counters = {"flash": flash_attention_fwd, "rwkv6": rwkv6_fwd, "mamba": mamba_scan_fwd}
+    grads = []
+    for fn in (op, plain):
+        leaves = [a.clone().requires_grad_() for a in args[:n_diff]]
+        before = counters[kernel].launches
+        outs = fn(*leaves, *args[n_diff:])
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        assert counters[kernel].launches == before + (fn is op)
+        assert all(o.grad_fn is not None for o in outs)
+        weights = [torch.from_numpy(np.random.default_rng(6).normal(0, 1, o.shape).astype(np.float32)).to(cuda)
+                   for o in outs]
+        sum((o * w).sum() for o, w in zip(outs, weights)).backward()
+        grads.append([x.grad for x in leaves])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_smoke_forward_train_gradients_kernel_on_match_off(cuda):
+    """qwen3 smoke forward_train in fp32 with the flash kernel: every
+    parameter gets the gradient it gets with the kernel off (2e-3)."""
+    cfg = configs.get_smoke("qwen3_0_6b").replace(use_pallas="off")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 64))).to(cuda)
+    grads = []
+    for use_pallas in ("off", "on"):
+        params = init_params(T.param_defs(cfg), seed=0, dtype=torch.float32, device=cuda)
+        leaves = {}
+
+        def walk(node, prefix=""):
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    walk(v, f"{prefix}{k}/")
+                else:
+                    leaves[prefix + k] = v.requires_grad_()
+
+        walk(params)
+        before = flash_attention_fwd.launches
+        logits, _ = T.forward_train(cfg.replace(use_pallas=use_pallas), params, {"tokens": tokens})
+        assert flash_attention_fwd.launches - before == (cfg.n_layers if use_pallas == "on" else 0)
+        logits.float().square().mean().backward()
+        grads.append({k: v.grad for k, v in leaves.items()})
+    assert all(g is not None for g in grads[1].values())
+    for k in grads[0]:
+        torch.testing.assert_close(grads[1][k], grads[0][k], rtol=2e-3, atol=2e-3)
