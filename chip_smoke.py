@@ -63,6 +63,20 @@ Phases; any failure exits non-zero before the result lines are printed.
                     between; each save restores bit for bit, and the second
                     writes few new chunks. Prints the chunks written and the
                     cutter's rate on this host.
+ 14. train qwen3  — full-width, full-depth qwen3-0.6B training (bf16 weights,
+                    fp32 AdamW moments, remat) through
+                    ``repro_torch.launch.train.run``: 8 steps of B=8 x 512
+                    tokens in a new repository, one checkpoint at the end.
+                    Prints step time p50/p95 over steps 2-8, tokens/s,
+                    train_mfu, peak memory, every loss and the save time of
+                    the whole train state. The flash kernel must launch 56
+                    times a step (28 forward, 28 in remat's recompute). Then
+                    5 steps on one fixed batch, whose loss must drop; one fp32
+                    step cut to 2 layers, loss and every gradient kernel on
+                    against off (2e-3 of each leaf's largest gradient); and,
+                    with deterministic algorithms, 6 steps unbroken against 3,
+                    a new segment and 3 more: the step-6 checkpoints' annex
+                    keys (sha256 of each leaf's bytes) must be equal.
 Phases 3, 4 and 9 also run one backward through each kernel op
 (``ops.flash_attention``, ``ops.rwkv6``, ``ops.mamba_scan``) at a small fp32
 shape and hold its gradients against the plain version's autograd.
@@ -75,12 +89,18 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
+import os
 import re
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+
+# Phase 14's deterministic resume needs cuBLAS's fixed workspace; cuBLAS reads
+# this once, when it starts, so it is set before torch is imported.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
 
@@ -128,6 +148,10 @@ GRAD_TOL = 1e-5  # fp32: the backward recomputes through the plain version
 CHUNKED_LEAF_BYTES = 64 << 20  # phase 13: one bf16 leaf
 CHUNK_THRESHOLD = 1 << 20
 CHANGED_SHARE = 0.03  # of the leaf's bytes, one contiguous run, between the two saves
+TRAIN = dict(steps=8, batch=8, seq_len=512)  # phase 14's timed run (launch.train.run)
+TRAIN_LR = 1e-3  # the fixed-batch check: constant rate, AdamW's other defaults
+TRAIN_PARITY_LAYERS = 2  # the kernel on/off train step: 2 of qwen3's 28 layers, full width
+PREEMPT = (6, 3)  # the unbroken run's steps, and the step the other is cut at
 
 
 def fail(msg: str) -> None:
@@ -166,20 +190,24 @@ def bound(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def attention_bound_ms(shape, dtype_name: str, elem_bytes: int) -> tuple[float, str]:
-    """Least time for causal GQA attention on an H100: each of q, k, v read
-    once and o written once, against 4 * Dh flops per unmasked (row, col)
-    pair per head (q k^T and p v; the exponentials are not counted)."""
+def attention_flops(shape) -> int:
+    """4 * Dh flops per unmasked (row, col) pair per head: q k^T and p v (the
+    exponentials are not counted)."""
     import numpy as np
 
     b, sq, sk, h, kv, d, causal, window = shape
     rows = np.arange(sq)
     hi = np.minimum(rows + 1, sk) if causal else np.full(sq, sk)
     lo = np.maximum(rows - window + 1, 0) if (causal and window) else np.zeros(sq, np.int64)
-    pairs = int(np.maximum(hi - lo, 0).sum())
-    flops = 4 * d * pairs * b * h
+    return 4 * d * int(np.maximum(hi - lo, 0).sum()) * b * h
+
+
+def attention_bound_ms(shape, dtype_name: str, elem_bytes: int) -> tuple[float, str]:
+    """Least time for causal GQA attention on an H100: each of q, k, v read
+    once and o written once, against ``attention_flops``."""
+    b, sq, sk, h, kv, d = shape[:6]
     nbytes = elem_bytes * (2 * b * sq * h * d + 2 * b * sk * kv * d)
-    return bound(nbytes, flops, dtype_name)
+    return bound(nbytes, attention_flops(shape), dtype_name)
 
 
 def rwkv6_bound_ms(r, u, state0) -> tuple[float, str]:
@@ -374,6 +402,7 @@ def main() -> None:
 
     # ------------------------------------------------------------ 1. device
     t0 = phase("device")
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -400,11 +429,15 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.mamba import mamba_scan_fwd
     from repro_torch.kernels.rwkv6 import rwkv6_fwd
+    from repro_torch.data.tokens import SyntheticTokens
     from repro_torch.launch import serve
+    from repro_torch.launch import train as launch_train
     from repro_torch.models import transformer as T
-    from repro_torch.models.params import init_params
+    from repro_torch.models.params import init_params, tree_paths
+    from repro_torch.optim.adamw import AdamW
     from repro_torch.train.checkpoint import CheckpointManager
-    from repro_torch.train.steps import make_prefill_step
+    from repro_torch.train.loop import train_segment
+    from repro_torch.train.steps import make_grad_fn, make_prefill_step, make_train_step
 
     # ------------------------------------------------------------- 2. build
     t0 = phase("build")
@@ -800,18 +833,150 @@ def main() -> None:
     if not 0 < written[1] <= allowed:
         fail(f"the second save wrote {written[1]} new chunks, expected 1..{allowed}")
     del first, second, data
-    print(f"checkpoint chunked phase {time.perf_counter() - t0:.1f} s; "
-          f"all phases {time.perf_counter() - t_all:.1f} s")
+    print(f"checkpoint chunked phase {time.perf_counter() - t0:.1f} s")
 
-    serve_runs = {"qwen3_0_6b": (qwen_res, qwen_launches), "rwkv6_1_6b": (rwkv_res, rwkv_launches),
-                  JAMBA: (jamba_res, jamba_launches),
-                  "qwen3_0_6b from checkpoint": (ckpt_res, ckpt_launches)}
+    # ------------------------------------------------------ 14. train qwen3
+    t0 = phase("train qwen3")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get("qwen3_0_6b")
+    n_params = sum(math.prod(d.shape) for _, d in tree_paths(T.param_defs(cfg)))
+    steps, b, s = TRAIN["steps"], TRAIN["batch"], TRAIN["seq_len"]
+    for counter in all_kernels.values():
+        counter.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory() as repo_dir:
+        train_res = launch_train.run("qwen3_0_6b", full=True, steps=steps, ckpt_every=steps, repo=repo_dir,
+                                     seq_len=s, batch=b, device=dev)
+        train_launches = {counter.__name__: counter.launches for counter in all_kernels.values()}
+        train_peak = torch.cuda.max_memory_allocated(dev)
+        ckpt = CheckpointManager(Repository(repo_dir))
+        oid, saved_step = ckpt.latest()
+        manifest = json.loads(ckpt._tree_bytes(oid, f"checkpoints/step_{saved_step:08d}/manifest.json"))
+    itemsize = {"bfloat16": 2, "float32": 4, "int32": 4}
+    state_bytes = {kind: sum(math.prod(m["shape"]) * itemsize[m["dtype"]] for p, m in manifest["leaves"].items()
+                             if p.startswith(prefix))
+                   for kind, prefix in (("params", "params/"), ("m", "opt_state/m/"), ("v", "opt_state/v/"),
+                                        ("step", "opt_state/step"))}
+    state_total = sum(state_bytes.values())
+    flash_per_step = 2 * cfg.n_layers  # the forward, then remat's recompute in the backward
+    timed = train_res.step_ms[1:]
+    p50, p95 = float(np.percentile(timed, 50)), float(np.percentile(timed, 95))
+    tokens = b * s
+    attn_shape = (b, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True, cfg.sliding_window)
+    train_flops = 6 * n_params * tokens + 3 * cfg.n_layers * attention_flops(attn_shape)
+    train_mfu = train_flops / (p50 / 1e3) / H100_FLOPS["bfloat16"]
+    print(f"train qwen3_0_6b bf16 weights, fp32 moments, remat, B={b} x {s}, {steps} steps from seed 0 "
+          f"(launch.train.run, cosine lr): step p50 {p50:.3f} ms p95 {p95:.3f} ms over steps 2-{steps} "
+          f"(step 1 {train_res.step_ms[0]:.3f} ms); {tokens / (float(np.mean(timed)) / 1e3):.1f} tokens/s; "
+          f"train_mfu {train_mfu:.4f} at p50 ({train_flops / 1e12:.3f} TFLOP a step: 6 x {n_params} x {tokens} "
+          f"+ 3 x {cfg.n_layers} x {attention_flops(attn_shape) / 1e9:.3f} GFLOP causal attention; dense bf16 "
+          f"peak {H100_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s); peak memory {train_peak / 2**30:.3f} GiB; "
+          f"losses {[round(x, 5) for x in train_res.losses]}; save of the train state ({state_total} bytes: "
+          f"{state_bytes}) {train_res.save_s[0]:.3f} s, {state_total / train_res.save_s[0] / 1e9:.3f} GB/s; "
+          f"launches {train_launches}")
+    if train_launches["flash_attention_fwd"] != flash_per_step * steps or any(
+            n for name, n in train_launches.items() if name != "flash_attention_fwd"):
+        fail(f"training launched {train_launches}, expected flash_attention_fwd {flash_per_step} times a step "
+             f"({cfg.n_layers} forward, {cfg.n_layers} in remat's recompute) and nothing else")
+    if not all(math.isfinite(x) for x in train_res.losses) or len(train_res.losses) != steps:
+        fail(f"training losses {train_res.losses}")
+    if saved_step != steps or state_bytes["params"] != 2 * n_params or state_bytes["step"] != 4:
+        fail(f"checkpoint of step {saved_step} holds {state_bytes}")
+
+    # the same batch 5 times: the loss must drop (tests/test_archs.py:65-77)
+    params = init_params(T.param_defs(cfg), seed=args.seed, device=dev)
+    opt = AdamW(lr=TRAIN_LR, moment_dtype=cfg.opt_moment_dtype)
+    opt_state = opt.init(params)
+    step_fn = make_train_step(cfg, opt)
+    ds = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b, seed=args.seed)
+    batch = {"tokens": torch.from_numpy(ds.global_batch_at(0)).to(dev)}
+    fixed = []
+    for _ in range(5):
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        fixed.append(float(metrics["loss"]))
+    print(f"train qwen3_0_6b on one fixed batch, lr {TRAIN_LR}: losses {[round(x, 5) for x in fixed]}")
+    if not all(math.isfinite(x) for x in fixed) or not fixed[-1] < fixed[0]:
+        fail(f"the loss on a repeated batch did not drop: {fixed}")
+    del params, opt_state, step_fn, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one fp32 step at full width, 2 layers: kernel on against off
+    cfg2 = cfg.replace(n_layers=TRAIN_PARITY_LAYERS)
+    params = init_params(T.param_defs(cfg2), seed=args.seed, dtype=torch.float32, device=dev)
+    grads_by = {}
+    for use_pallas in ("off", "on"):
+        flash_attention_fwd.launches = 0
+        grads_by[use_pallas] = make_grad_fn(cfg2.replace(use_pallas=use_pallas))(params, batch)
+        torch.cuda.synchronize()
+        want = 2 * TRAIN_PARITY_LAYERS if use_pallas == "on" else 0
+        if flash_attention_fwd.launches != want:
+            fail(f"the fp32 train step with use_pallas={use_pallas} launched flash_attention_fwd "
+                 f"{flash_attention_fwd.launches} times, expected {want}")
+    (loss_off, _, g_off), (loss_on, _, g_on) = grads_by["off"], grads_by["on"]
+    loss_err = abs(loss_on.item() - loss_off.item()) / abs(loss_off.item())
+    grad_err = {p: ((g_on_p.float() - g).abs().max() / g.abs().max()).item()
+                for (p, g), (_, g_on_p) in zip(leaves(g_off), leaves(g_on))}
+    worst = max(grad_err, key=grad_err.get)
+    print(f"train parity qwen3 fp32, {TRAIN_PARITY_LAYERS} of {cfg.n_layers} layers, B={b} x {s}: loss kernel on "
+          f"vs off relative {loss_err:.3g}; gradients max |on - off| / max |off| per leaf {grad_err[worst]:.3g} "
+          f"({worst}) over {len(grad_err)} leaves (tol {PARITY_TOL})")
+    if not loss_err <= PARITY_TOL or not grad_err[worst] <= PARITY_TOL:
+        fail("the kernel-on train step disagrees with kernel-off")
+    del params, grads_by, g_off, g_on
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # preemption and resume, bit for bit
+    n_all, n_cut = PREEMPT
+    keys, det = [], {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, segments in (("unbroken", [(n_all, n_all)]), ("preempted", [(n_cut, n_cut), (n_all, n_cut)])):
+            with tempfile.TemporaryDirectory() as repo_dir:
+                repo = Repository.init(repo_dir)
+                for n, every in segments:
+                    t = time.perf_counter()
+                    r = train_segment(repo, cfg, ds, n_steps=n, ckpt_every=every, seed=args.seed, device=dev)
+                    det[f"{name} to {n}"] = (time.perf_counter() - t, r)
+                ckpt = CheckpointManager(repo)
+                oid, saved_step = ckpt.latest()
+                manifest = json.loads(ckpt._tree_bytes(oid, f"checkpoints/step_{saved_step:08d}/manifest.json"))
+                keys.append({p: m["key"] for p, m in manifest["leaves"].items()})
+                if saved_step != n_all:
+                    fail(f"the {name} run's newest checkpoint is step {saved_step}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    unequal = sorted(p for p in keys[0] if keys[1].get(p) != keys[0][p])
+    for run, (wall, r) in det.items():
+        print(f"  deterministic {run}: {wall:.3f} s; steps {r.start_step}->{r.end_step} "
+              f"{[round(x, 3) for x in r.step_ms]} ms, saves {[round(x, 3) for x in r.save_s]} s, losses "
+              f"{[round(x, 5) for x in r.losses]}")
+    resumed_wall, resumed = det[f"preempted to {n_all}"]
+    print(f"train resume qwen3_0_6b: {n_all} steps unbroken against {n_cut}, a new train_segment, {n_all - n_cut} "
+          f"more (deterministic algorithms): {len(keys[0]) - len(unequal)} of {len(keys[0])} leaf annex keys of "
+          f"step {n_all} equal; the resumed segment's restore and set-up "
+          f"{resumed_wall - sum(resumed.step_ms) / 1e3 - sum(resumed.save_s):.3f} s")
+    if unequal or sorted(keys[0]) != sorted(keys[1]):
+        fail(f"the resumed run's step-{n_all} state differs from the unbroken run's in {unequal[:5]} "
+             f"({len(unequal)} leaves)")
+    print(f"train qwen3 phase {time.perf_counter() - t0:.1f} s; all phases {time.perf_counter() - t_all:.1f} s")
+
+    runs = {"qwen3_0_6b": (qwen_launches, qwen_res.prefills, "prefill"),
+            "rwkv6_1_6b": (rwkv_launches, rwkv_res.prefills, "prefill"),
+            JAMBA: (jamba_launches, jamba_res.prefills, "prefill"),
+            "qwen3_0_6b from checkpoint": (ckpt_launches, ckpt_res.prefills, "prefill"),
+            "qwen3_0_6b train": (train_launches, steps, "step")}
 
     def launch_counts(name: str) -> dict:
-        """The kernel's launches over the serve runs, by path, and per prefill."""
-        by_path = {a: n[name] for a, (_, n) in serve_runs.items() if n[name]}
+        """The kernel's launches over the main-path runs, by path, and per
+        prefill (serving) or per step (training)."""
+        by_path = {a: n[name] for a, (n, _, _) in runs.items() if n[name]}
+        per = {unit: {a: by_path[a] // runs[a][1] for a in by_path if runs[a][2] == unit}
+               for unit in ("prefill", "step")}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path,
-                "launches_per_prefill": {a: by_path[a] // serve_runs[a][0].prefills for a in by_path}}
+                "launches_per_prefill": per["prefill"], "launches_per_step": per["step"]}
 
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",

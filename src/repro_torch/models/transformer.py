@@ -11,7 +11,7 @@ Weights keep the reference layout: ``[in, out]`` matrices applied as
 ``x @ W``, stacked along a leading ``n_repeats`` axis per pattern position,
 under the same nested keys; the stack runs as a Python loop over the repeats.
 
-Three entry points: ``forward_train`` (full causal sequence, forward only),
+Three entry points: ``forward_train`` (full causal sequence; differentiable),
 ``prefill`` (returns the decode state and the last position's logits) and
 ``decode_step`` (one token against the state). Decode state per pattern
 position, stacked along a leading ``n_repeats`` axis:
@@ -20,6 +20,12 @@ position, stacked along a leading ``n_repeats`` axis:
           ``{"shift_t", "shift_c"}`` [B, D]
   mamba : ``{"h"}`` state [B, Di, St] fp32 and ``{"conv"}`` tail
           [B, K-1, Di], the last K-1 conv inputs
+
+In train mode each stacked leaf is split once into its repeats
+(``torch.unbind``, whose backward is one stack), and with ``cfg.remat`` each
+repeat runs under ``torch.utils.checkpoint`` while autograd records, as the
+reference wraps its scan body in ``jax.checkpoint``: the backward recomputes
+the repeat's forward, kernels included.
 
 Prefill and train attention go through the flash-attention kernel when
 ``use_pallas`` selects it, else through the plain blockwise ``attention``.
@@ -47,6 +53,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LayerKind, ModelConfig
 from ..kernels.ops import flash_attention, mamba_scan, rwkv6
@@ -346,12 +353,38 @@ def _at(tree: dict, i: int) -> dict:
     return {k: _at(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
+def _repeats(tree: dict, n: int) -> list[dict]:
+    """``[_at(tree, i) for i in range(n)]``, each stacked leaf split once by
+    ``torch.unbind``. Indexing a leaf per repeat instead would make autograd
+    build n zero-filled gradients of the whole leaf and add them up."""
+    out: list[dict] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        for i, part in enumerate(_repeats(v, n) if isinstance(v, dict) else torch.unbind(v, 0)):
+            out[i][k] = part
+    return out
+
+
+def _train_repeat(cfg: ModelConfig, layer: dict, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    """One repeat of the pattern in train mode."""
+    for i, kind in enumerate(cfg.pattern):
+        x, _ = apply_block(cfg, kind, layer[f"p{i}"], x, ctx, None)
+    return x
+
+
 def _run_blocks(cfg: ModelConfig, blocks: dict, x: torch.Tensor, ctx: Ctx, caches=None):
     """Loop over the stacked repeats. Returns (x, caches): in decode the
     given caches, updated in place (the KV caches by ``cache_insert``, the
     RWKV and Mamba states, carries and conv tails by copying each layer's
     new values in); in prefill new caches stacked along the repeat axis; in
     train None."""
+    if ctx.mode == "train":
+        remat = cfg.remat and torch.is_grad_enabled()
+        for layer in _repeats(blocks, cfg.n_repeats):
+            if remat:
+                x = checkpoint(_train_repeat, cfg, layer, x, ctx, use_reentrant=False)
+            else:
+                x = _train_repeat(cfg, layer, x, ctx)
+        return x, None
     new = {f"p{i}": [] for i in range(len(cfg.pattern))}
     for rep in range(cfg.n_repeats):
         for kind, (key, layers) in zip(cfg.pattern, new.items()):
@@ -365,10 +398,8 @@ def _run_blocks(cfg: ModelConfig, blocks: dict, x: torch.Tensor, ctx: Ctx, cache
                 layers.append(nc)
     if ctx.mode == "decode":
         return x, caches
-    if ctx.mode == "prefill":
-        return x, {key: {n: torch.stack([c[n] for c in cs]) for n in cs[0]}
-                   for key, cs in new.items()}
-    return x, None
+    return x, {key: {n: torch.stack([c[n] for c in cs]) for n in cs[0]}
+               for key, cs in new.items()}
 
 
 def _embed_inputs(params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -390,7 +421,8 @@ def _positions(batch: dict, B: int, S: int, device) -> torch.Tensor:
 
 # ================================================================ entry points
 def forward_train(cfg: ModelConfig, params: dict, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence causal forward. Returns (logits [B,S,Vp], aux_loss)."""
+    """Full-sequence causal forward. Returns (logits [B,S,Vp], aux_loss);
+    the aux loss is 0 (it comes from MoE routing, not ported yet)."""
     check_supported(cfg)
     x = _embed_inputs(params, batch["tokens"])
     B, S, _ = x.shape

@@ -1,0 +1,93 @@
+"""AdamW (port of ``repro.optim.adamw``).
+
+The update runs in fp32 over parameters of any dtype and writes the new
+values back in place under ``torch.no_grad()`` (the counterpart of the
+reference's ``donate_argnums``); the moments are kept in ``moment_dtype``.
+The step is a 0-d int32 tensor, and the bias corrections and the schedule
+are computed from it in fp32, as the reference computes them, so the update
+is the reference's to fp32 rounding. The state has the reference's tree
+paths (``m``, ``v``, ``step``), so a checkpoint's leaf paths and annex keys
+match across the packages.
+"""
+from __future__ import annotations
+
+import math
+from collections.abc import Callable
+from dataclasses import dataclass
+
+import torch
+
+from ..tree import leaves, tree_map
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(leaf.float().square().sum() for leaf in leaves(tree)))
+
+
+def clip_by_global_norm(tree, max_norm: float):
+    """(tree scaled to at most ``max_norm`` in global norm, each leaf rounded
+    back to its own dtype; the norm before clipping)."""
+    norm = global_norm(tree)
+    # full_like: a Python number over a tensor would multiply by its reciprocal
+    scale = torch.clamp(torch.full_like(norm, max_norm) / (norm + 1e-9), max=1.0)
+    return tree_map(lambda g: (g.float() * scale).to(g.dtype), tree), norm
+
+
+def cosine_schedule(base_lr: float, warmup: int, total: int) -> Callable:
+    def lr(step):
+        step = torch.as_tensor(step, dtype=torch.float32)
+        warm = base_lr * step / max(1, warmup)
+        frac = torch.clamp((step - warmup) / max(1, total - warmup), 0.0, 1.0)
+        cos = 0.5 * base_lr * (1.0 + torch.cos(math.pi * frac))
+        return torch.where(step < warmup, warm, cos)
+
+    return lr
+
+
+@dataclass(frozen=True)
+class AdamW:
+    lr: Callable | float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    max_grad_norm: float = 1.0
+    moment_dtype: str = "float32"
+
+    def _mdt(self) -> torch.dtype:
+        return torch.bfloat16 if self.moment_dtype == "bfloat16" else torch.float32
+
+    def init(self, params) -> dict:
+        mdt = self._mdt()
+        device = leaves(params)[0].device
+
+        def zeros(p):
+            return torch.zeros(p.shape, dtype=mdt, device=p.device)
+
+        return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+                "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+    @torch.no_grad()
+    def update(self, grads, state, params):
+        """Clip ``grads``, then update ``params`` and the moments of ``state``
+        in place. Returns (params, {"m", "v", "step"}, {"grad_norm", "lr"})."""
+        grads, gnorm = clip_by_global_norm(grads, self.max_grad_norm)
+        step = state["step"] + 1
+        lr = self.lr(step) if callable(self.lr) else self.lr
+        t = step.float()
+        bc1, bc2 = 1 - self.b1**t, 1 - self.b2**t
+        b1, b2 = self.b1, self.b2
+        for g, m, v, p in zip(leaves(grads), leaves(state["m"]), leaves(state["v"]), leaves(params)):
+            g32 = g.float()
+            m32 = b1 * m.float() + (1 - b1) * g32
+            v32 = b2 * v.float() + (1 - b2) * g32.square()
+            mhat = m32 / bc1
+            vhat = v32 / bc2
+            p32 = p.float()
+            wd = self.weight_decay if p.ndim >= 2 else 0.0  # the stacked norms [R, D] get decay, as there
+            p.copy_(p32 - lr * (mhat / (vhat.sqrt() + self.eps) + wd * p32))
+            m.copy_(m32)
+            v.copy_(v32)
+        return params, {"m": state["m"], "v": state["v"], "step": step}, {
+            "grad_norm": gnorm, "lr": torch.as_tensor(lr, dtype=torch.float32, device=step.device),
+        }

@@ -1,1 +1,10 @@
-"""Step functions of the port (serving steps only, for now)."""
+from .checkpoint import CheckpointManager
+from .steps import make_decode_step, make_prefill_step, make_train_step, masked_loss
+
+__all__ = [
+    "CheckpointManager",
+    "make_decode_step",
+    "make_prefill_step",
+    "make_train_step",
+    "masked_loss",
+]

@@ -119,11 +119,17 @@ class CheckpointManager:
     def _snapshot(params, opt_state) -> dict:
         return {p: _host(v) for p, v in _flatten({"params": params, "opt_state": opt_state}).items()}
 
-    def save(self, step: int, params, opt_state) -> str:
-        """Write and commit one checkpoint; returns its commit oid."""
-        return self._write(step, self._snapshot(params, opt_state))
+    def save(self, step: int, params, opt_state, data_step: int = 0, extra: dict | None = None,
+             message: str = "") -> str:
+        """Write and commit one checkpoint; returns its commit oid.
+        ``data_step`` (the data position to resume at) and ``extra`` go into
+        the manifest and the run record; ``message`` heads the commit
+        message (default ``"[REPRO CKPT] step N"``; the marker is prefixed
+        when missing)."""
+        return self._write(step, self._snapshot(params, opt_state), data_step, extra, message)
 
-    def save_async(self, step: int, params, opt_state) -> None:
+    def save_async(self, step: int, params, opt_state, data_step: int = 0, extra: dict | None = None,
+                   message: str = "") -> None:
         """Copy the state to the host now, then write and commit on a worker
         thread. The previous async save's failure, if any, is raised here."""
         self.wait()
@@ -131,7 +137,7 @@ class CheckpointManager:
 
         def work():
             try:
-                self._write(step, host)
+                self._write(step, host, data_step, extra, message)
             except BaseException as e:  # re-raised from wait()
                 self._async_exc = e
 
@@ -147,10 +153,9 @@ class CheckpointManager:
         if exc is not None:
             raise exc
 
-    def _write(self, step: int, host: dict) -> str:
+    def _write(self, step: int, host: dict, data_step: int, extra: dict | None, message: str) -> str:
         reldir = f"{SUBDIR}/step_{step:08d}"
-        # data_step stays 0 until a training loop has a data position to record
-        manifest = {"step": step, "data_step": 0, "leaves": {}, "extra": {}}
+        manifest = {"step": step, "data_step": data_step, "leaves": {}, "extra": extra or {}}
         for path, (raw, dtype_name) in host.items():
             fname = path.replace("/", ".") + ".npy"
             shape = list(raw.shape)
@@ -166,8 +171,11 @@ class CheckpointManager:
                              json.dumps(manifest, indent=1, sort_keys=True).encode())
         cmd = f"checkpoint --step {step}"
         record = RunRecord(cmd=cmd, dsid=self.repo.dsid, outputs=[reldir],
-                           extras={"checkpoint_step": step, "data_step": 0})
-        return self.repo.save(paths=[reldir], message=record.to_message(f"{MARKER} step {step}"),
+                           extras={"checkpoint_step": step, "data_step": data_step, **(extra or {})})
+        msg = message or f"{MARKER} step {step}"
+        if MARKER not in msg:
+            msg = f"{MARKER} {msg}"
+        return self.repo.save(paths=[reldir], message=record.to_message(msg),
                               spec=command_spec_json(cmd, [reldir]))
 
     # ---------------------------------------------------------- restore

@@ -1,0 +1,99 @@
+"""Resumable training loop: segments of steps as reproducible jobs (port of
+``repro.train.loop``).
+
+``train_segment`` initialises or resumes from the newest checkpoint commit
+in the repository, runs to ``n_steps``, and checkpoints every
+``ckpt_every`` steps and at the end. The batch of step k is a function of k
+alone and the init and the update are deterministic, so a run killed
+anywhere and started again reaches the same state as an unbroken one. On
+the CPU that holds bit for bit as it is; on CUDA it needs
+``torch.use_deterministic_algorithms(True)`` and
+``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (set before cuBLAS starts), else the
+atomics of some backward ops (the embedding's) add in a varying order.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import torch
+
+from .. import resolve_device
+from ..configs.base import ModelConfig
+from ..core.repo import Repository
+from ..models import transformer as T
+from ..models.params import init_params
+from ..optim.adamw import AdamW
+from .checkpoint import CheckpointManager
+from .steps import make_train_step
+
+
+@dataclass
+class SegmentResult:
+    start_step: int
+    end_step: int
+    final_loss: float
+    checkpoint_commit: str | None
+    # the port's own measurements: each step's loss, its time on the host
+    # clock (ending in a synchronise), and each save's time
+    losses: list[float] = field(default_factory=list)
+    step_ms: list[float] = field(default_factory=list)
+    save_s: list[float] = field(default_factory=list)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def train_segment(
+    repo: Repository,
+    cfg: ModelConfig,
+    dataset,
+    n_steps: int,
+    ckpt_every: int = 50,
+    optimizer: AdamW | None = None,
+    seed: int = 0,
+    async_ckpt: bool = False,
+    device: str | torch.device = "cuda",
+) -> SegmentResult:
+    """Train from the newest checkpoint (or from ``init_params(seed=seed)``,
+    bf16) to step ``n_steps``. Each checkpoint records ``data_step`` and
+    ``extra={"loss", "config"}``; with ``async_ckpt`` its write and commit
+    overlap the next steps."""
+    dev = resolve_device(device)
+    optimizer = optimizer or AdamW(lr=1e-3, moment_dtype=cfg.opt_moment_dtype)
+    ckpt = CheckpointManager(repo)
+    step_fn = make_train_step(cfg, optimizer)
+
+    state, manifest = ckpt.restore(device=dev)
+    if state is not None:
+        params, opt_state = state["params"], state["opt_state"]
+        start = int(manifest["step"])
+    else:
+        params = init_params(T.param_defs(cfg), seed=seed, device=dev)
+        opt_state = optimizer.init(params)
+        start = 0
+
+    res = SegmentResult(start, n_steps, float("nan"), None)
+    for step in range(start, n_steps):
+        batch = {"tokens": torch.from_numpy(dataset.shard_batch_at(step, 0, 1)).to(dev)}
+        _sync(dev)
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        _sync(dev)
+        res.step_ms.append((time.perf_counter() - t0) * 1e3)
+        res.final_loss = float(metrics["loss"])
+        res.losses.append(res.final_loss)
+        if (step + 1) % ckpt_every == 0 or step + 1 == n_steps:
+            saver = ckpt.save_async if async_ckpt else ckpt.save
+            t0 = time.perf_counter()
+            out = saver(step + 1, params, opt_state, data_step=step + 1,
+                        extra={"loss": res.final_loss, "config": cfg.name})
+            res.save_s.append(time.perf_counter() - t0)
+            res.checkpoint_commit = out if isinstance(out, str) else res.checkpoint_commit
+    ckpt.wait()
+    if res.checkpoint_commit is None:
+        latest = ckpt.latest()
+        res.checkpoint_commit = latest[0] if latest else None
+    return res

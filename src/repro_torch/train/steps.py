@@ -1,7 +1,11 @@
-"""Serving step functions (port of the serving half of ``repro.train.steps``).
+"""Training, prefill and decode step functions (port of ``repro.train.steps``).
 
-The steps run under ``torch.inference_mode()``. The training step, its
-loss and the optimizer come with the training slice (ROADMAP.md §A item 3).
+``make_train_step`` is the next-token objective with the vocabulary's pad
+columns masked, the MoE auxiliary loss (0 for the dense configs the port
+runs), optional microbatch accumulation, optional int8 error-feedback
+compression of the gradients, clipping and the AdamW update, which writes
+the parameters in place. The serving steps run under
+``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -9,6 +13,88 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..models import transformer as T
+from ..models.layers import cross_entropy
+from ..optim.adamw import AdamW
+from ..optim.compression import ef_compress_tree
+from ..tree import leaves, unflatten
+
+
+def masked_loss(logits: torch.Tensor, tokens: torch.Tensor, real_vocab: int) -> torch.Tensor:
+    """Shifted next-token cross-entropy; the pad columns past ``real_vocab``
+    are set to -1e9 (in the logits' dtype) so they drop out of the lse."""
+    vp = logits.shape[-1]
+    if vp != real_vocab:
+        col = torch.arange(vp, device=logits.device)
+        logits = torch.where(col < real_vocab, logits, -1e9)
+    return cross_entropy(logits[:, :-1], tokens[:, 1:])
+
+
+def _split_microbatches(batch: dict, n: int) -> dict:
+    """Every input reshaped on its batch axis to [n, B/n, ...]: ``positions3``
+    carries the batch on axis 1, everything else on axis 0."""
+    out = {}
+    for k, v in batch.items():
+        ax = 1 if k == "positions3" else 0
+        b = v.shape[ax]
+        if b % n:
+            raise ValueError(f"{k}: batch {b} does not split into {n} microbatches")
+        out[k] = torch.movedim(v.reshape(v.shape[:ax] + (n, b // n) + v.shape[ax + 1 :]), ax, 0)
+    return out
+
+
+def make_grad_fn(cfg: ModelConfig):
+    """``grads_of(params, batch) -> (loss, aux, grads)``: the loss and aux
+    loss as fp32 scalars and the gradient tree of the weighted loss. Each
+    parameter is marked as needing a gradient. With ``cfg.microbatches > 1``
+    the batch runs in microbatches whose gradients add up in fp32; the mean
+    is then cast to bf16, whatever the parameters' dtype, as the reference
+    casts it."""
+    aux_w = cfg.moe.router_aux_weight if cfg.moe else 0.0
+    n_mb = max(1, cfg.microbatches)
+
+    def one(params, batch):
+        flat = [p.requires_grad_() for p in leaves(params)]
+        logits, aux = T.forward_train(cfg, params, batch)
+        loss = masked_loss(logits, batch["tokens"], cfg.vocab_size)
+        grads = torch.autograd.grad(loss + aux_w * aux, flat)
+        return loss.detach(), aux.detach(), grads
+
+    def grads_of(params, batch):
+        if n_mb == 1:
+            loss, aux, grads = one(params, batch)
+            return loss, aux, unflatten(params, grads)
+        mbs = _split_microbatches(batch, n_mb)
+        loss_sum = aux_sum = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
+        gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves(params)]
+        for i in range(n_mb):
+            loss, aux, grads = one(params, {k: v[i] for k, v in mbs.items()})
+            for a, g in zip(gsum, grads):
+                a.add_(g.float())
+            loss_sum, aux_sum = loss_sum + loss, aux_sum + aux
+        scale = 1.0 / n_mb
+        return (loss_sum * scale, aux_sum * scale,
+                unflatten(params, ((g * scale).to(torch.bfloat16) for g in gsum)))
+
+    return grads_of
+
+
+def make_train_step(cfg: ModelConfig, optimizer: AdamW, compress_grads: bool = False):
+    """``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``;
+    ``params`` and the moments are updated in place. With ``compress_grads``
+    the gradients pass through int8 error-feedback compression first, and
+    its residual rides in ``opt_state["ef_residual"]``."""
+    grads_of = make_grad_fn(cfg)
+
+    def train_step(params, opt_state, batch):
+        loss, aux, grads = grads_of(params, batch)
+        if compress_grads:
+            grads, new_resid = ef_compress_tree(grads, opt_state.get("ef_residual"))
+        new_params, new_opt, stats = optimizer.update(grads, opt_state, params)
+        if compress_grads:
+            new_opt["ef_residual"] = new_resid
+        return new_params, new_opt, {"loss": loss, "aux_loss": aux, **stats}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, cache_len: int):

@@ -6,6 +6,12 @@ without a CUDA device; run them on the card with
 
 This file imports only the port (the machine with the card has no JAX).
 """
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -18,7 +24,14 @@ from repro_torch.kernels.mamba import mamba_scan_fwd  # noqa: E402
 from repro_torch.kernels.rwkv6 import rwkv6_fwd  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.params import init_params  # noqa: E402
-from repro_torch.train.steps import make_prefill_step  # noqa: E402
+from repro_torch.core.repo import Repository  # noqa: E402
+from repro_torch.data.tokens import SyntheticTokens  # noqa: E402
+from repro_torch.optim.adamw import AdamW, cosine_schedule  # noqa: E402
+from repro_torch.train.loop import train_segment  # noqa: E402
+from repro_torch.train.steps import make_grad_fn, make_prefill_step  # noqa: E402
+from repro_torch.tree import leaves, tree_map  # noqa: E402
+
+SRC = Path(__file__).resolve().parents[1] / "src"
 
 # tests/test_kernels.py:24 and :29-38 (b, sq, sk, h, kv, dh, causal, window)
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -425,3 +438,111 @@ def test_smoke_forward_train_gradients_kernel_on_match_off(cuda):
     assert all(g is not None for g in grads[1].values())
     for k in grads[0]:
         torch.testing.assert_close(grads[1][k], grads[0][k], rtol=2e-3, atol=2e-3)
+
+
+# ------------------------------------------------------------------ training
+def _smoke_tree(dev, seed):
+    """A small parameter-shaped tree: leaves of 1, 2 and 3 dims."""
+    g = torch.Generator().manual_seed(seed)
+    tree = {"final_norm": 1 + 0.1 * torch.randn(8, generator=g), "embed": 0.5 * torch.randn(16, 8, generator=g),
+            "blocks": {"w": 0.3 * torch.randn(2, 8, 4, generator=g)}}
+    return {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict) else v.to(dev)) for k, v in tree.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("schedule", [False, True])
+def test_adamw_on_cuda_matches_the_cpu(cuda, schedule):
+    """Four AdamW updates (fp32 moments, the last step clipped) on the card
+    and on the CPU from the same values: params, m, v within 1e-6 (the same
+    fp32 operations; the card may round pow and cos differently by an ulp)."""
+    out = {}
+    for dev in ("cpu", cuda):
+        opt = AdamW(lr=cosine_schedule(1e-2, 2, 6) if schedule else 1e-2)
+        params = _smoke_tree(dev, 0)
+        state = opt.init(params)
+        for k in range(4):
+            grads = tree_map(lambda v: v * (30.0 if k == 3 else 1.0), _smoke_tree(dev, k + 1))
+            params, state, stats = opt.update(grads, state, params)
+        assert state["step"].device.type == torch.device(dev).type and state["step"].item() == 4
+        out[str(dev)] = (params, state)
+    (p_cpu, s_cpu), (p_gpu, s_gpu) = out["cpu"], out[str(cuda)]
+    for a, b in ((p_gpu, p_cpu), (s_gpu["m"], s_cpu["m"]), (s_gpu["v"], s_cpu["v"])):
+        for x, y in zip(leaves(a), leaves(b)):
+            torch.testing.assert_close(x.cpu().float(), y.float(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_smoke_train_step_kernel_on_matches_off(cuda):
+    """qwen3 smoke, fp32, remat on: the loss and every gradient with the
+    flash kernel against without (2e-3); the kernel runs twice per layer
+    (the forward and remat's recompute)."""
+    cfg = configs.get_smoke("qwen3_0_6b")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 64))).to(cuda)
+    results = {}
+    for use_pallas in ("off", "on"):
+        params = init_params(T.param_defs(cfg), seed=0, dtype=torch.float32, device=cuda)
+        before = flash_attention_fwd.launches
+        results[use_pallas] = make_grad_fn(cfg.replace(use_pallas=use_pallas))(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        assert flash_attention_fwd.launches - before == (2 * cfg.n_layers if use_pallas == "on" else 0)
+    (l_off, _, g_off), (l_on, _, g_on) = results["off"], results["on"]
+    torch.testing.assert_close(l_on, l_off, rtol=2e-3, atol=2e-3)
+    for a, b in zip(leaves(g_on), leaves(g_off)):
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-3)
+
+
+_RESUME = """
+import json, sys, tempfile
+import torch
+torch.use_deterministic_algorithms(True)
+from repro_torch import configs
+from repro_torch.core.repo import Repository
+from repro_torch.data.tokens import SyntheticTokens
+from repro_torch.train.checkpoint import CheckpointManager
+from repro_torch.train.loop import train_segment
+
+cfg = configs.get_smoke("qwen3_0_6b")
+ds = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4, seed=1)
+keys = []
+with tempfile.TemporaryDirectory() as d:
+    for name, segments in (("a", [(6, 2)]), ("b", [(3, 3), (6, 3)])):
+        repo = Repository.init(f"{d}/{name}")
+        for n, every in segments:
+            train_segment(repo, cfg, ds, n_steps=n, ckpt_every=every, device="cuda")
+        _, manifest = CheckpointManager(repo).restore(device="cuda")
+        keys.append({p: m["key"] for p, m in manifest["leaves"].items()})
+print(json.dumps(keys))
+"""
+
+
+@pytest.mark.gpu
+def test_smoke_resume_is_bit_for_bit_on_the_card(cuda):
+    """6 steps unbroken against 3, a new segment, 3 more, on the card with
+    deterministic algorithms (in a child process: cuBLAS reads its
+    workspace setting once): every leaf's annex key, so its bytes, equal."""
+    env = {**os.environ, "PYTHONPATH": str(SRC), "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    out = subprocess.run([sys.executable, "-c", _RESUME], capture_output=True, text=True, env=env,
+                         timeout=600, check=True).stdout
+    a, b = json.loads(out.splitlines()[-1])
+    assert len(a) == 3 * 13 + 1 and a == b  # params, m and v of 13 leaves, and the step
+
+
+@pytest.mark.gpu
+def test_train_segment_runs_the_flash_op_with_gradients(cuda, tmp_path, monkeypatch):
+    """Under train_segment on the card every flash op output carries a
+    grad_fn, and the kernel launches twice per layer per step."""
+    cfg = configs.get_smoke("qwen3_0_6b")
+    seen = []
+
+    def flash(*a, **kw):
+        out = ops.flash_attention(*a, **kw)
+        seen.append(out.grad_fn is not None)
+        return out
+
+    monkeypatch.setattr(T, "flash_attention", flash)
+    ds = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=64, global_batch=2)
+    before = flash_attention_fwd.launches
+    res = train_segment(Repository.init(str(tmp_path / "r")), cfg, ds, n_steps=2, ckpt_every=2, device=cuda)
+    assert flash_attention_fwd.launches - before == 2 * 2 * cfg.n_layers
+    assert len(seen) == 2 * 2 * cfg.n_layers and all(seen)
+    assert np.isfinite(res.final_loss) and res.checkpoint_commit
