@@ -9,13 +9,15 @@ Phases; any failure exits non-zero before the result lines are printed.
   2. build        — builds every CUDA source of the port with nvcc, all at once,
                     and prints each one's ptxas registers and spills.
   3. kernel flash — holds the flash-attention kernel (bf16: wgmma and TMA;
-                    fp32: CUDA cores) against its plain version at qwen3's and
-                    jamba's serving shapes, the six shapes of the kernel tests,
-                    ragged lengths, Dh=64 at the serving length and a strided
-                    q, fp32 and bf16; times the kernel, the plain version and
-                    PyTorch's SDPA at both serving shapes, bf16, and prints the
-                    kernel over SDPA and the bound over the kernel beside the
-                    bf16 kernel's ptxas line.
+                    fp32: CUDA cores) against its plain version at qwen3's,
+                    jamba's, seamless-m4t's (encoder: non-causal, Sq=Sk=128;
+                    decoder) and qwen2-vl's (GQA group 7) serving shapes, the
+                    six shapes of the kernel tests, ragged lengths, Dh=64 at
+                    the serving length and a strided q, fp32 and bf16; times
+                    the kernel, the plain version and PyTorch's SDPA at the
+                    five serving shapes, bf16, and prints the kernel over SDPA
+                    and the bound over the kernel beside the bf16 kernel's
+                    ptxas line.
   4. kernel rwkv6 — holds the RWKV6 WKV kernel (bf16: chunked form on the
                     tensor cores; fp32: per-step loop on the CUDA cores)
                     against its plain version at the serving shape, the three
@@ -77,6 +79,23 @@ Phases; any failure exits non-zero before the result lines are printed.
                     with deterministic algorithms, 6 steps unbroken against 3,
                     a new segment and 3 more: the step-6 checkpoints' annex
                     keys (sha256 of each leaf's bytes) must be equal.
+ 15. serve seamless — seamless-m4t-large-v2 at full width and depth (24
+                    encoder and 24 decoder layers), phase 5's shape with the
+                    stub speech frontend's 128 encoder frames a prompt; the
+                    flash kernel must launch 48 times per prefill (24
+                    non-causal in the encoder, 24 causal in the decoder).
+ 16. parity seamless — full-width, full-depth fp32 prefill, B=2 x 512 with
+                    128 encoder frames, kernel on against off: last logits and
+                    every cache (k, v and the projected memory xk, xv), 48
+                    launches; then the bf16 check of phase 6.
+ 17. serve qwen2-vl — qwen2-vl-7b at full width and depth (28 layers), phase
+                    5's shape with 64 vision positions a prompt and M-RoPE;
+                    the flash kernel must launch 28 times per prefill.
+ 18. parity qwen2-vl — full-width fp32 prefill cut to 4 of 28 layers, B=2 x
+                    512, three distinct M-RoPE streams (t=0 and h, w on an 8x8
+                    grid over the vision positions, then the text's), kernel
+                    on against off: last logits, k and v, 4 launches; then the
+                    bf16 check.
 Phases 3, 4 and 9 also run one backward through each kernel op
 (``ops.flash_attention``, ``ops.rwkv6``, ``ops.mamba_scan``) at a small fp32
 shape and hold its gradients against the plain version's autograd.
@@ -116,6 +135,12 @@ QUEUE_AHEAD_CYCLES = 20_000_000  # ~10 ms of spinning at the H100's clocks
 # (B, Sq, Sk, H, KV, Dh, causal, window): the serving shape, then tests/test_kernels.py:29-38.
 SERVE_SHAPE = (8, 512, 512, 16, 8, 128, True, None)
 JAMBA_ATTN_SHAPE = (8, 512, 512, 64, 8, 128, True, None)  # jamba's attention layer: GQA group 8
+SEAMLESS_ENC_SHAPE = (8, 128, 128, 16, 16, 64, False, None)  # seamless-m4t's encoder: 128 frames
+SEAMLESS_DEC_SHAPE = (8, 512, 512, 16, 16, 64, True, None)  # seamless-m4t's decoder
+QWEN2_VL_SHAPE = (8, 512, 512, 28, 4, 128, True, None)  # qwen2-vl-7b: GQA group 7
+NEW_SERVE_SHAPES = {"at_seamless_encoder_shape": SEAMLESS_ENC_SHAPE,
+                    "at_seamless_decoder_shape": SEAMLESS_DEC_SHAPE,
+                    "at_qwen2_vl_shape": QWEN2_VL_SHAPE}
 TEST_SHAPES = [
     (2, 128, 128, 4, 4, 64, True, None),
     (1, 256, 256, 8, 2, 64, True, None),
@@ -152,6 +177,9 @@ TRAIN = dict(steps=8, batch=8, seq_len=512)  # phase 14's timed run (launch.trai
 TRAIN_LR = 1e-3  # the fixed-batch check: constant rate, AdamW's other defaults
 TRAIN_PARITY_LAYERS = 2  # the kernel on/off train step: 2 of qwen3's 28 layers, full width
 PREEMPT = (6, 3)  # the unbroken run's steps, and the step the other is cut at
+SEAMLESS, QWEN2_VL = "seamless_m4t_large_v2", "qwen2_vl_7b"
+QWEN2_VL_PARITY_LAYERS = 4  # phase 18: fp32 at full depth would be 30.5 GB of weights
+VISION_GRID = 8  # phase 18: the 64 vision positions as an 8 x 8 grid
 
 
 def fail(msg: str) -> None:
@@ -280,17 +308,17 @@ def cast_tree(tree: dict, dtype) -> dict:
     return {k: cast_tree(v, dtype) if isinstance(v, dict) else v.to(dtype) for k, v in tree.items()}
 
 
-def bf16_check(torch, make_prefill_step, name: str, cfg32, cache_len: int, params: dict, tokens,
+def bf16_check(torch, make_prefill_step, name: str, cfg32, cache_len: int, params: dict, batch: dict,
                l_off, counts: dict) -> None:
-    """bf16 prefill on ``params`` cast, kernels on against off: the last
-    logits may differ by at most twice the bf16 plain path's own error
-    against the fp32 plain path's ``l_off``. ``counts`` maps each kernel's
-    wrapper to the launches the kernel-on prefill must make."""
+    """bf16 prefill of ``batch`` on ``params`` cast, kernels on against off:
+    the last logits may differ by at most twice the bf16 plain path's own
+    error against the fp32 plain path's ``l_off``. ``counts`` maps each
+    kernel's wrapper to the launches the kernel-on prefill must make."""
     params16 = cast_tree(params, torch.bfloat16)
-    _, l16_off = make_prefill_step(cfg32, cache_len)(params16, {"tokens": tokens})
+    _, l16_off = make_prefill_step(cfg32, cache_len)(params16, batch)
     for counter in counts:
         counter.launches = 0
-    _, l16_on = make_prefill_step(cfg32.replace(use_pallas="on"), cache_len)(params16, {"tokens": tokens})
+    _, l16_on = make_prefill_step(cfg32.replace(use_pallas="on"), cache_len)(params16, batch)
     torch.cuda.synchronize()
     for counter, want in counts.items():
         if counter.launches != want:
@@ -298,13 +326,54 @@ def bf16_check(torch, make_prefill_step, name: str, cfg32, cache_len: int, param
                  f"expected {want}")
     err_kernel = (l16_on.float() - l16_off.float()).abs().max().item()
     err_bf16 = (l16_off.float() - l_off.float()).abs().max().item()
-    print(f"parity {name} bf16 B={tokens.shape[0]} prompt={tokens.shape[1]}: last logits kernel on vs off "
+    b, s = batch["tokens"].shape
+    print(f"parity {name} bf16 B={b} prompt={s}: last logits kernel on vs off "
           f"max_abs_err {err_kernel:.4g}; bf16 off vs fp32 off {err_bf16:.4g} (bar: twice that, "
           f"{2 * err_bf16:.4g}; ratio {err_kernel / err_bf16:.3f})")
     if not bool(torch.isfinite(l16_on.float()).all()):
         fail(f"bf16 kernel-on {name} prefill logits are not finite")
     if not err_kernel <= 2 * err_bf16:
         fail(f"bf16 kernel-on {name} prefill logits differ from kernel-off by more than twice bf16's own error")
+
+
+def prefill_parity(torch, make_prefill_step, name: str, cfg32, cache_len: int, params: dict, batch: dict,
+                   counter, launches: int):
+    """fp32 prefill of ``batch``, kernels on against off: the last logits
+    and every layer's every cache within PARITY_TOL; the kernel-on prefill
+    must launch ``counter`` ``launches`` times. Returns the off logits."""
+    c_off, l_off = make_prefill_step(cfg32, cache_len)(params, batch)
+    counter.launches = 0
+    c_on, l_on = make_prefill_step(cfg32.replace(use_pallas="on"), cache_len)(params, batch)
+    torch.cuda.synchronize()
+    if counter.launches != launches:
+        fail(f"kernel-on {name} prefill launched {counter.__name__} {counter.launches} times, expected {launches}")
+    logit_err = (l_on - l_off).abs().max().item()
+    cache_err = {n: (c_on[key][n] - c_off[key][n]).abs().max().item() for key in c_off for n in c_off[key]}
+    print(f"parity {name} fp32 {cfg32.n_layers} layers B={batch['tokens'].shape[0]} "
+          f"prompt={batch['tokens'].shape[1]}: last logits max_abs_err {logit_err:.3g}, caches over the layers: "
+          + ", ".join(f"{n} {e:.3g}" for n, e in cache_err.items()) + f" (tol {PARITY_TOL}); "
+          f"{counter.__name__} launched {counter.launches} times")
+    if not bool(torch.isfinite(l_on).all()):
+        fail(f"kernel-on {name} prefill logits are not finite")
+    if not torch.allclose(l_on, l_off, rtol=PARITY_TOL, atol=PARITY_TOL):
+        fail(f"kernel-on {name} prefill logits disagree with kernel-off")
+    for key in c_off:
+        for n in c_off[key]:
+            if not torch.allclose(c_on[key][n], c_off[key][n], rtol=PARITY_TOL, atol=PARITY_TOL):
+                fail(f"kernel-on {name} prefill {key}/{n} disagrees with kernel-off")
+    return l_off
+
+
+def mrope_positions(torch, batch: int, seq: int, n_vision: int, grid: int, dev):
+    """[3, B, S] M-RoPE streams as Qwen2-VL lays out one image and its text:
+    over the first ``n_vision`` positions t = 0 and (h, w) walk a grid of
+    ``grid`` columns; the text after them counts on from the grid's largest
+    position plus one on all three streams."""
+    i = torch.arange(n_vision, device=dev)
+    vision = torch.stack([torch.zeros_like(i), i // grid, i % grid])
+    start = int(vision.max()) + 1
+    text = torch.arange(start, start + seq - n_vision, device=dev).expand(3, -1)
+    return torch.cat([vision, text], dim=1).to(torch.int32)[:, None, :].expand(3, batch, seq).contiguous()
 
 
 def grad_check(torch, name: str, op, plain, args: list, n_diff: int) -> float:
@@ -359,7 +428,8 @@ def serve_phase(torch, serve, configs, arch: str, kernels: dict, dev, seed: int,
     checkpoint in ``repo`` if given) with every kernel's count set to 0 just
     before and read just after. ``kernels`` maps a mixer kind to the wrapper
     of its kernel; fails unless each launched once per layer of its kind per
-    prefill, and none launched for a kind the model lacks. Returns (cfg,
+    prefill (an encoder's layers are attention layers), and none launched for
+    a kind the model lacks. Returns (cfg,
     result, {wrapper name: launches})."""
     cfg = configs.get(arch).replace(**(overrides or {}))
     for counter in kernels.values():
@@ -380,6 +450,7 @@ def serve_phase(torch, serve, configs, arch: str, kernels: dict, dev, seed: int,
           f"launches over {res.prefills} prefills (warm-up included): {launches}")
     for mixer, counter in kernels.items():
         per_prefill = cfg.n_repeats * sum(kind.mixer == mixer for kind in cfg.pattern)
+        per_prefill += cfg.n_enc_layers if cfg.enc_dec and mixer == "attn" else 0
         if launches[counter.__name__] != per_prefill * res.prefills:
             fail(f"{counter.__name__} launched {launches[counter.__name__]} times, expected "
                  f"{per_prefill} per prefill ({mixer} layers)")
@@ -466,7 +537,7 @@ def main() -> None:
 
     flash_err = {}
     for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
-        for shape in [SERVE_SHAPE, JAMBA_ATTN_SHAPE] + TEST_SHAPES + EDGE_SHAPES:
+        for shape in [SERVE_SHAPE, JAMBA_ATTN_SHAPE, *NEW_SERVE_SHAPES.values()] + TEST_SHAPES + EDGE_SHAPES:
             causal, window = shape[6], shape[7]
             q, k, v = inputs(shape, dtype)
             got = flash_attention_fwd(q, k, v, causal=causal, window=window)
@@ -508,7 +579,8 @@ def main() -> None:
             "library_ms": time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=True)),
         }
-        print(f"flash_attention_fwd at {shape} bf16: kernel {out['ms']:.4f} ms "
+        walk = "causal" if causal else "non-causal"
+        print(f"flash_attention_fwd at {shape} bf16 ({walk}): kernel {out['ms']:.4f} ms "
               f"({out['host_paced_ms']:.4f} ms a call as fast as the host issues them), plain "
               f"{out['plain_ms']:.4f} ms, SDPA {out['library_ms']:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}); kernel / SDPA "
@@ -517,6 +589,7 @@ def main() -> None:
         return out
 
     flash_qwen3, flash_jamba = time_flash(SERVE_SHAPE), time_flash(JAMBA_ATTN_SHAPE)
+    flash_new = {key: time_flash(shape) for key, shape in NEW_SERVE_SHAPES.items()}
     print(f"kernel flash phase {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------ 4. kernel rwkv6
@@ -595,7 +668,7 @@ def main() -> None:
 
     # bf16 reaches the tensor-core kernel: on against off, both bf16, held to
     # twice the plain path's own bf16 error against fp32 on the same weights.
-    bf16_check(torch, make_prefill_step, "qwen3", cfg32, cache_len, params, tokens, l_off,
+    bf16_check(torch, make_prefill_step, "qwen3", cfg32, cache_len, params, {"tokens": tokens}, l_off,
                {flash_attention_fwd: cfg.n_layers})
     del params
     print(f"parity qwen3 phase {time.perf_counter() - t0:.1f} s")
@@ -631,7 +704,7 @@ def main() -> None:
         if not torch.allclose(c_on["p0"][n], c_off["p0"][n], rtol=PARITY_TOL, atol=PARITY_TOL):
             fail(f"kernel-on rwkv6 prefill {n} disagrees with kernel-off")
     del c_off, c_on
-    bf16_check(torch, make_prefill_step, "rwkv6", cfg32, cache_len, params, tokens, l_off,
+    bf16_check(torch, make_prefill_step, "rwkv6", cfg32, cache_len, params, {"tokens": tokens}, l_off,
                {rwkv6_fwd: cfg.n_layers})
     del params
     print(f"parity rwkv6 phase {time.perf_counter() - t0:.1f} s")
@@ -730,8 +803,8 @@ def main() -> None:
         fail("kernel-on jamba prefill logits disagree with kernel-off")
     del c_off, c_on
     torch.cuda.empty_cache()
-    bf16_check(torch, make_prefill_step, f"jamba {cfg32.n_layers} layers", cfg32, cache_len, params, tokens,
-               l_off, {mamba_scan_fwd: n_mamba, flash_attention_fwd: cfg32.n_layers - n_mamba})
+    bf16_check(torch, make_prefill_step, f"jamba {cfg32.n_layers} layers", cfg32, cache_len, params,
+               {"tokens": tokens}, l_off, {mamba_scan_fwd: n_mamba, flash_attention_fwd: cfg32.n_layers - n_mamba})
     del params
     print(f"parity jamba phase {time.perf_counter() - t0:.1f} s")
 
@@ -961,13 +1034,70 @@ def main() -> None:
     if unequal or sorted(keys[0]) != sorted(keys[1]):
         fail(f"the resumed run's step-{n_all} state differs from the unbroken run's in {unequal[:5]} "
              f"({len(unequal)} leaves)")
-    print(f"train qwen3 phase {time.perf_counter() - t0:.1f} s; all phases {time.perf_counter() - t_all:.1f} s")
+    print(f"train qwen3 phase {time.perf_counter() - t0:.1f} s")
+
+    # --------------------------------------------------- 15. serve seamless
+    t0 = phase("serve seamless")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, seamless_res, seamless_launches = serve_phase(
+        torch, serve, configs, SEAMLESS, all_kernels, dev, args.seed)
+    print(f"serve seamless phase {time.perf_counter() - t0:.1f} s")
+
+    # -------------------------------------------------- 16. parity seamless
+    t0 = phase("parity seamless")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg32 = cfg.replace(use_pallas="off")
+    params = init_params(T.param_defs(cfg32), seed=args.seed, dtype=torch.float32, device=dev)
+    batch = serve.prompt_batch(cfg32, 2, 512, args.seed + 1, dev)
+    l_off = prefill_parity(torch, make_prefill_step, "seamless", cfg32, cache_len, params, batch,
+                           flash_attention_fwd, cfg32.n_enc_layers + cfg32.n_layers)
+    print(f"  encoder frames {tuple(batch['encoder_embeds'].shape)}; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+    bf16_check(torch, make_prefill_step, "seamless", cfg32, cache_len, params, batch, l_off,
+               {flash_attention_fwd: cfg32.n_enc_layers + cfg32.n_layers})
+    del params, batch
+    print(f"parity seamless phase {time.perf_counter() - t0:.1f} s")
+
+    # --------------------------------------------------- 17. serve qwen2-vl
+    t0 = phase("serve qwen2-vl")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, qwen2vl_res, qwen2vl_launches = serve_phase(
+        torch, serve, configs, QWEN2_VL, all_kernels, dev, args.seed)
+    print(f"serve qwen2-vl phase {time.perf_counter() - t0:.1f} s")
+
+    # -------------------------------------------------- 18. parity qwen2-vl
+    t0 = phase("parity qwen2-vl")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg32 = cfg.replace(use_pallas="off", n_layers=QWEN2_VL_PARITY_LAYERS)
+    params = init_params(T.param_defs(cfg32), seed=args.seed, dtype=torch.float32, device=dev)
+    batch = serve.prompt_batch(cfg32, 2, 512, args.seed + 1, dev)
+    n_vision = batch["vision_embeds"].shape[1]
+    batch["positions3"] = mrope_positions(torch, 2, 512, n_vision, VISION_GRID, dev)
+    if len({tuple(p.tolist()) for p in batch["positions3"][:, 0, :n_vision]}) != 3:
+        fail("the three M-RoPE streams of the vision positions are not distinct")
+    l_off = prefill_parity(torch, make_prefill_step, "qwen2-vl", cfg32, cache_len, params, batch,
+                           flash_attention_fwd, cfg32.n_layers)
+    print(f"  depth cut from {cfg.n_layers} to {cfg32.n_layers} layers; {n_vision} vision positions (t=0, h and w "
+          f"on a {VISION_GRID}x{VISION_GRID} grid), text from "
+          f"{int(batch['positions3'][0, 0, n_vision])}; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+    bf16_check(torch, make_prefill_step, f"qwen2-vl {cfg32.n_layers} layers", cfg32, cache_len, params, batch,
+               l_off, {flash_attention_fwd: cfg32.n_layers})
+    del params, batch
+    print(f"parity qwen2-vl phase {time.perf_counter() - t0:.1f} s; all phases {time.perf_counter() - t_all:.1f} s")
 
     runs = {"qwen3_0_6b": (qwen_launches, qwen_res.prefills, "prefill"),
             "rwkv6_1_6b": (rwkv_launches, rwkv_res.prefills, "prefill"),
             JAMBA: (jamba_launches, jamba_res.prefills, "prefill"),
             "qwen3_0_6b from checkpoint": (ckpt_launches, ckpt_res.prefills, "prefill"),
-            "qwen3_0_6b train": (train_launches, steps, "step")}
+            "qwen3_0_6b train": (train_launches, steps, "step"),
+            SEAMLESS: (seamless_launches, seamless_res.prefills, "prefill"),
+            QWEN2_VL: (qwen2vl_launches, qwen2vl_res.prefills, "prefill")}
 
     def launch_counts(name: str) -> dict:
         """The kernel's launches over the main-path runs, by path, and per
@@ -986,6 +1116,7 @@ def main() -> None:
         **launch_counts("flash_attention_fwd"),
         **flash_qwen3,
         "at_jamba_shape": flash_jamba,
+        **flash_new,
     }, {
         "name": "rwkv6_fwd",
         "route": "cuda",

@@ -28,6 +28,7 @@ from ..kernels.ops import BACKWARD_RANGE
 from ..models import transformer as T
 from ..models.params import init_params
 from ..optim.adamw import AdamW
+from ..train.loop import check_token_only
 from ..train.steps import make_train_step, masked_loss
 from ..tree import leaves, unflatten
 
@@ -59,6 +60,7 @@ def main(argv: list[str] | None = None) -> dict:
 
     dev = resolve_device("cuda")
     cfg = configs.get(args.arch) if args.full else configs.get_smoke(args.arch)
+    check_token_only(cfg)
     params = init_params(T.param_defs(cfg), seed=0, device=dev)
     opt = AdamW(lr=1e-3, moment_dtype=cfg.opt_moment_dtype)
     state = opt.init(params)

@@ -3,7 +3,7 @@
 of a checkpoint commit in a repository.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
-        --arch {qwen3_0_6b,rwkv6_1_6b,jamba_1_5_large_398b} \\
+        --arch {qwen3_0_6b,rwkv6_1_6b,jamba_1_5_large_398b,seamless_m4t_large_v2,qwen2_vl_7b,...} \\
         --batch 8 --prompt-len 64 --gen 32 [--full] [--device cuda] [--dtype bfloat16] \\
         [--n-layers N] [--no-moe] [--repo PATH [--commit OID]]
 
@@ -14,10 +14,15 @@ jamba-1.5-large fits one H100 only without its experts and cut in depth,
 ``--arch jamba_1_5_large_398b --full --n-layers 16 --no-moe`` (2 of its 9
 8-layer repeats, every layer a dense SwiGLU; MoE is not ported yet).
 
+The prompts are random tokens; models with a stub frontend also get its
+inputs from the same seeded generator (``prompt_batch``): seamless-m4t's
+encoder frames, qwen2-vl's vision embeddings and M-RoPE positions.
+
 The decode state is a KV cache of ``prompt_len + gen`` positions for
-attention layers, a fixed [B, H, Dh, Dh] state with two token-shift carries
-for RWKV6 layers, and a fixed [B, Di, St] state with a [B, K-1, Di] conv tail
-for Mamba layers; the last two take no cache length. One prefill and one
+attention layers (and an encoder-decoder's projected encoder memory), a
+fixed [B, H, Dh, Dh] state with two token-shift carries for RWKV6 layers,
+and a fixed [B, Di, St] state with a [B, K-1, Di] conv tail for Mamba
+layers; the last two take no cache length. One prefill and one
 decode step warm up (kernel build and library start-up) before anything is
 timed; each timed step is bracketed by ``torch.cuda.synchronize()``.
 
@@ -88,6 +93,30 @@ def _check_shapes(arch: str, cfg, params: dict, repo: str) -> None:
                          f"e.g. {bad[0]}: saved {got.get(bad[0])}, config {want.get(bad[0])}")
 
 
+def prompt_batch(cfg, batch: int, prompt_len: int, seed: int, device: torch.device) -> dict:
+    """The prompts ``run`` serves, drawn from ``np.random.default_rng(seed)``
+    in the order of tests/test_archs.py's ``make_batch``: tokens [B, S]; for
+    an encoder-decoder ``encoder_embeds`` [B, S / enc_len_ratio, D], for a
+    VLM ``vision_embeds`` [B, S / vision_len_ratio, D], each N(0, 0.02)
+    rounded through fp32 to bf16 (the stub frontends of
+    ``repro.launch.specs``), and ``positions3`` [3, B, S], ``arange(S)`` on
+    all three streams."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt_len))).to(device)}
+
+    def frames(ratio):
+        x = rng.normal(0, 0.02, (batch, prompt_len // ratio, cfg.d_model)).astype(np.float32)
+        return torch.from_numpy(x).to(device, torch.bfloat16)
+
+    if cfg.enc_dec:
+        out["encoder_embeds"] = frames(cfg.enc_len_ratio)
+    if cfg.vision_len_ratio:
+        out["vision_embeds"] = frames(cfg.vision_len_ratio)
+        out["positions3"] = torch.arange(prompt_len, dtype=torch.int32, device=device).expand(
+            3, batch, prompt_len)
+    return out
+
+
 def run(arch: str = "qwen3_0_6b", *, batch: int = 8, prompt_len: int = 64, gen: int = 32,
         full: bool = False, device: str | torch.device = "cuda", dtype: str = "bfloat16",
         seed: int = 0, overrides: dict | None = None,
@@ -134,9 +163,7 @@ def run(arch: str = "qwen3_0_6b", *, batch: int = 8, prompt_len: int = 64, gen: 
         prefills += 1
         return prefill_step(params, batch_in)
 
-    rng = np.random.default_rng(seed)
-    batch_in = {"tokens": torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (batch, prompt_len))).to(dev)}
+    batch_in = prompt_batch(cfg, batch, prompt_len, seed, dev)
 
     caches, logits = prefill(params, batch_in)  # warm-up
     step(params, caches, greedy_token(cfg, logits), prompt_len)

@@ -23,7 +23,7 @@ from .. import configs, resolve_device
 from ..core.repo import Repository
 from ..data.tokens import SyntheticTokens
 from ..optim.adamw import AdamW, cosine_schedule
-from ..train.loop import SegmentResult, train_segment
+from ..train.loop import SegmentResult, check_token_only, train_segment
 
 
 def run(arch: str = "qwen3_0_6b", *, steps: int = 40, ckpt_every: int = 20, repo: str = "",
@@ -32,9 +32,11 @@ def run(arch: str = "qwen3_0_6b", *, steps: int = 40, ckpt_every: int = 20, repo
     """Train ``arch`` to step ``steps`` in the repository ``repo`` (created
     if it holds none; default ``./train_<arch>``) on ``SyntheticTokens(seed=0)``
     with a cosine schedule (10 warm-up steps). Returns the segment's result,
-    with each step's loss and time."""
+    with each step's loss and time. Raises NotImplementedError, before any
+    repository is made, for a model whose inputs are more than tokens."""
     dev = resolve_device(device)
     cfg = configs.get(arch) if full else configs.get_smoke(arch)
+    check_token_only(cfg)
     root = repo or os.path.abspath(f"train_{arch}")
     if os.path.exists(os.path.join(root, ".repro")):
         repository = Repository(root)

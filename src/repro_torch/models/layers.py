@@ -1,7 +1,6 @@
 """Shared neural building blocks (port of ``repro.models.layers``).
 
 Norm statistics accumulate in fp32; matmuls run in the model compute dtype.
-``apply_mrope`` comes with a later slice (ROADMAP.md §A item 7).
 """
 from __future__ import annotations
 
@@ -32,6 +31,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     half = x.shape[-1] // 2
     freqs = rope_freqs(x.shape[-1], theta, x.device)
     angles = positions[..., None].float() * freqs  # [B, S, half]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: tuple[int, ...]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: the rotary half-dims are split into sections
+    (temporal / height / width), each rotated by its own position stream.
+
+    x: [B, S, H, Dh]; positions3: [3, B, S] (int); sum(sections) == Dh // 2.
+    """
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not add up to half the head dim {half}")
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    # each section's frequencies turn by its own stream: the streams are
+    # expanded over their sections rather than gathered by a [half] index of
+    # stream ids, which would be a tensor to copy to the device (and
+    # repeat_interleave's output size one to read back) on every call
+    pos = torch.cat([positions3[i, :, :, None].expand(-1, -1, n) for i, n in enumerate(sections)], dim=-1)
+    angles = pos.float() * freqs  # [B, S, half]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x[..., :half], x[..., half:]

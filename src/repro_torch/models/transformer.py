@@ -1,12 +1,24 @@
-"""The dense attention, RWKV6 and Mamba/attention hybrid stacks of
-``repro.models.transformer``, in PyTorch.
+"""The dense attention, RWKV6, Mamba/attention hybrid, encoder-decoder and
+M-RoPE stacks of ``repro.models.transformer``, in PyTorch.
 
 Layers of ``LayerKind("attn", moe=False)`` (dense GQA, optional qk-norm,
-RoPE, SwiGLU, tied or separate LM head), ``LayerKind("rwkv6")`` (time mix
-with token shift, LoRA decay and the WKV recurrence, then channel mix) and
-``LayerKind("mamba", moe=False)`` (the Mamba mixer, then SwiGLU), in the
-pattern the config gives: a hybrid puts attention at ``attn_offset`` of every
-``attn_period`` layers and Mamba elsewhere. MoE layers are not ported yet.
+RoPE or M-RoPE, SwiGLU, tied or separate LM head), ``LayerKind("rwkv6")``
+(time mix with token shift, LoRA decay and the WKV recurrence, then channel
+mix) and ``LayerKind("mamba", moe=False)`` (the Mamba mixer, then SwiGLU), in
+the pattern the config gives: a hybrid puts attention at ``attn_offset`` of
+every ``attn_period`` layers and Mamba elsewhere. MoE layers are not ported
+yet.
+
+Encoder-decoder configs (``cfg.enc_dec``) run a stack of ``n_enc_layers``
+non-causal attention layers over ``batch["encoder_embeds"]`` [B, S_enc, D]
+(the stub speech frontend's frames), closed by ``enc_final_norm``; every
+decoder layer adds cross-attention to that memory after its self-attention.
+Cross-attention always takes the plain blockwise ``attention``, as the
+reference computes it outside its kernel. VLM configs put
+``batch["vision_embeds"]`` [B, S_v, D] in place of the first S_v token
+embeddings and rotate q and k by M-RoPE over ``batch["positions3"]``
+[3, B, S] (temporal, height and width streams).
+
 Weights keep the reference layout: ``[in, out]`` matrices applied as
 ``x @ W``, stacked along a leading ``n_repeats`` axis per pattern position,
 under the same nested keys; the stack runs as a Python loop over the repeats.
@@ -15,7 +27,8 @@ Three entry points: ``forward_train`` (full causal sequence; differentiable),
 ``prefill`` (returns the decode state and the last position's logits) and
 ``decode_step`` (one token against the state). Decode state per pattern
 position, stacked along a leading ``n_repeats`` axis:
-  attn  : ``{"k", "v"}`` caches [B, S_cache, KV, Dh]
+  attn  : ``{"k", "v"}`` caches [B, S_cache, KV, Dh]; with an encoder also
+          ``{"xk", "xv"}`` [B, S_enc, KV, Dh], the projected memory
   rwkv6 : ``{"wkv"}`` state [B, H, Dh, Dh] fp32 and token-shift carries
           ``{"shift_t", "shift_c"}`` [B, D]
   mamba : ``{"h"}`` state [B, Di, St] fp32 and ``{"conv"}`` tail
@@ -27,11 +40,11 @@ repeat runs under ``torch.utils.checkpoint`` while autograd records, as the
 reference wraps its scan body in ``jax.checkpoint``: the backward recomputes
 the repeat's forward, kernels included.
 
-Prefill and train attention go through the flash-attention kernel when
-``use_pallas`` selects it, else through the plain blockwise ``attention``.
-The reference also needs the sequence length to be a multiple of 64, for
-its Pallas tiling; the CUDA kernel masks ragged tiles, so the port takes
-the kernel at any length. Unlike the reference, whose kernel branch returns
+Prefill and train self-attention (the encoder's too) go through the
+flash-attention kernel when ``use_pallas`` selects it, else through the
+plain blockwise ``attention``. The reference also needs the sequence
+length to be a multiple of 64, for its Pallas tiling; the CUDA kernel masks
+ragged tiles, so the port takes the kernel at any length. Unlike the reference, whose kernel branch returns
 no KV cache (ROADMAP.md §C), both branches build the prefill cache.
 
 Prefill and train WKV recurrences go through the RWKV6 kernel when
@@ -59,17 +72,13 @@ from ..configs.base import LayerKind, ModelConfig
 from ..kernels.ops import flash_attention, mamba_scan, rwkv6
 from . import ssm
 from .attention import attention, cache_insert, decode_attention
-from .layers import apply_rope, rmsnorm, swiglu
+from .layers import apply_mrope, apply_rope, rmsnorm, swiglu
 from .params import ParamDef
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the parts of ``cfg`` the port does not run yet, naming the
-    ROADMAP.md §A item that brings each."""
-    if cfg.enc_dec:
-        raise NotImplementedError("encoder-decoder models: ROADMAP.md §A item 7")
-    if cfg.mrope_sections or cfg.vision_len_ratio:
-        raise NotImplementedError("M-RoPE and vision inputs: ROADMAP.md §A item 7")
+    ROADMAP.md §A item that brings them."""
     for kind in cfg.pattern:
         if kind.moe:
             raise NotImplementedError("MoE feed-forward layers: ROADMAP.md §A item 6")
@@ -83,6 +92,9 @@ def _use_kernels(cfg: ModelConfig, x: torch.Tensor) -> bool:
     if cfg.use_pallas == "off":
         return False
     return x.is_cuda
+
+
+ENC_KIND = LayerKind("attn")  # every encoder layer: self-attention (non-causal) and SwiGLU
 
 
 # ================================================================ param defs
@@ -139,15 +151,17 @@ def _mamba_defs(cfg: ModelConfig) -> dict:
     }
 
 
-def _block_defs(cfg: ModelConfig, kind: LayerKind) -> dict:
+def _block_defs(cfg: ModelConfig, kind: LayerKind, cross_attn: bool = False) -> dict:
     D, F = cfg.d_model, cfg.d_ff
     if kind.mixer == "rwkv6":  # time mix + channel mix, no swiglu
         return {"ln1": ParamDef((D,), "ones"), "rwkv": _rwkv_defs(cfg),
                 "ln2": ParamDef((D,), "ones")}
     mixer = {"mamba": _mamba_defs(cfg)} if kind.mixer == "mamba" else {"attn": _attn_defs(cfg)}
+    xattn = {"ln_x": ParamDef((D,), "ones"), "xattn": _attn_defs(cfg)} if cross_attn else {}
     return {
         "ln1": ParamDef((D,), "ones"),
         **mixer,
+        **xattn,
         "ln2": ParamDef((D,), "ones"),
         "ffn": {"w1": ParamDef((D, F)), "w3": ParamDef((D, F)), "w2": ParamDef((F, D))},
     }
@@ -169,8 +183,12 @@ def param_defs(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((D, Vp), "normal", 0.02)
-    blocks = {f"p{i}": _block_defs(cfg, kind) for i, kind in enumerate(cfg.pattern)}
+    blocks = {f"p{i}": _block_defs(cfg, kind, cross_attn=cfg.enc_dec)
+              for i, kind in enumerate(cfg.pattern)}
     defs["blocks"] = _stack(blocks, cfg.n_repeats)
+    if cfg.enc_dec:
+        defs["enc_blocks"] = _stack({"p0": _block_defs(cfg, ENC_KIND)}, cfg.n_enc_layers)
+        defs["enc_final_norm"] = ParamDef((D,), "ones")
     return defs
 
 
@@ -179,7 +197,9 @@ def param_defs(cfg: ModelConfig) -> dict:
 class Ctx:
     mode: str  # 'train' | 'prefill' | 'decode'
     positions: torch.Tensor | None = None  # [B, S]
+    positions3: torch.Tensor | None = None  # [3, B, S] (M-RoPE)
     pos: int | None = None  # decode: position of the new token
+    enc_memory: torch.Tensor | None = None  # [B, S_enc, D]
     cache_len: int = 0
     causal: bool = True
 
@@ -200,6 +220,16 @@ def _project_qkv(cfg: ModelConfig, p_attn: dict, h: torch.Tensor):
 def _rope(cfg: ModelConfig, ctx: Ctx, q: torch.Tensor, k: torch.Tensor):
     if not cfg.rope:
         return q, k
+    if cfg.mrope_sections:
+        pos3 = ctx.positions3
+        if pos3 is None:
+            if ctx.pos is None:
+                raise ValueError(f"{cfg.name} rotates by M-RoPE: train and prefill need "
+                                 "batch['positions3'] [3, B, S]")
+            # decode: the same position on all three streams
+            pos3 = torch.full((3,) + q.shape[:2], ctx.pos, dtype=torch.int32, device=q.device)
+        return (apply_mrope(q, pos3, cfg.rope_theta, cfg.mrope_sections),
+                apply_mrope(k, pos3, cfg.rope_theta, cfg.mrope_sections))
     pos = ctx.positions
     if pos is None:
         pos = torch.full(q.shape[:2], ctx.pos, dtype=torch.int32, device=q.device)
@@ -245,6 +275,32 @@ def _prefill_kv_cache(cfg: ModelConfig, ctx: Ctx, k: torch.Tensor, v: torch.Tens
         return buf
 
     return {"k": build(k), "v": build(v)}
+
+
+def _cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, ctx: Ctx, cache):
+    """Attention of the decoder's queries over the encoder memory, plain and
+    non-causal. Train and prefill project the memory (prefill returns the
+    projections as the ``xk``/``xv`` cache); decode reads them from the cache
+    and returns the cache's own tensors, so the decode loop copies nothing.
+    Returns (mixer_out, new_cache_entries)."""
+    h = rmsnorm(x, p["ln_x"], cfg.norm_eps)
+    B, S, _ = h.shape
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    px = p["xattn"]
+    q = (h @ px["wq"]).reshape(B, S, H, Dh)
+    new_cache = {}
+    if ctx.mode == "decode":
+        xk, xv = cache["xk"], cache["xv"]
+        out = decode_attention(q, xk, xv, xk.shape[1] - 1)
+        new_cache = {"xk": xk, "xv": xv}
+    else:
+        mem = ctx.enc_memory
+        xk = (mem @ px["wk"]).reshape(B, -1, KV, Dh)
+        xv = (mem @ px["wv"]).reshape(B, -1, KV, Dh)
+        out = attention(q, xk, xv, causal=False, q_chunk=cfg.attn_q_chunk)
+        if ctx.mode == "prefill":
+            new_cache = {"xk": xk, "xv": xv}
+    return out.reshape(B, S, H * Dh) @ px["wo"], new_cache
 
 
 def _shift(x: torch.Tensor, prev: torch.Tensor | None) -> torch.Tensor:
@@ -343,6 +399,10 @@ def apply_block(cfg: ModelConfig, kind: LayerKind, p: dict, x: torch.Tensor, ctx
     mixer = _mamba_mixer if kind.mixer == "mamba" else _self_attention
     mix, new_cache = mixer(cfg, p, x, ctx, cache)
     x = x + mix
+    if "xattn" in p:  # a decoder layer of an encoder-decoder model
+        xmix, xcache = _cross_attention(cfg, p, x, ctx, cache)
+        x = x + xmix
+        new_cache = {**new_cache, **xcache}
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
     f = p["ffn"]
     return x + swiglu(h, f["w1"], f["w3"], f["w2"]), new_cache
@@ -364,30 +424,34 @@ def _repeats(tree: dict, n: int) -> list[dict]:
     return out
 
 
-def _train_repeat(cfg: ModelConfig, layer: dict, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+def _train_repeat(cfg: ModelConfig, pattern, layer: dict, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     """One repeat of the pattern in train mode."""
-    for i, kind in enumerate(cfg.pattern):
+    for i, kind in enumerate(pattern):
         x, _ = apply_block(cfg, kind, layer[f"p{i}"], x, ctx, None)
     return x
 
 
-def _run_blocks(cfg: ModelConfig, blocks: dict, x: torch.Tensor, ctx: Ctx, caches=None):
-    """Loop over the stacked repeats. Returns (x, caches): in decode the
-    given caches, updated in place (the KV caches by ``cache_insert``, the
-    RWKV and Mamba states, carries and conv tails by copying each layer's
-    new values in); in prefill new caches stacked along the repeat axis; in
-    train None."""
+def _run_blocks(cfg: ModelConfig, blocks: dict, x: torch.Tensor, ctx: Ctx, caches=None,
+                pattern=None, n_repeats: int | None = None):
+    """Loop over the stacked repeats of ``pattern`` (default: the config's
+    decoder pattern and repeats; the encoder passes its own). Returns (x,
+    caches): in decode the given caches, updated in place (the KV caches by
+    ``cache_insert``, the RWKV and Mamba states, carries and conv tails by
+    copying each layer's new values in); in prefill new caches stacked along
+    the repeat axis; in train None."""
+    pattern = cfg.pattern if pattern is None else pattern
+    n_repeats = cfg.n_repeats if n_repeats is None else n_repeats
     if ctx.mode == "train":
         remat = cfg.remat and torch.is_grad_enabled()
-        for layer in _repeats(blocks, cfg.n_repeats):
+        for layer in _repeats(blocks, n_repeats):
             if remat:
-                x = checkpoint(_train_repeat, cfg, layer, x, ctx, use_reentrant=False)
+                x = checkpoint(_train_repeat, cfg, pattern, layer, x, ctx, use_reentrant=False)
             else:
-                x = _train_repeat(cfg, layer, x, ctx)
+                x = _train_repeat(cfg, pattern, layer, x, ctx)
         return x, None
-    new = {f"p{i}": [] for i in range(len(cfg.pattern))}
-    for rep in range(cfg.n_repeats):
-        for kind, (key, layers) in zip(cfg.pattern, new.items()):
+    new = {f"p{i}": [] for i in range(len(pattern))}
+    for rep in range(n_repeats):
+        for kind, (key, layers) in zip(pattern, new.items()):
             c_in = _at(caches[key], rep) if caches is not None else None
             x, nc = apply_block(cfg, kind, _at(blocks[key], rep), x, ctx, c_in)
             if ctx.mode == "decode":
@@ -402,8 +466,28 @@ def _run_blocks(cfg: ModelConfig, blocks: dict, x: torch.Tensor, ctx: Ctx, cache
                for key, cs in new.items()}
 
 
-def _embed_inputs(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens.long()]
+
+
+def _embed_inputs(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    """Token embeddings; a VLM's ``vision_embeds`` [B, S_v, D] take the
+    place of the first S_v."""
+    x = _embed(params, batch["tokens"])
+    if cfg.vision_len_ratio and "vision_embeds" in batch:
+        ve = batch["vision_embeds"].to(x.dtype)
+        x = torch.cat([ve, x[:, ve.shape[1]:]], dim=1)
+    return x
+
+
+def _encode(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    """The encoder stack, non-causal and in train mode, over the frame
+    embeddings ``batch["encoder_embeds"]`` cast to the parameters' dtype;
+    returns the normed memory [B, S_enc, D]."""
+    enc_x = batch["encoder_embeds"].to(params["enc_final_norm"].dtype)
+    enc_x, _ = _run_blocks(cfg, params["enc_blocks"], enc_x, Ctx(mode="train", causal=False),
+                           pattern=(ENC_KIND,), n_repeats=cfg.n_enc_layers)
+    return rmsnorm(enc_x, params["enc_final_norm"], cfg.norm_eps)
 
 
 def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -424,9 +508,12 @@ def forward_train(cfg: ModelConfig, params: dict, batch: dict) -> tuple[torch.Te
     """Full-sequence causal forward. Returns (logits [B,S,Vp], aux_loss);
     the aux loss is 0 (it comes from MoE routing, not ported yet)."""
     check_supported(cfg)
-    x = _embed_inputs(params, batch["tokens"])
+    x = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
-    ctx = Ctx(mode="train", positions=_positions(batch, B, S, x.device))
+    ctx = Ctx(mode="train", positions=_positions(batch, B, S, x.device),
+              positions3=batch.get("positions3"))
+    if cfg.enc_dec:
+        ctx.enc_memory = _encode(cfg, params, batch)
     x, _ = _run_blocks(cfg, params["blocks"], x, ctx)
     return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -434,10 +521,13 @@ def forward_train(cfg: ModelConfig, params: dict, batch: dict) -> tuple[torch.Te
 def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int):
     """Process a full prompt; returns (caches, last-token logits [B,Vp])."""
     check_supported(cfg)
-    x = _embed_inputs(params, batch["tokens"])
+    x = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
     eff_cache = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
-    ctx = Ctx(mode="prefill", positions=_positions(batch, B, S, x.device), cache_len=eff_cache)
+    ctx = Ctx(mode="prefill", positions=_positions(batch, B, S, x.device),
+              positions3=batch.get("positions3"), cache_len=eff_cache)
+    if cfg.enc_dec:
+        ctx.enc_memory = _encode(cfg, params, batch)
     x, caches = _run_blocks(cfg, params["blocks"], x, ctx)
     return caches, _logits(cfg, params, x[:, -1:, :])[:, 0]
 
@@ -446,6 +536,6 @@ def decode_step(cfg: ModelConfig, params: dict, caches: dict, token: torch.Tenso
     """One decode step. token [B,1] int; pos: position of the new token.
     Returns (logits [B,Vp], caches) — the caches are updated in place."""
     check_supported(cfg)
-    x = _embed_inputs(params, token)
+    x = _embed(params, token)
     x, caches = _run_blocks(cfg, params["blocks"], x, Ctx(mode="decode", pos=int(pos)), caches)
     return _logits(cfg, params, x)[:, 0], caches

@@ -46,6 +46,18 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def check_token_only(cfg: ModelConfig) -> None:
+    """Raise for a config that needs more than tokens: the training data
+    (``SyntheticTokens``) yields tokens only, and an encoder-decoder model
+    also needs its encoder frames, a VLM its vision embeddings and M-RoPE
+    positions. ``make_train_step`` on a batch that carries them does train
+    such a model."""
+    if cfg.enc_dec or cfg.vision_len_ratio or cfg.mrope_sections:
+        raise NotImplementedError(
+            f"{cfg.name} needs stub frontend inputs that the token data does not carry: "
+            "ROADMAP.md §A item 7's follow-up (stub frontends in the training data)")
+
+
 def train_segment(
     repo: Repository,
     cfg: ModelConfig,
@@ -61,6 +73,7 @@ def train_segment(
     bf16) to step ``n_steps``. Each checkpoint records ``data_step`` and
     ``extra={"loss", "config"}``; with ``async_ckpt`` its write and commit
     overlap the next steps."""
+    check_token_only(cfg)
     dev = resolve_device(device)
     optimizer = optimizer or AdamW(lr=1e-3, moment_dtype=cfg.opt_moment_dtype)
     ckpt = CheckpointManager(repo)

@@ -5,7 +5,9 @@ columns masked, the MoE auxiliary loss (0 for the dense configs the port
 runs), optional microbatch accumulation, optional int8 error-feedback
 compression of the gradients, clipping and the AdamW update, which writes
 the parameters in place. The serving steps run under
-``torch.inference_mode()``.
+``torch.inference_mode()``. Every step hands the whole batch to the model:
+the tokens and, for encoder-decoder and VLM configs, the stub frontends'
+``encoder_embeds``, ``vision_embeds`` and ``positions3``.
 """
 from __future__ import annotations
 

@@ -22,6 +22,7 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.mamba import mamba_scan_fwd  # noqa: E402
 from repro_torch.kernels.rwkv6 import rwkv6_fwd  # noqa: E402
+from repro_torch.launch.serve import prompt_batch  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.params import init_params  # noqa: E402
 from repro_torch.core.repo import Repository  # noqa: E402
@@ -45,6 +46,9 @@ SHAPES = [
     (1, 100, 130, 4, 2, 16, False, None),  # ragged tiles, Dh of the smoke config
     (1, 300, 300, 8, 1, 128, True, None),  # ragged query and KV tiles at jamba's GQA group
     (2, 512, 512, 8, 2, 64, True, None),  # serving length at Dh=64 (128-byte swizzle, one box)
+    (8, 128, 128, 16, 16, 64, False, None),  # seamless-m4t's encoder: non-causal, two 64-key tiles
+    (8, 512, 512, 16, 16, 64, True, None),  # seamless-m4t's decoder
+    (8, 512, 512, 28, 4, 128, True, None),  # qwen2-vl-7b: GQA group 7
 ]
 
 
@@ -130,6 +134,26 @@ def test_smoke_prefill_kernel_on_matches_off(cuda, prompt):
     assert flash_attention_fwd.launches == before + cfg.n_layers
     torch.testing.assert_close(l_on, l_off, rtol=2e-3, atol=2e-3)
     for name in ("k", "v"):
+        torch.testing.assert_close(c_on["p0"][name], c_off["p0"][name], rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["seamless_m4t_large_v2", "qwen2_vl_7b"])
+def test_smoke_encdec_and_vlm_prefill_kernel_on_matches_off(cuda, arch):
+    """fp32 smoke prefill of the encoder-decoder and the M-RoPE VLM with the
+    kernel against the plain path, on the card, at the 2e-3 bar: last
+    logits and every cache (seamless adds the projected memory xk/xv). The
+    kernel launches once per self-attention layer, the encoder's included."""
+    cfg = configs.get_smoke(arch).replace(use_pallas="off")
+    params = init_params(T.param_defs(cfg), seed=0, dtype=torch.float32, device=cuda)
+    batch = prompt_batch(cfg, 2, 64, seed=0, device=cuda)
+    c_off, l_off = make_prefill_step(cfg, 72)(params, batch)
+    before = flash_attention_fwd.launches
+    c_on, l_on = make_prefill_step(cfg.replace(use_pallas="auto"), 72)(params, batch)
+    assert flash_attention_fwd.launches == before + cfg.n_layers + (cfg.n_enc_layers if cfg.enc_dec else 0)
+    torch.testing.assert_close(l_on, l_off, rtol=2e-3, atol=2e-3)
+    assert set(c_on["p0"]) == set(c_off["p0"]) == ({"k", "v", "xk", "xv"} if cfg.enc_dec else {"k", "v"})
+    for name in c_off["p0"]:
         torch.testing.assert_close(c_on["p0"][name], c_off["p0"][name], rtol=2e-3, atol=2e-3)
 
 

@@ -64,10 +64,22 @@ def test_registry_names_the_roadmap_item_for_unported_archs():
 @pytest.mark.parametrize("change,item", [
     (dict(attn_period=2, attn_offset=1, moe=MoEConfig(n_experts=4)), "item 6"),
     (dict(moe=MoEConfig(n_experts=4)), "item 6"),
-    (dict(enc_dec=True, n_enc_layers=2), "item 7"),
-    (dict(mrope_sections=(2, 3, 3)), "item 7"),
 ])
 def test_unported_layers_raise(change, item):
     cfg = configs.get_smoke("qwen3_0_6b").replace(**change)
     with pytest.raises(NotImplementedError, match=item):
         T.param_defs(cfg)
+
+
+@pytest.mark.parametrize("change,added", [
+    (dict(enc_dec=True, n_enc_layers=2), {"enc_blocks", "enc_final_norm"}),
+    (dict(mrope_sections=(2, 3, 3)), set()),
+])
+def test_encoder_decoder_and_mrope_layers_build(change, added):
+    """ROADMAP.md §A item 7 is ported: the changes that raised before build
+    their parameters (an encoder-decoder adds the encoder and each decoder
+    layer's cross-attention; M-RoPE adds no weight)."""
+    base = T.param_defs(configs.get_smoke("qwen3_0_6b"))
+    defs = T.param_defs(configs.get_smoke("qwen3_0_6b").replace(**change))
+    assert set(defs) - set(base) == added
+    assert ("xattn" in defs["blocks"]["p0"]) == bool(added)

@@ -52,6 +52,7 @@ from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core.records import RunRecord  # noqa: E402
 from repro_torch.core.repo import Repository  # noqa: E402
 from repro_torch.data.tokens import SyntheticTokens  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models.layers import cross_entropy  # noqa: E402
 from repro_torch.optim import adamw, compression  # noqa: E402
@@ -89,6 +90,17 @@ def _close(got, want, **tol):
 
 def _tokens(vocab, shape, seed=0):
     return np.random.default_rng(seed).integers(0, vocab, shape).astype(np.int32)
+
+
+def _batches(cfg, shape):
+    """(JAX batch, port batch): ``_tokens`` and, for the encoder-decoder and
+    VLM configs, the stub frontends' inputs of ``serve.prompt_batch`` (bf16
+    values cross exactly through fp32)."""
+    tokens = _tokens(cfg.vocab_size, shape)
+    stubs = {k: v for k, v in serve.prompt_batch(cfg, *shape, seed=0, device="cpu").items() if k != "tokens"}
+    jstubs = {k: jnp.asarray(v.float().numpy(), jnp.bfloat16) if v.is_floating_point() else jnp.asarray(v.numpy())
+              for k, v in stubs.items()}
+    return {"tokens": jnp.asarray(tokens), **jstubs}, {"tokens": torch.from_numpy(tokens), **stubs}
 
 
 # ------------------------------------------------------------------ data
@@ -223,15 +235,15 @@ def _one_step(arch, *, n_mb=1, compress=False, n_steps=1):
     returns (JAX (params, opt_state, metrics), port's)."""
     jcfg, cfg = _cfgs(arch, microbatches=n_mb)
     jparams, params = _params(jcfg)
-    tokens = _tokens(cfg.vocab_size, (4, 32))
+    jbatch, batch = _batches(cfg, (4, 32))
     jopt, opt = jadamw.AdamW(lr=1e-3), adamw.AdamW(lr=1e-3)
     jfn = jax.jit(jsteps.make_train_step(jcfg, None, jopt, compress_grads=compress))
     fn = steps.make_train_step(cfg, opt, compress_grads=compress)
     jout = (jparams, jopt.init(jparams), None)
     out = (params, opt.init(params), None)
     for _ in range(n_steps):
-        jout = jfn(jout[0], jout[1], {"tokens": jnp.asarray(tokens)})
-        out = fn(out[0], out[1], {"tokens": torch.from_numpy(tokens)})
+        jout = jfn(jout[0], jout[1], jbatch)
+        out = fn(out[0], out[1], batch)
     return jout, out
 
 
@@ -310,7 +322,7 @@ def test_train_step_reduces_loss_on_a_repeated_batch(arch):
     _, params = _params(jcfg, jnp.bfloat16)
     opt = adamw.AdamW(lr=5e-3, moment_dtype=cfg.opt_moment_dtype)
     fn, state = steps.make_train_step(cfg, opt), opt.init(params)
-    batch = {"tokens": torch.from_numpy(_tokens(cfg.vocab_size, (2, 32)))}
+    _, batch = _batches(cfg, (2, 32))
     losses = []
     for _ in range(5):
         params, state, metrics = fn(params, state, batch)
