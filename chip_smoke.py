@@ -11,13 +11,16 @@ Phases; any failure exits non-zero before the result lines are printed.
   3. kernel flash — holds the flash-attention kernel (bf16: wgmma and TMA;
                     fp32: CUDA cores) against its plain version at qwen3's,
                     jamba's, seamless-m4t's (encoder: non-causal, Sq=Sk=128;
-                    decoder) and qwen2-vl's (GQA group 7) serving shapes, the
-                    six shapes of the kernel tests, ragged lengths, Dh=64 at
-                    the serving length and a strided q, fp32 and bf16; times
-                    the kernel, the plain version and PyTorch's SDPA at the
-                    five serving shapes, bf16, and prints the kernel over SDPA
-                    and the bound over the kernel beside the bf16 kernel's
-                    ptxas line.
+                    decoder), qwen2-vl's (GQA group 7) and mixtral's (GQA
+                    group 6, window 4096: B=8 x 512, where it does not bind,
+                    and B=1 x 8192, where it does) serving shapes, the six
+                    shapes of the kernel tests, ragged lengths, Dh=64 at the
+                    serving length and a strided q, fp32 and bf16; times the
+                    kernel, the plain version and PyTorch's SDPA (with the
+                    window's boolean mask where there is a window) at the
+                    seven serving shapes, bf16, and prints the kernel over
+                    SDPA and the bound over the kernel beside the bf16
+                    kernel's ptxas line.
   4. kernel rwkv6 — holds the RWKV6 WKV kernel (bf16: chunked form on the
                     tensor cores; fp32: per-step loop on the CUDA cores)
                     against its plain version at the serving shape, the three
@@ -96,12 +99,32 @@ Phases; any failure exits non-zero before the result lines are printed.
                     grid over the vision positions, then the text's), kernel
                     on against off: last logits, k and v, 4 launches; then the
                     bf16 check.
+ 19. serve mixtral — mixtral-8x22b at full width (8 experts top-2, capacity
+                    factor 1.25, window 4096), depth cut from 56 to 8 layers
+                    (40.9 GB of bf16 weights), phase 5's shape; the flash
+                    kernel must launch 8 times per prefill.
+ 20. serve mixtral long — the same model at B=1, a 8192-token prompt and 16
+                    generated tokens: the window binds in the kernel and the
+                    4096-slot ring KV cache wraps in prefill and in decode.
+ 21. parity mixtral — full-width fp32 prefill cut to 2 of 56 layers, B=2 x
+                    512, kernel on against off. Routing is discrete (an ulp
+                    in a layer's input can change a token's experts, and
+                    through the capacity queue a later token's drop), so the
+                    logits and caches are held with every layer routed to the
+                    kernel-off run's experts, at PARITY_TOL; the free-running
+                    runs' share of differing (token, slot) choices is printed
+                    and held under MAX_FP32_FLIPS. Then bf16, routed the same
+                    way, on against off within twice the bf16 plain path's
+                    error against fp32; the free-running bf16 kernel-on run
+                    may flip at most twice the choices that bf16 itself flips
+                    against fp32.
 Phases 3, 4 and 9 also run one backward through each kernel op
 (``ops.flash_attention``, ``ops.rwkv6``, ``ops.mamba_scan``) at a small fp32
 shape and hold its gradients against the plain version's autograd.
 Each serve sets every kernel's count to 0 just before it serves and reads the
-counts just after. Then one JSON line with the kernels' numbers, the card's
-name and power limit, and the final line {"ok": true, "device": {...}}.
+counts just after; each model's weights are freed before the next phase.
+Then one JSON line with the kernels' numbers, the card's name and power
+limit, and the final line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -115,6 +138,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 # Phase 14's deterministic resume needs cuBLAS's fixed workspace; cuBLAS reads
@@ -138,9 +162,13 @@ JAMBA_ATTN_SHAPE = (8, 512, 512, 64, 8, 128, True, None)  # jamba's attention la
 SEAMLESS_ENC_SHAPE = (8, 128, 128, 16, 16, 64, False, None)  # seamless-m4t's encoder: 128 frames
 SEAMLESS_DEC_SHAPE = (8, 512, 512, 16, 16, 64, True, None)  # seamless-m4t's decoder
 QWEN2_VL_SHAPE = (8, 512, 512, 28, 4, 128, True, None)  # qwen2-vl-7b: GQA group 7
+MIXTRAL_SHAPE = (8, 512, 512, 48, 8, 128, True, 4096)  # mixtral-8x22b: GQA group 6, window 4096
+MIXTRAL_LONG_SHAPE = (1, 8192, 8192, 48, 8, 128, True, 4096)  # its long prompt: the window binds
 NEW_SERVE_SHAPES = {"at_seamless_encoder_shape": SEAMLESS_ENC_SHAPE,
                     "at_seamless_decoder_shape": SEAMLESS_DEC_SHAPE,
-                    "at_qwen2_vl_shape": QWEN2_VL_SHAPE}
+                    "at_qwen2_vl_shape": QWEN2_VL_SHAPE,
+                    "at_mixtral_shape": MIXTRAL_SHAPE,
+                    "at_mixtral_long_shape": MIXTRAL_LONG_SHAPE}
 TEST_SHAPES = [
     (2, 128, 128, 4, 4, 64, True, None),
     (1, 256, 256, 8, 2, 64, True, None),
@@ -180,6 +208,15 @@ PREEMPT = (6, 3)  # the unbroken run's steps, and the step the other is cut at
 SEAMLESS, QWEN2_VL = "seamless_m4t_large_v2", "qwen2_vl_7b"
 QWEN2_VL_PARITY_LAYERS = 4  # phase 18: fp32 at full depth would be 30.5 GB of weights
 VISION_GRID = 8  # phase 18: the 64 vision positions as an 8 x 8 grid
+MIXTRAL = "mixtral_8x22b"
+MIXTRAL_CUTS = {"n_layers": 8}  # 8 of 56 layers: 40.9 GB of bf16 weights; all 56 are 281 GB
+LONG_SERVE = dict(batch=1, prompt_len=8192, gen=16)  # phase 20: past mixtral's 4096-token window
+MIXTRAL_PARITY_LAYERS = 2  # phase 21: 21.6 GB of fp32 weights
+# phase 21: the share of (token, slot) expert choices the free-running fp32 kernel-on prefill
+# may route otherwise than kernel-off. Its attention differs from the plain path's by ~1e-6,
+# so a choice flips only where two experts' probabilities lie that close; a faulty kernel
+# reroutes a large share.
+MAX_FP32_FLIPS = 0.01
 
 
 def fail(msg: str) -> None:
@@ -376,6 +413,38 @@ def mrope_positions(torch, batch: int, seq: int, n_vision: int, grid: int, dev):
     return torch.cat([vision, text], dim=1).to(torch.int32)[:, None, :].expand(3, batch, seq).contiguous()
 
 
+@contextmanager
+def routing(torch, moe, pinned: list | None = None):
+    """Within the block, each call of ``moe.router_topk`` appends the expert
+    indices [B, S, k] it routes by to the list this yields, in layer order.
+    With ``pinned`` (such a list from another run) the n-th call routes by
+    the n-th pinned indices in place of its own, its gates renormalised from
+    its own probabilities at those experts: the discrete choice is held
+    fixed, and the layer stays continuous in its inputs."""
+    record, original = [], moe.router_topk
+
+    def router_topk(x, w_router, cfg):
+        gates, idx, aux = original(x, w_router, cfg)
+        if pinned is not None:
+            idx = pinned[len(record)]
+            probs = torch.softmax(torch.einsum("bsd,de->bse", x.float(), w_router.float()), dim=-1)
+            gates = probs.gather(-1, idx)
+            gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
+        record.append(idx)
+        return gates, idx, aux
+
+    moe.router_topk = router_topk
+    try:
+        yield record
+    finally:
+        moe.router_topk = original
+
+
+def flip_share(routes: list, other: list) -> float:
+    """Share of (token, slot) expert choices that differ between two runs' routes."""
+    return sum(int((a != b).sum()) for a, b in zip(routes, other)) / sum(a.numel() for a in routes)
+
+
 def grad_check(torch, name: str, op, plain, args: list, n_diff: int) -> float:
     """One backward through the kernel op ``op`` on the card against the
     plain version's own autograd, for a random weighting of every output:
@@ -423,9 +492,10 @@ def check_bit_equal(torch, name: str, got: dict, want: dict, dev) -> None:
 
 
 def serve_phase(torch, serve, configs, arch: str, kernels: dict, dev, seed: int,
-                overrides: dict | None = None, repo: str | None = None):
+                overrides: dict | None = None, repo: str | None = None, shape: dict = SERVE):
     """Serve at full width (with the config ``overrides``; from the newest
-    checkpoint in ``repo`` if given) with every kernel's count set to 0 just
+    checkpoint in ``repo`` if given) at ``shape`` (batch, prompt_len, gen)
+    with every kernel's count set to 0 just
     before and read just after. ``kernels`` maps a mixer kind to the wrapper
     of its kernel; fails unless each launched once per layer of its kind per
     prefill (an encoder's layers are attention layers), and none launched for
@@ -435,7 +505,7 @@ def serve_phase(torch, serve, configs, arch: str, kernels: dict, dev, seed: int,
     for counter in kernels.values():
         counter.launches = 0
     res = serve.run(arch, full=True, device=dev, dtype="bfloat16", seed=seed,
-                    overrides=overrides, repo=repo, **SERVE)
+                    overrides=overrides, repo=repo, **shape)
     launches = {counter.__name__: counter.launches for counter in kernels.values()}
 
     def show(v):
@@ -444,7 +514,8 @@ def serve_phase(torch, serve, configs, arch: str, kernels: dict, dev, seed: int,
     cuts = "".join(f", {'experts' if k == 'moe' else k} {show(getattr(configs.get(arch), k))} -> {show(v)}"
                    for k, v in (overrides or {}).items())
     source = f" from checkpoint step {res.checkpoint_step}" if repo else ""
-    print(f"serve {arch}{cuts}{source} bf16 B=8 prompt=512 gen=32: prefill {res.prefill_ms:.2f} ms, "
+    print(f"serve {arch}{cuts}{source} bf16 B={shape['batch']} prompt={shape['prompt_len']} gen={shape['gen']}: "
+          f"prefill {res.prefill_ms:.2f} ms, "
           f"decode p50 {res.decode_p50_ms:.3f} ms p95 {res.decode_p95_ms:.3f} ms, "
           f"{res.tokens_per_s:.1f} tok/s, peak memory {res.peak_memory_bytes / 2**30:.3f} GiB, "
           f"launches over {res.prefills} prefills (warm-up included): {launches}")
@@ -456,8 +527,8 @@ def serve_phase(torch, serve, configs, arch: str, kernels: dict, dev, seed: int,
                  f"{per_prefill} per prefill ({mixer} layers)")
     if not any(launches.values()):
         fail(f"serving {arch} launched no kernel")
-    if res.tokens.shape != (SERVE["batch"], SERVE["gen"]):
-        fail(f"tokens of shape {tuple(res.tokens.shape)}, expected (8, 32)")
+    if res.tokens.shape != (shape["batch"], shape["gen"]):
+        fail(f"tokens of shape {tuple(res.tokens.shape)}, expected {(shape['batch'], shape['gen'])}")
     if not (0 <= int(res.tokens.min()) and int(res.tokens.max()) < cfg.vocab_size):
         fail("a generated token lies outside [0, vocab_size)")
     if not res.logits_finite:
@@ -503,6 +574,7 @@ def main() -> None:
     from repro_torch.data.tokens import SyntheticTokens
     from repro_torch.launch import serve
     from repro_torch.launch import train as launch_train
+    from repro_torch.models import moe
     from repro_torch.models import transformer as T
     from repro_torch.models.params import init_params, tree_paths
     from repro_torch.optim.adamw import AdamW
@@ -563,26 +635,39 @@ def main() -> None:
                grad_inputs((b, s, h, d), (b, s, kv, d), (b, s, kv, d)) + [True, None], 3)
 
     def time_flash(shape) -> dict:
-        """The kernel, its plain version and SDPA at a serving shape, bf16."""
+        """The kernel, its plain version and SDPA at a serving shape, bf16;
+        with a window, SDPA takes the window's boolean mask, and where the
+        window does not bind, SDPA is also timed causal without a mask
+        (``library_is_causal_ms``: the same function, on SDPA's flash path)."""
         q, k, v = inputs(shape, torch.bfloat16)
-        causal = shape[6]
+        causal, window = shape[6], shape[7]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa = {"is_causal": causal}
+        if window is not None:
+            rows = torch.arange(shape[1], device=dev)[:, None]
+            cols = torch.arange(shape[2], device=dev)[None, :]
+            sdpa = {"attn_mask": (cols <= rows) & (cols > rows - window)}
         bound_ms, bound_by = attention_bound_ms(shape, "bfloat16", 2)
         out = {
             "max_abs_err": flash_err[shape],
-            "ms": time_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=causal)),
-            "host_paced_ms": time_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=causal),
+            "ms": time_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=causal, window=window)),
+            "host_paced_ms": time_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=causal, window=window),
                                      queue_ahead=False),
-            "plain_ms": time_ms(torch, lambda: ref.attention_ref(q, k, v, causal)),
+            "plain_ms": time_ms(torch, lambda: ref.attention_ref(q, k, v, causal, window)),
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True)),
+                qt, kt, vt, enable_gqa=True, **sdpa)),
         }
-        walk = "causal" if causal else "non-causal"
+        if window is not None and shape[1] <= window:
+            out["library_is_causal_ms"] = time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))
+        walk = ("causal" if causal else "non-causal") + (f", window {window}" if window else "")
         print(f"flash_attention_fwd at {shape} bf16 ({walk}): kernel {out['ms']:.4f} ms "
               f"({out['host_paced_ms']:.4f} ms a call as fast as the host issues them), plain "
-              f"{out['plain_ms']:.4f} ms, SDPA {out['library_ms']:.4f} ms, "
+              f"{out['plain_ms']:.4f} ms, SDPA {out['library_ms']:.4f} ms"
+              + (f" (causal without the mask {out['library_is_causal_ms']:.4f} ms)" if window and shape[1] <= window
+                 else "") + ", "
               f"bound {bound_ms:.4f} ms ({bound_by}); kernel / SDPA "
               f"{out['ms'] / out['library_ms']:.2f}, bound / kernel {bound_ms / out['ms']:.3f}; ptxas "
               + "; ".join(r for r in ptxas["flash_attention"] if r.startswith(f"bf16 wgmma Dh={shape[5]}:")))
@@ -590,6 +675,8 @@ def main() -> None:
 
     flash_qwen3, flash_jamba = time_flash(SERVE_SHAPE), time_flash(JAMBA_ATTN_SHAPE)
     flash_new = {key: time_flash(shape) for key, shape in NEW_SERVE_SHAPES.items()}
+    gc.collect()
+    torch.cuda.empty_cache()  # the long shape's plain version held ~40 GB
     print(f"kernel flash phase {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------ 4. kernel rwkv6
@@ -1089,7 +1176,93 @@ def main() -> None:
     bf16_check(torch, make_prefill_step, f"qwen2-vl {cfg32.n_layers} layers", cfg32, cache_len, params, batch,
                l_off, {flash_attention_fwd: cfg32.n_layers})
     del params, batch
-    print(f"parity qwen2-vl phase {time.perf_counter() - t0:.1f} s; all phases {time.perf_counter() - t_all:.1f} s")
+    print(f"parity qwen2-vl phase {time.perf_counter() - t0:.1f} s")
+
+    # --------------------------------------------------- 19. serve mixtral
+    t0 = phase("serve mixtral")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, mixtral_res, mixtral_launches = serve_phase(
+        torch, serve, configs, MIXTRAL, all_kernels, dev, args.seed, overrides=MIXTRAL_CUTS)
+    print(f"serve mixtral phase {time.perf_counter() - t0:.1f} s")
+
+    # ---------------------------------------------- 20. serve mixtral long
+    t0 = phase("serve mixtral long")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, long_res, long_launches = serve_phase(
+        torch, serve, configs, MIXTRAL, all_kernels, dev, args.seed, overrides=MIXTRAL_CUTS, shape=LONG_SERVE)
+    ring = min(LONG_SERVE["prompt_len"] + LONG_SERVE["gen"], cfg.sliding_window)
+    print(f"  the KV cache holds {ring} slots a layer for {LONG_SERVE['prompt_len']} + {LONG_SERVE['gen']} "
+          f"positions: the ring wrapped in prefill and in decode")
+    print(f"serve mixtral long phase {time.perf_counter() - t0:.1f} s")
+
+    # --------------------------------------------------- 21. parity mixtral
+    t0 = phase("parity mixtral")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg32 = cfg.replace(use_pallas="off", n_layers=MIXTRAL_PARITY_LAYERS)
+    on32 = cfg32.replace(use_pallas="on")
+    params = init_params(T.param_defs(cfg32), seed=args.seed, dtype=torch.float32, device=dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 512), generator=gen, device=dev)}
+
+    def mixtral_prefill(c, weights, pinned=None):
+        """(caches, last logits, routes) of one prefill; fails unless the
+        kernel launched once per layer with use_pallas 'on', else never."""
+        flash_attention_fwd.launches = 0
+        with routing(torch, moe, pinned) as routes:
+            caches, logits = make_prefill_step(c, cache_len)(weights, batch)
+        torch.cuda.synchronize()
+        want = c.n_layers if c.use_pallas == "on" else 0
+        if flash_attention_fwd.launches != want:
+            fail(f"mixtral prefill with use_pallas={c.use_pallas} launched flash_attention_fwd "
+                 f"{flash_attention_fwd.launches} times, expected {want}")
+        if not bool(torch.isfinite(logits).all()):
+            fail(f"mixtral prefill with use_pallas={c.use_pallas} gave logits that are not finite")
+        return caches, logits, routes
+
+    c_off, l_off, r_off = mixtral_prefill(cfg32, params)
+    _, l_free, r_on = mixtral_prefill(on32, params)
+    c_on, l_on, _ = mixtral_prefill(on32, params, pinned=r_off)
+    flips32 = flip_share(r_on, r_off)
+    logit_err = (l_on - l_off).abs().max().item()
+    cache_err = {n: (c_on["p0"][n] - c_off["p0"][n]).abs().max().item() for n in ("k", "v")}
+    print(f"parity mixtral fp32 {cfg32.n_layers} of {cfg.n_layers} layers B=2 prompt=512: free-running kernel on "
+          f"vs off routes {flips32:.4%} of (token, slot) choices otherwise (bar {MAX_FP32_FLIPS:.0%}), last logits "
+          f"max_abs_err {(l_free - l_off).abs().max().item():.3g}; routed as kernel-off: last logits max_abs_err "
+          f"{logit_err:.3g}, k {cache_err['k']:.3g}, v {cache_err['v']:.3g} (tol {PARITY_TOL}); peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+    if not flips32 <= MAX_FP32_FLIPS:
+        fail(f"the fp32 kernel-on mixtral prefill routes {flips32:.2%} of its choices otherwise than kernel-off")
+    if not torch.allclose(l_on, l_off, rtol=PARITY_TOL, atol=PARITY_TOL):
+        fail("kernel-on mixtral prefill logits disagree with kernel-off under the same routing")
+    for n in ("k", "v"):
+        if not torch.allclose(c_on["p0"][n], c_off["p0"][n], rtol=PARITY_TOL, atol=PARITY_TOL):
+            fail(f"kernel-on mixtral prefill {n} disagrees with kernel-off")
+    del c_off, c_on
+
+    params16 = cast_tree(params, torch.bfloat16)
+    del params
+    _, l16_off_free, r16_off = mixtral_prefill(cfg32, params16)
+    _, l16_on_free, r16_on = mixtral_prefill(on32, params16)
+    _, l16_off, _ = mixtral_prefill(cfg32, params16, pinned=r_off)
+    _, l16_on, _ = mixtral_prefill(on32, params16, pinned=r_off)
+    flips_bf16, flips_kernel16 = flip_share(r16_off, r_off), flip_share(r16_on, r16_off)
+    err_kernel = (l16_on.float() - l16_off.float()).abs().max().item()
+    err_bf16 = (l16_off.float() - l_off.float()).abs().max().item()
+    print(f"parity mixtral bf16 {cfg32.n_layers} layers B=2 prompt=512: free-running, bf16 off vs fp32 off routes "
+          f"{flips_bf16:.4%} of the choices otherwise and bf16 on vs off {flips_kernel16:.4%} (bar: twice the "
+          f"former), last logits on vs off max_abs_err "
+          f"{(l16_on_free.float() - l16_off_free.float()).abs().max().item():.4g}; routed as fp32 kernel-off: last "
+          f"logits kernel on vs off max_abs_err {err_kernel:.4g}, bf16 off vs fp32 off {err_bf16:.4g} (bar: twice "
+          f"that, {2 * err_bf16:.4g}; ratio {err_kernel / err_bf16:.3f})")
+    if not flips_kernel16 <= 2 * flips_bf16:
+        fail("the bf16 kernel-on mixtral prefill reroutes more than twice the choices bf16 itself does")
+    if not err_kernel <= 2 * err_bf16:
+        fail("bf16 kernel-on mixtral prefill logits differ from kernel-off by more than twice bf16's own error")
+    del params16
+    print(f"parity mixtral phase {time.perf_counter() - t0:.1f} s; all phases {time.perf_counter() - t_all:.1f} s")
 
     runs = {"qwen3_0_6b": (qwen_launches, qwen_res.prefills, "prefill"),
             "rwkv6_1_6b": (rwkv_launches, rwkv_res.prefills, "prefill"),
@@ -1097,7 +1270,9 @@ def main() -> None:
             "qwen3_0_6b from checkpoint": (ckpt_launches, ckpt_res.prefills, "prefill"),
             "qwen3_0_6b train": (train_launches, steps, "step"),
             SEAMLESS: (seamless_launches, seamless_res.prefills, "prefill"),
-            QWEN2_VL: (qwen2vl_launches, qwen2vl_res.prefills, "prefill")}
+            QWEN2_VL: (qwen2vl_launches, qwen2vl_res.prefills, "prefill"),
+            MIXTRAL: (mixtral_launches, mixtral_res.prefills, "prefill"),
+            f"{MIXTRAL} long": (long_launches, long_res.prefills, "prefill")}
 
     def launch_counts(name: str) -> dict:
         """The kernel's launches over the main-path runs, by path, and per

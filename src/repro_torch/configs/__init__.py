@@ -13,12 +13,11 @@ from .base import LayerKind, MambaConfig, ModelConfig, MoEConfig
 
 ARCH_IDS = ["qwen3_0_6b", "rwkv6_1_6b", "jamba_1_5_large_398b",
             "internlm2_20b", "phi3_mini_3_8b", "granite_3_2b",
-            "seamless_m4t_large_v2", "qwen2_vl_7b"]
+            "seamless_m4t_large_v2", "qwen2_vl_7b", "mixtral_8x22b"]
 
 # Architectures of the JAX package that the port does not run yet, with the
 # ROADMAP.md §A item that brings each one.
 NOT_PORTED = {
-    "mixtral_8x22b": "item 6 (MoE)",
     "arctic_480b": "item 6 (MoE)",
 }
 

@@ -6,11 +6,15 @@ the device's busy and idle share of each window.
         [--arch rwkv6_1_6b] [--batch 8 --prompt-len 512 --steps 8]
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --full \\
         --arch jamba_1_5_large_398b --n-layers 16 --no-moe
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --full \\
+        --arch mixtral_8x22b --n-layers 8 [--batch 1 --prompt-len 8192]
 
 Needs a CUDA device. Busy time is the sum of the device-side events' time
 (kernels, copies and fills on one stream, so they do not overlap); idle
 share is 1 - busy / wall, with wall taken on the host clock around the
-window, which ends in a synchronize.
+window, which ends in a synchronize. Busy time is also split by kind of
+kernel (``profile_train.by_kind``) and, for MoE layers, by the ranges of
+``models.moe.RANGES``: the device time of the kernels each range launched.
 """
 from __future__ import annotations
 
@@ -23,6 +27,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .. import configs
+from ..models.moe import RANGES
+from .profile_train import by_kind
 from .serve import DTYPES, add_override_args, overrides_from_args, run
 
 
@@ -34,13 +40,19 @@ def _window(name: str, top: int):
         yield
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side rows only: an aten op's row also carries its kernels' time
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    averages = prof.key_averages()
+    # device-side rows only (an aten op's row also carries its kernels' time), less the
+    # ranges' own device spans, which cover kernels counted already
+    rows = [e for e in averages if e.device_type == DeviceType.CUDA and e.key not in RANGES]
     if not rows:
         raise RuntimeError(f"{name}: the profiler recorded no device time")
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    kinds = by_kind(rows)
+    ranges = [e for e in averages if e.key in RANGES and e.device_type == DeviceType.CPU]
     print(f"{name}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
-          f"idle share {1 - busy_ms / wall_ms:.3f}, {sum(e.count for e in rows)} device ops")
+          f"idle share {1 - busy_ms / wall_ms:.3f}, {sum(e.count for e in rows)} device ops; by kind: "
+          + ", ".join(f"{k} {v:.3f} ms ({v / busy_ms:.1%})" for k, v in kinds.items())
+          + "".join(f"; {e.key} {e.device_time_total / 1e3:.3f} ms over {e.count} calls" for e in ranges))
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:100]}")
 

@@ -39,6 +39,16 @@ KINDS = [("flash kernel", ("flash_fwd",)),
          ("bf16 GEMM", ("gemm", "nvjet", "cutlass", "xmma", "splitkreduce"))]
 
 
+def by_kind(rows) -> dict[str, float]:
+    """Device ms of the profiler's device-side ``rows`` by kind of kernel."""
+    kinds = {name: 0.0 for name, _ in KINDS} | {"elementwise and other": 0.0}
+    for e in rows:
+        key = e.key.lower()
+        kind = next((name for name, frags in KINDS if any(f in key for f in frags)), "elementwise and other")
+        kinds[kind] += e.self_device_time_total / 1e3
+    return kinds
+
+
 def _timed(dev, fn) -> tuple[float, object]:
     """(ms of ``fn()`` on the host clock, ending in a synchronise; its result)."""
     torch.cuda.synchronize(dev)
@@ -104,11 +114,7 @@ def main(argv: list[str] | None = None) -> dict:
     if not rows:
         raise RuntimeError("the profiler recorded no device time")
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    kinds = {name: 0.0 for name, _ in KINDS} | {"elementwise and other": 0.0}
-    for e in rows:
-        key = e.key.lower()
-        kind = next((name for name, frags in KINDS if any(f in key for f in frags)), "elementwise and other")
-        kinds[kind] += e.self_device_time_total / 1e3
+    kinds = by_kind(rows)
     ref_bwd = [e for e in averages if e.key == BACKWARD_RANGE and e.device_type == DeviceType.CPU]
     ref_bwd_ms = ref_bwd[0].device_time_total / 1e3 if ref_bwd else float("nan")
     print(f"profiled step: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "

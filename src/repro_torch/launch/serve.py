@@ -3,7 +3,7 @@
 of a checkpoint commit in a repository.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
-        --arch {qwen3_0_6b,rwkv6_1_6b,jamba_1_5_large_398b,seamless_m4t_large_v2,qwen2_vl_7b,...} \\
+        --arch {qwen3_0_6b,rwkv6_1_6b,jamba_1_5_large_398b,seamless_m4t_large_v2,qwen2_vl_7b,mixtral_8x22b,...} \\
         --batch 8 --prompt-len 64 --gen 32 [--full] [--device cuda] [--dtype bfloat16] \\
         [--n-layers N] [--no-moe] [--repo PATH [--commit OID]]
 
@@ -12,14 +12,17 @@ Runs on CUDA unless ``--device cpu`` is given. ``--n-layers`` and
 with ``cfg.replace`` after the lookup, as ``repro.launch.dryrun`` does):
 jamba-1.5-large fits one H100 only without its experts and cut in depth,
 ``--arch jamba_1_5_large_398b --full --n-layers 16 --no-moe`` (2 of its 9
-8-layer repeats, every layer a dense SwiGLU; MoE is not ported yet).
+8-layer repeats, every layer a dense SwiGLU; experts beside Mamba layers are
+not ported yet), and mixtral-8x22b only cut in depth, ``--arch mixtral_8x22b
+--full --n-layers 8`` (8 of 56 layers, 38.1 GiB of bf16 weights).
 
 The prompts are random tokens; models with a stub frontend also get its
 inputs from the same seeded generator (``prompt_batch``): seamless-m4t's
 encoder frames, qwen2-vl's vision embeddings and M-RoPE positions.
 
 The decode state is a KV cache of ``prompt_len + gen`` positions for
-attention layers (and an encoder-decoder's projected encoder memory), a
+attention layers (a ring of at most ``sliding_window`` slots with a window;
+and an encoder-decoder's projected encoder memory), a
 fixed [B, H, Dh, Dh] state with two token-shift carries for RWKV6 layers,
 and a fixed [B, Di, St] state with a [B, K-1, Di] conv tail for Mamba
 layers; the last two take no cache length. One prefill and one

@@ -66,7 +66,9 @@ def _init_one(path: str, d: ParamDef, seed: int, dtype: torch.dtype,
     fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
     scale = d.scale if d.scale is not None else fan_in**-0.5
     x = torch.randn(d.shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * scale).to(dtype)
+    # scaled in place: the same bits as (x * scale), with one fp32 copy of the
+    # leaf live instead of two (mixtral's stacked expert leaves are 24 GiB each)
+    return x.mul_(scale).to(dtype)
 
 
 def init_params(defs: dict, seed: int, dtype: torch.dtype = torch.bfloat16,

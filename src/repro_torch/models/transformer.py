@@ -1,13 +1,19 @@
-"""The dense attention, RWKV6, Mamba/attention hybrid, encoder-decoder and
-M-RoPE stacks of ``repro.models.transformer``, in PyTorch.
+"""The dense attention, MoE, RWKV6, Mamba/attention hybrid, encoder-decoder
+and M-RoPE stacks of ``repro.models.transformer``, in PyTorch.
 
-Layers of ``LayerKind("attn", moe=False)`` (dense GQA, optional qk-norm,
-RoPE or M-RoPE, SwiGLU, tied or separate LM head), ``LayerKind("rwkv6")``
-(time mix with token shift, LoRA decay and the WKV recurrence, then channel
-mix) and ``LayerKind("mamba", moe=False)`` (the Mamba mixer, then SwiGLU), in
-the pattern the config gives: a hybrid puts attention at ``attn_offset`` of
-every ``attn_period`` layers and Mamba elsewhere. MoE layers are not ported
-yet.
+Layers of ``LayerKind("attn")`` (dense GQA, optional qk-norm, RoPE or
+M-RoPE, optional sliding window, then SwiGLU or, with ``moe=True``, the
+top-k expert FFN of ``models/moe.py``; tied or separate LM head),
+``LayerKind("rwkv6")`` (time mix with token shift, LoRA decay and the WKV
+recurrence, then channel mix) and ``LayerKind("mamba", moe=False)`` (the
+Mamba mixer, then SwiGLU), in the pattern the config gives: a hybrid puts
+attention at ``attn_offset`` of every ``attn_period`` layers and Mamba
+elsewhere. Two MoE variants are not ported yet (``check_supported``):
+arctic's dense residual FFN and experts beside Mamba mixers (jamba).
+
+A sliding-window model (``cfg.sliding_window``) keeps a ring KV cache of
+``min(cache_len, window)`` slots: token s lives in slot s % L, so prefill
+writes the prompt's last L tokens there and decode overwrites the oldest.
 
 Encoder-decoder configs (``cfg.enc_dec``) run a stack of ``n_enc_layers``
 non-causal attention layers over ``batch["encoder_embeds"]`` [B, S_enc, D]
@@ -23,7 +29,8 @@ Weights keep the reference layout: ``[in, out]`` matrices applied as
 ``x @ W``, stacked along a leading ``n_repeats`` axis per pattern position,
 under the same nested keys; the stack runs as a Python loop over the repeats.
 
-Three entry points: ``forward_train`` (full causal sequence; differentiable),
+Three entry points: ``forward_train`` (full causal sequence; differentiable;
+returns the MoE layers' aux loss summed over the layers, 0 without MoE),
 ``prefill`` (returns the decode state and the last position's logits) and
 ``decode_step`` (one token against the state). Decode state per pattern
 position, stacked along a leading ``n_repeats`` axis:
@@ -73,15 +80,19 @@ from ..kernels.ops import flash_attention, mamba_scan, rwkv6
 from . import ssm
 from .attention import attention, cache_insert, decode_attention
 from .layers import apply_mrope, apply_rope, rmsnorm, swiglu
+from .moe import moe_ffn
 from .params import ParamDef
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the parts of ``cfg`` the port does not run yet, naming the
     ROADMAP.md §A item that brings them."""
-    for kind in cfg.pattern:
-        if kind.moe:
-            raise NotImplementedError("MoE feed-forward layers: ROADMAP.md §A item 6")
+    if not any(kind.moe for kind in cfg.pattern):
+        return
+    if cfg.moe.dense_residual:
+        raise NotImplementedError("MoE with a dense residual FFN (arctic): ROADMAP.md §A item 6")
+    if any(kind.mixer == "mamba" for kind in cfg.pattern):
+        raise NotImplementedError("MoE beside Mamba mixers (jamba with experts): ROADMAP.md §A item 6")
 
 
 def _use_kernels(cfg: ModelConfig, x: torch.Tensor) -> bool:
@@ -151,6 +162,16 @@ def _mamba_defs(cfg: ModelConfig) -> dict:
     }
 
 
+def _moe_defs(cfg: ModelConfig) -> dict:
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    return {
+        "router": ParamDef((D, E)),
+        "e_w1": ParamDef((E, D, F)),
+        "e_w3": ParamDef((E, D, F)),
+        "e_w2": ParamDef((E, F, D)),
+    }
+
+
 def _block_defs(cfg: ModelConfig, kind: LayerKind, cross_attn: bool = False) -> dict:
     D, F = cfg.d_model, cfg.d_ff
     if kind.mixer == "rwkv6":  # time mix + channel mix, no swiglu
@@ -158,12 +179,14 @@ def _block_defs(cfg: ModelConfig, kind: LayerKind, cross_attn: bool = False) -> 
                 "ln2": ParamDef((D,), "ones")}
     mixer = {"mamba": _mamba_defs(cfg)} if kind.mixer == "mamba" else {"attn": _attn_defs(cfg)}
     xattn = {"ln_x": ParamDef((D,), "ones"), "xattn": _attn_defs(cfg)} if cross_attn else {}
+    ffn = {"moe": _moe_defs(cfg)} if kind.moe else {
+        "ffn": {"w1": ParamDef((D, F)), "w3": ParamDef((D, F)), "w2": ParamDef((F, D))}}
     return {
         "ln1": ParamDef((D,), "ones"),
         **mixer,
         **xattn,
         "ln2": ParamDef((D,), "ones"),
-        "ffn": {"w1": ParamDef((D, F)), "w3": ParamDef((D, F)), "w2": ParamDef((F, D))},
+        **ffn,
     }
 
 
@@ -393,9 +416,10 @@ def _mamba_mixer(cfg: ModelConfig, p: dict, x: torch.Tensor, ctx: Ctx, cache):
 
 
 def apply_block(cfg: ModelConfig, kind: LayerKind, p: dict, x: torch.Tensor, ctx: Ctx, cache):
-    """One pattern-position layer. Returns (x, new_cache)."""
+    """One pattern-position layer. Returns (x, new_cache, aux): aux is an MoE
+    layer's load-balancing loss (fp32 scalar), None for any other layer."""
     if kind.mixer == "rwkv6":
-        return _rwkv_block(cfg, p, x, ctx, cache)
+        return (*_rwkv_block(cfg, p, x, ctx, cache), None)
     mixer = _mamba_mixer if kind.mixer == "mamba" else _self_attention
     mix, new_cache = mixer(cfg, p, x, ctx, cache)
     x = x + mix
@@ -404,8 +428,12 @@ def apply_block(cfg: ModelConfig, kind: LayerKind, p: dict, x: torch.Tensor, ctx
         x = x + xmix
         new_cache = {**new_cache, **xcache}
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    if kind.moe:
+        pm = p["moe"]
+        out, aux = moe_ffn(h, pm["router"], pm["e_w1"], pm["e_w3"], pm["e_w2"], cfg.moe)
+        return x + out, new_cache, aux
     f = p["ffn"]
-    return x + swiglu(h, f["w1"], f["w3"], f["w2"]), new_cache
+    return x + swiglu(h, f["w1"], f["w3"], f["w2"]), new_cache, None
 
 
 # ================================================================ stacks
@@ -424,36 +452,43 @@ def _repeats(tree: dict, n: int) -> list[dict]:
     return out
 
 
-def _train_repeat(cfg: ModelConfig, pattern, layer: dict, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
-    """One repeat of the pattern in train mode."""
+def _train_repeat(cfg: ModelConfig, pattern, layer: dict, x: torch.Tensor, aux, ctx: Ctx):
+    """One repeat of the pattern in train mode. Returns (x, aux): the MoE
+    layers' aux losses added to ``aux`` in layer order (None while no MoE
+    layer has run)."""
     for i, kind in enumerate(pattern):
-        x, _ = apply_block(cfg, kind, layer[f"p{i}"], x, ctx, None)
-    return x
+        x, _, a = apply_block(cfg, kind, layer[f"p{i}"], x, ctx, None)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
 
 
 def _run_blocks(cfg: ModelConfig, blocks: dict, x: torch.Tensor, ctx: Ctx, caches=None,
                 pattern=None, n_repeats: int | None = None):
     """Loop over the stacked repeats of ``pattern`` (default: the config's
     decoder pattern and repeats; the encoder passes its own). Returns (x,
-    caches): in decode the given caches, updated in place (the KV caches by
-    ``cache_insert``, the RWKV and Mamba states, carries and conv tails by
-    copying each layer's new values in); in prefill new caches stacked along
-    the repeat axis; in train None."""
+    caches, aux). caches: in decode the given caches, updated in place (the
+    KV caches by ``cache_insert``, the RWKV and Mamba states, carries and conv
+    tails by copying each layer's new values in); in prefill new caches
+    stacked along the repeat axis; in train None. aux: in train the MoE
+    layers' aux losses summed over the layers (None without MoE layers); in
+    prefill and decode None."""
     pattern = cfg.pattern if pattern is None else pattern
     n_repeats = cfg.n_repeats if n_repeats is None else n_repeats
     if ctx.mode == "train":
         remat = cfg.remat and torch.is_grad_enabled()
+        aux = None
         for layer in _repeats(blocks, n_repeats):
             if remat:
-                x = checkpoint(_train_repeat, cfg, pattern, layer, x, ctx, use_reentrant=False)
+                x, aux = checkpoint(_train_repeat, cfg, pattern, layer, x, aux, ctx, use_reentrant=False)
             else:
-                x = _train_repeat(cfg, pattern, layer, x, ctx)
-        return x, None
+                x, aux = _train_repeat(cfg, pattern, layer, x, aux, ctx)
+        return x, None, aux
     new = {f"p{i}": [] for i in range(len(pattern))}
     for rep in range(n_repeats):
         for kind, (key, layers) in zip(pattern, new.items()):
             c_in = _at(caches[key], rep) if caches is not None else None
-            x, nc = apply_block(cfg, kind, _at(blocks[key], rep), x, ctx, c_in)
+            x, nc, _ = apply_block(cfg, kind, _at(blocks[key], rep), x, ctx, c_in)
             if ctx.mode == "decode":
                 for name, t in nc.items():
                     if t is not c_in[name]:
@@ -461,9 +496,9 @@ def _run_blocks(cfg: ModelConfig, blocks: dict, x: torch.Tensor, ctx: Ctx, cache
             else:
                 layers.append(nc)
     if ctx.mode == "decode":
-        return x, caches
+        return x, caches, None
     return x, {key: {n: torch.stack([c[n] for c in cs]) for n in cs[0]}
-               for key, cs in new.items()}
+               for key, cs in new.items()}, None
 
 
 def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -485,8 +520,8 @@ def _encode(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     embeddings ``batch["encoder_embeds"]`` cast to the parameters' dtype;
     returns the normed memory [B, S_enc, D]."""
     enc_x = batch["encoder_embeds"].to(params["enc_final_norm"].dtype)
-    enc_x, _ = _run_blocks(cfg, params["enc_blocks"], enc_x, Ctx(mode="train", causal=False),
-                           pattern=(ENC_KIND,), n_repeats=cfg.n_enc_layers)
+    enc_x, _, _ = _run_blocks(cfg, params["enc_blocks"], enc_x, Ctx(mode="train", causal=False),
+                              pattern=(ENC_KIND,), n_repeats=cfg.n_enc_layers)
     return rmsnorm(enc_x, params["enc_final_norm"], cfg.norm_eps)
 
 
@@ -505,8 +540,9 @@ def _positions(batch: dict, B: int, S: int, device) -> torch.Tensor:
 
 # ================================================================ entry points
 def forward_train(cfg: ModelConfig, params: dict, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence causal forward. Returns (logits [B,S,Vp], aux_loss);
-    the aux loss is 0 (it comes from MoE routing, not ported yet)."""
+    """Full-sequence causal forward. Returns (logits [B,S,Vp], aux_loss): the
+    MoE layers' load-balancing losses summed over the layers, fp32; 0 for a
+    model without MoE layers."""
     check_supported(cfg)
     x = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
@@ -514,8 +550,10 @@ def forward_train(cfg: ModelConfig, params: dict, batch: dict) -> tuple[torch.Te
               positions3=batch.get("positions3"))
     if cfg.enc_dec:
         ctx.enc_memory = _encode(cfg, params, batch)
-    x, _ = _run_blocks(cfg, params["blocks"], x, ctx)
-    return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+    x, _, aux = _run_blocks(cfg, params["blocks"], x, ctx)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(cfg, params, x), aux
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int):
@@ -528,7 +566,7 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int):
               positions3=batch.get("positions3"), cache_len=eff_cache)
     if cfg.enc_dec:
         ctx.enc_memory = _encode(cfg, params, batch)
-    x, caches = _run_blocks(cfg, params["blocks"], x, ctx)
+    x, caches, _ = _run_blocks(cfg, params["blocks"], x, ctx)
     return caches, _logits(cfg, params, x[:, -1:, :])[:, 0]
 
 
@@ -537,5 +575,5 @@ def decode_step(cfg: ModelConfig, params: dict, caches: dict, token: torch.Tenso
     Returns (logits [B,Vp], caches) — the caches are updated in place."""
     check_supported(cfg)
     x = _embed(params, token)
-    x, caches = _run_blocks(cfg, params["blocks"], x, Ctx(mode="decode", pos=int(pos)), caches)
+    x, caches, _ = _run_blocks(cfg, params["blocks"], x, Ctx(mode="decode", pos=int(pos)), caches)
     return _logits(cfg, params, x)[:, 0], caches

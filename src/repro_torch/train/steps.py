@@ -1,8 +1,8 @@
 """Training, prefill and decode step functions (port of ``repro.train.steps``).
 
 ``make_train_step`` is the next-token objective with the vocabulary's pad
-columns masked, the MoE auxiliary loss (0 for the dense configs the port
-runs), optional microbatch accumulation, optional int8 error-feedback
+columns masked, plus the MoE layers' load-balancing loss weighted by
+``cfg.moe.router_aux_weight`` (0 for a model without MoE layers), optional microbatch accumulation, optional int8 error-feedback
 compression of the gradients, clipping and the AdamW update, which writes
 the parameters in place. The serving steps run under
 ``torch.inference_mode()``. Every step hands the whole batch to the model:

@@ -23,6 +23,8 @@ from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E40
 from repro_torch.kernels.mamba import mamba_scan_fwd  # noqa: E402
 from repro_torch.kernels.rwkv6 import rwkv6_fwd  # noqa: E402
 from repro_torch.launch.serve import prompt_batch  # noqa: E402
+from repro_torch.configs.base import MoEConfig  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.params import init_params  # noqa: E402
 from repro_torch.core.repo import Repository  # noqa: E402
@@ -49,6 +51,8 @@ SHAPES = [
     (8, 128, 128, 16, 16, 64, False, None),  # seamless-m4t's encoder: non-causal, two 64-key tiles
     (8, 512, 512, 16, 16, 64, True, None),  # seamless-m4t's decoder
     (8, 512, 512, 28, 4, 128, True, None),  # qwen2-vl-7b: GQA group 7
+    (8, 512, 512, 48, 8, 128, True, 4096),  # mixtral-8x22b: GQA group 6, the window does not bind
+    (1, 8192, 8192, 48, 8, 128, True, 4096),  # mixtral-8x22b's long prompt: the window binds
 ]
 
 
@@ -155,6 +159,60 @@ def test_smoke_encdec_and_vlm_prefill_kernel_on_matches_off(cuda, arch):
     assert set(c_on["p0"]) == set(c_off["p0"]) == ({"k", "v", "xk", "xv"} if cfg.enc_dec else {"k", "v"})
     for name in c_off["p0"]:
         torch.testing.assert_close(c_on["p0"][name], c_off["p0"][name], rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prompt", [64, 40])
+def test_smoke_mixtral_prefill_kernel_on_matches_off(cuda, prompt):
+    """fp32 smoke mixtral prefill with the windowed kernel against the plain
+    path, on the card: the same experts chosen in every layer, then the last
+    logits and the ring caches (8 slots) at the 2e-3 bar."""
+    cfg = configs.get_smoke("mixtral_8x22b").replace(use_pallas="off")
+    params = init_params(T.param_defs(cfg), seed=0, dtype=torch.float32, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, prompt))).to(cuda)
+    routes = {}
+    original = moe.router_topk
+
+    def recording(name):
+        def router_topk(*args):
+            out = original(*args)
+            routes.setdefault(name, []).append(out[1])
+            return out
+        return router_topk
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(moe, "router_topk", recording("off"))
+        c_off, l_off = make_prefill_step(cfg, prompt + 8)(params, {"tokens": tokens})
+        before = flash_attention_fwd.launches
+        mp.setattr(moe, "router_topk", recording("on"))
+        c_on, l_on = make_prefill_step(cfg.replace(use_pallas="auto"), prompt + 8)(params, {"tokens": tokens})
+    assert flash_attention_fwd.launches == before + cfg.n_layers
+    assert len(routes["on"]) == len(routes["off"]) == cfg.n_layers
+    assert all(torch.equal(a, b) for a, b in zip(routes["on"], routes["off"]))
+    torch.testing.assert_close(l_on, l_off, rtol=2e-3, atol=2e-3)
+    for name in ("k", "v"):
+        assert c_on["p0"][name].shape[2] == cfg.sliding_window
+        torch.testing.assert_close(c_on["p0"][name], c_off["p0"][name], rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.5])
+def test_moe_ffn_on_the_card_matches_the_cpu(cuda, capacity_factor):
+    """fp32 ``moe_ffn`` on the card against the CPU, with and without
+    dropped choices: equal expert indices, then gates, output and aux
+    within 1e-5."""
+    rng = np.random.default_rng(3)
+    b, s, d, f, e = 2, 64, 128, 256, 8
+    arrays = [rng.normal(0, 1, (b, s, d)), rng.normal(0, d**-0.5, (d, e)), rng.normal(0, d**-0.5, (e, d, f)),
+              rng.normal(0, d**-0.5, (e, d, f)), rng.normal(0, f**-0.5, (e, f, d))]
+    cpu = [torch.from_numpy(a.astype(np.float32)) for a in arrays]
+    cfg = MoEConfig(n_experts=e, top_k=2, capacity_factor=capacity_factor)
+    want_route, got_route = moe.router_topk(*cpu[:2], cfg), moe.router_topk(*(t.to(cuda) for t in cpu[:2]), cfg)
+    assert torch.equal(got_route[1].cpu(), want_route[1])
+    torch.testing.assert_close(got_route[0].cpu(), want_route[0], rtol=1e-5, atol=1e-5)
+    (want, want_aux), (got, got_aux) = moe.moe_ffn(*cpu, cfg), moe.moe_ffn(*(t.to(cuda) for t in cpu), cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got_aux.cpu(), want_aux, rtol=1e-5, atol=1e-5)
 
 
 # tests/test_kernels.py:94-95 (b, s, h, dh), then ragged lengths (started from

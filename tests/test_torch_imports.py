@@ -56,19 +56,30 @@ def test_config_is_a_copy_of_the_reference(which):
 
 def test_registry_names_the_roadmap_item_for_unported_archs():
     with pytest.raises(NotImplementedError, match=r"ROADMAP.md §A item 6"):
-        configs.get("mixtral_8x22b")
+        configs.get("arctic_480b")
     with pytest.raises(KeyError):
         configs.get_smoke("no_such_arch")
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(attn_period=2, attn_offset=1, moe=MoEConfig(n_experts=4)), "item 6"),
-    (dict(moe=MoEConfig(n_experts=4)), "item 6"),
+    (dict(attn_period=2, attn_offset=1, moe=MoEConfig(n_experts=4)), "item 6"),  # experts beside Mamba
+    (dict(moe=MoEConfig(n_experts=4, dense_residual=True)), "item 6"),  # arctic's dense residual
 ])
 def test_unported_layers_raise(change, item):
     cfg = configs.get_smoke("qwen3_0_6b").replace(**change)
     with pytest.raises(NotImplementedError, match=item):
         T.param_defs(cfg)
+
+
+def test_moe_layers_build():
+    """ROADMAP.md §A item 6 is ported for plain top-k MoE: every layer's
+    SwiGLU becomes the router and three stacked expert leaves, under the
+    reference's names."""
+    cfg = configs.get_smoke("qwen3_0_6b").replace(moe=MoEConfig(n_experts=4))
+    block = T.param_defs(cfg)["blocks"]["p0"]
+    assert "ffn" not in block and list(block["moe"]) == ["router", "e_w1", "e_w3", "e_w2"]
+    D, F, E, n = cfg.d_model, cfg.d_ff, 4, cfg.n_repeats
+    assert [d.shape for d in block["moe"].values()] == [(n, D, E), (n, E, D, F), (n, E, D, F), (n, E, F, D)]
 
 
 @pytest.mark.parametrize("change,added", [
