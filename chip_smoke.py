@@ -11,14 +11,15 @@ Phases; any failure exits non-zero before the result lines are printed.
   3. kernel flash — holds the flash-attention kernel (bf16: wgmma and TMA;
                     fp32: CUDA cores) against its plain version at qwen3's,
                     jamba's, seamless-m4t's (encoder: non-causal, Sq=Sk=128;
-                    decoder), qwen2-vl's (GQA group 7) and mixtral's (GQA
+                    decoder), qwen2-vl's (GQA group 7), mixtral's (GQA
                     group 6, window 4096: B=8 x 512, where it does not bind,
-                    and B=1 x 8192, where it does) serving shapes, the six
+                    and B=1 x 8192, where it does) and arctic's (56/8 heads,
+                    GQA group 7) serving shapes, the six
                     shapes of the kernel tests, ragged lengths, Dh=64 at the
                     serving length and a strided q, fp32 and bf16; times the
                     kernel, the plain version and PyTorch's SDPA (with the
                     window's boolean mask where there is a window) at the
-                    seven serving shapes, bf16, and prints the kernel over
+                    eight serving shapes, bf16, and prints the kernel over
                     SDPA and the bound over the kernel beside the bf16
                     kernel's ptxas line.
   4. kernel rwkv6 — holds the RWKV6 WKV kernel (bf16: chunked form on the
@@ -118,6 +119,29 @@ Phases; any failure exits non-zero before the result lines are printed.
                     error against fp32; the free-running bf16 kernel-on run
                     may flip at most twice the choices that bf16 itself flips
                     against fp32.
+ 22. serve arctic — arctic-480b at full width (56/8 heads, 128 experts top-2,
+                    capacity factor 1.25, the dense residual SwiGLU), depth
+                    cut from 35 layers to 1 (28.1 GB of bf16 weights; at 2
+                    layers the init's fp32 draw of a stacked expert leaf
+                    would not fit), phase 5's shape; the flash kernel must
+                    launch once per prefill. Each decode step streams all 128
+                    experts' weights (capacity 1 a row at s=1).
+ 23. parity arctic — full-width fp32 prefill at the same 1 layer (56.3 GB of
+                    fp32 weights), B=2 x 512, kernel on against off by phase
+                    21's rule: the free-running share of rerouted choices,
+                    then logits and k/v routed as the kernel-off run; then
+                    bf16, the weights cast leaf by leaf in place (the fp32
+                    and bf16 trees would not fit side by side).
+ 24. serve jamba experts — jamba-1.5-large with its experts at full width, one
+                    8-layer repeat of 72 layers with 8 of its 16 experts (52.1
+                    GB of bf16 weights; 16 experts are 90.7 GB), phase 5's
+                    shape: 7 Mamba layers and 1 attention layer, the expert
+                    FFN on positions 1, 3, 5 and 7; the Mamba kernel must
+                    launch 7 times and the flash kernel once per prefill.
+ 25. parity jamba experts — full-width fp32 prefill of one repeat with 4 of 16
+                    experts (65.4 GB of fp32 weights), B=2 x 512, by phase
+                    21's rule, holding every Mamba layer's state and conv
+                    tail beside the logits and k/v; then bf16 as phase 23.
 Phases 3, 4 and 9 also run one backward through each kernel op
 (``ops.flash_attention``, ``ops.rwkv6``, ``ops.mamba_scan``) at a small fp32
 shape and hold its gradients against the plain version's autograd.
@@ -129,6 +153,7 @@ limit, and the final line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -164,11 +189,13 @@ SEAMLESS_DEC_SHAPE = (8, 512, 512, 16, 16, 64, True, None)  # seamless-m4t's dec
 QWEN2_VL_SHAPE = (8, 512, 512, 28, 4, 128, True, None)  # qwen2-vl-7b: GQA group 7
 MIXTRAL_SHAPE = (8, 512, 512, 48, 8, 128, True, 4096)  # mixtral-8x22b: GQA group 6, window 4096
 MIXTRAL_LONG_SHAPE = (1, 8192, 8192, 48, 8, 128, True, 4096)  # its long prompt: the window binds
+ARCTIC_SHAPE = (8, 512, 512, 56, 8, 128, True, None)  # arctic-480b: 56 heads, GQA group 7
 NEW_SERVE_SHAPES = {"at_seamless_encoder_shape": SEAMLESS_ENC_SHAPE,
                     "at_seamless_decoder_shape": SEAMLESS_DEC_SHAPE,
                     "at_qwen2_vl_shape": QWEN2_VL_SHAPE,
                     "at_mixtral_shape": MIXTRAL_SHAPE,
-                    "at_mixtral_long_shape": MIXTRAL_LONG_SHAPE}
+                    "at_mixtral_long_shape": MIXTRAL_LONG_SHAPE,
+                    "at_arctic_shape": ARCTIC_SHAPE}
 TEST_SHAPES = [
     (2, 128, 128, 4, 4, 64, True, None),
     (1, 256, 256, 8, 2, 64, True, None),
@@ -196,7 +223,7 @@ MAMBA_SERVE_SHAPE = (8, 512, 16384, 16)
 MAMBA_SHAPES = [MAMBA_SERVE_SHAPE, (2, 64, 64, 8), (1, 128, 256, 16), (2, 40, 96, 4), (1, 64, 200, 16)]
 SERVE = dict(batch=8, prompt_len=512, gen=32)
 JAMBA = "jamba_1_5_large_398b"
-JAMBA_CUTS = {"moe": None, "n_layers": 16}  # MoE is not ported; 16 of 72 layers fit the card
+JAMBA_CUTS = {"moe": None, "n_layers": 16}  # without experts, 16 of 72 layers fit the card
 GRAD_TOL = 1e-5  # fp32: the backward recomputes through the plain version
 CHUNKED_LEAF_BYTES = 64 << 20  # phase 13: one bf16 leaf
 CHUNK_THRESHOLD = 1 << 20
@@ -217,6 +244,11 @@ MIXTRAL_PARITY_LAYERS = 2  # phase 21: 21.6 GB of fp32 weights
 # so a choice flips only where two experts' probabilities lie that close; a faulty kernel
 # reroutes a large share.
 MAX_FP32_FLIPS = 0.01
+ARCTIC = "arctic_480b"
+ARCTIC_CUTS = {"n_layers": 1}  # 1 of 35 layers: 28.1 GB of bf16 weights, 56.3 GB in fp32 for phase 23
+JAMBA_MOE_LAYERS = 8  # phases 24-25: one repeat of jamba's 8-layer pattern
+JAMBA_MOE_EXPERTS = 8  # phase 24: 8 of 16 experts, 52.1 GB of bf16 weights; 16 are 90.7 GB
+JAMBA_MOE_PARITY_EXPERTS = 4  # phase 25: 65.4 GB of fp32 weights
 
 
 def fail(msg: str) -> None:
@@ -340,22 +372,29 @@ def check_close(torch, name: str, got, want, tol: float) -> float:
     return err
 
 
-def cast_tree(tree: dict, dtype) -> dict:
-    """The nested parameter dict with every tensor cast to ``dtype``."""
-    return {k: cast_tree(v, dtype) if isinstance(v, dict) else v.to(dtype) for k, v in tree.items()}
+def cast_tree_(tree: dict, dtype) -> None:
+    """Casts every tensor of the nested parameter dict to ``dtype`` in place,
+    leaf by leaf: each old leaf is freed as its copy is made, so the two
+    trees are never whole at once."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            cast_tree_(v, dtype)
+        else:
+            tree[k] = v.to(dtype)
 
 
 def bf16_check(torch, make_prefill_step, name: str, cfg32, cache_len: int, params: dict, batch: dict,
                l_off, counts: dict) -> None:
-    """bf16 prefill of ``batch`` on ``params`` cast, kernels on against off:
-    the last logits may differ by at most twice the bf16 plain path's own
-    error against the fp32 plain path's ``l_off``. ``counts`` maps each
-    kernel's wrapper to the launches the kernel-on prefill must make."""
-    params16 = cast_tree(params, torch.bfloat16)
-    _, l16_off = make_prefill_step(cfg32, cache_len)(params16, batch)
+    """bf16 prefill of ``batch`` on ``params``, cast to bf16 in place, kernels
+    on against off: the last logits may differ by at most twice the bf16
+    plain path's own error against the fp32 plain path's ``l_off``.
+    ``counts`` maps each kernel's wrapper to the launches the kernel-on
+    prefill must make."""
+    cast_tree_(params, torch.bfloat16)
+    _, l16_off = make_prefill_step(cfg32, cache_len)(params, batch)
     for counter in counts:
         counter.launches = 0
-    _, l16_on = make_prefill_step(cfg32.replace(use_pallas="on"), cache_len)(params16, batch)
+    _, l16_on = make_prefill_step(cfg32.replace(use_pallas="on"), cache_len)(params, batch)
     torch.cuda.synchronize()
     for counter, want in counts.items():
         if counter.launches != want:
@@ -443,6 +482,82 @@ def routing(torch, moe, pinned: list | None = None):
 def flip_share(routes: list, other: list) -> float:
     """Share of (token, slot) expert choices that differ between two runs' routes."""
     return sum(int((a != b).sum()) for a, b in zip(routes, other)) / sum(a.numel() for a in routes)
+
+
+def moe_parity(torch, moe, make_prefill_step, name: str, depth: str, cfg32, cache_len: int, params: dict,
+               batch: dict, counts: dict, cache_names: set) -> None:
+    """fp32 prefill of ``batch`` for a model with MoE layers, kernels on
+    against off. Routing is discrete, so: the free-running kernel-on run may
+    route at most MAX_FP32_FLIPS of the (token, slot) choices otherwise, and
+    with every MoE layer routed to the kernel-off run's experts the last
+    logits and every layer's caches (``cache_names``) must agree within
+    PARITY_TOL. Then ``params`` is cast to bf16 in place and, routed the
+    same way, the bf16 kernel-on logits must stay within twice the bf16
+    plain path's error against fp32, and the free-running bf16 kernel-on run
+    may reroute at most twice the choices bf16 itself reroutes against
+    fp32. ``counts`` maps each kernel's wrapper to its launches per
+    kernel-on prefill (none with the kernels off)."""
+    on32 = cfg32.replace(use_pallas="on")
+
+    def run(c, weights, pinned=None):
+        for counter in counts:
+            counter.launches = 0
+        with routing(torch, moe, pinned) as routes:
+            caches, logits = make_prefill_step(c, cache_len)(weights, batch)
+        torch.cuda.synchronize()
+        for counter, want in counts.items():
+            want = want if c.use_pallas == "on" else 0
+            if counter.launches != want:
+                fail(f"{name} prefill with use_pallas={c.use_pallas} launched {counter.__name__} "
+                     f"{counter.launches} times, expected {want}")
+        if not bool(torch.isfinite(logits).all()):
+            fail(f"{name} prefill with use_pallas={c.use_pallas} gave logits that are not finite")
+        return caches, logits, routes
+
+    c_off, l_off, r_off = run(cfg32, params)
+    _, l_free, r_on = run(on32, params)
+    c_on, l_on, _ = run(on32, params, pinned=r_off)
+    flips32 = flip_share(r_on, r_off)
+    logit_err = (l_on - l_off).abs().max().item()
+    cache_err: dict[str, float] = {}
+    for key in c_off:
+        for n in c_off[key]:
+            cache_err[n] = max(cache_err.get(n, 0.0), (c_on[key][n] - c_off[key][n]).abs().max().item())
+            if not torch.allclose(c_on[key][n], c_off[key][n], rtol=PARITY_TOL, atol=PARITY_TOL):
+                fail(f"kernel-on {name} prefill {key}/{n} disagrees with kernel-off")
+    b, s = batch["tokens"].shape
+    print(f"parity {name} fp32 {depth} B={b} prompt={s}: free-running kernel on vs off routes {flips32:.4%} of "
+          f"{sum(r.numel() for r in r_off)} (token, slot) choices otherwise (bar {MAX_FP32_FLIPS:.0%}), last "
+          f"logits max_abs_err {(l_free - l_off).abs().max().item():.3g}; routed as kernel-off: last logits "
+          f"max_abs_err {logit_err:.3g}, over the layers "
+          + ", ".join(f"{n} {e:.3g}" for n, e in cache_err.items()) + f" (tol {PARITY_TOL}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if set(cache_err) != cache_names:
+        fail(f"{name} prefill caches hold {sorted(cache_err)}, expected {sorted(cache_names)}")
+    if not flips32 <= MAX_FP32_FLIPS:
+        fail(f"the fp32 kernel-on {name} prefill routes {flips32:.2%} of its choices otherwise than kernel-off")
+    if not torch.allclose(l_on, l_off, rtol=PARITY_TOL, atol=PARITY_TOL):
+        fail(f"kernel-on {name} prefill logits disagree with kernel-off under the same routing")
+    del c_off, c_on
+
+    cast_tree_(params, torch.bfloat16)
+    _, l16_off_free, r16_off = run(cfg32, params)
+    _, l16_on_free, r16_on = run(on32, params)
+    _, l16_off, _ = run(cfg32, params, pinned=r_off)
+    _, l16_on, _ = run(on32, params, pinned=r_off)
+    flips_bf16, flips_kernel16 = flip_share(r16_off, r_off), flip_share(r16_on, r16_off)
+    err_kernel = (l16_on.float() - l16_off.float()).abs().max().item()
+    err_bf16 = (l16_off.float() - l_off.float()).abs().max().item()
+    print(f"parity {name} bf16 {depth} B={b} prompt={s}: free-running, bf16 off vs fp32 off routes "
+          f"{flips_bf16:.4%} of the choices otherwise and bf16 on vs off {flips_kernel16:.4%} (bar: twice the "
+          f"former), last logits on vs off max_abs_err "
+          f"{(l16_on_free.float() - l16_off_free.float()).abs().max().item():.4g}; routed as fp32 kernel-off: last "
+          f"logits kernel on vs off max_abs_err {err_kernel:.4g}, bf16 off vs fp32 off {err_bf16:.4g} (bar: twice "
+          f"that, {2 * err_bf16:.4g}; ratio {err_kernel / err_bf16:.3f})")
+    if not flips_kernel16 <= 2 * flips_bf16:
+        fail(f"the bf16 kernel-on {name} prefill reroutes more than twice the choices bf16 itself does")
+    if not err_kernel <= 2 * err_bf16:
+        fail(f"bf16 kernel-on {name} prefill logits differ from kernel-off by more than twice bf16's own error")
 
 
 def grad_check(torch, name: str, op, plain, args: list, n_diff: int) -> float:
@@ -1203,66 +1318,60 @@ def main() -> None:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     cfg32 = cfg.replace(use_pallas="off", n_layers=MIXTRAL_PARITY_LAYERS)
-    on32 = cfg32.replace(use_pallas="on")
     params = init_params(T.param_defs(cfg32), seed=args.seed, dtype=torch.float32, device=dev)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 512), generator=gen, device=dev)}
+    moe_parity(torch, moe, make_prefill_step, "mixtral", f"{cfg32.n_layers} of {configs.get(MIXTRAL).n_layers} layers",
+               cfg32, cache_len, params, batch, {flash_attention_fwd: cfg32.n_layers}, {"k", "v"})
+    del params, batch
+    print(f"parity mixtral phase {time.perf_counter() - t0:.1f} s")
 
-    def mixtral_prefill(c, weights, pinned=None):
-        """(caches, last logits, routes) of one prefill; fails unless the
-        kernel launched once per layer with use_pallas 'on', else never."""
-        flash_attention_fwd.launches = 0
-        with routing(torch, moe, pinned) as routes:
-            caches, logits = make_prefill_step(c, cache_len)(weights, batch)
-        torch.cuda.synchronize()
-        want = c.n_layers if c.use_pallas == "on" else 0
-        if flash_attention_fwd.launches != want:
-            fail(f"mixtral prefill with use_pallas={c.use_pallas} launched flash_attention_fwd "
-                 f"{flash_attention_fwd.launches} times, expected {want}")
-        if not bool(torch.isfinite(logits).all()):
-            fail(f"mixtral prefill with use_pallas={c.use_pallas} gave logits that are not finite")
-        return caches, logits, routes
+    # ---------------------------------------------------- 22. serve arctic
+    t0 = phase("serve arctic")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, arctic_res, arctic_launches = serve_phase(
+        torch, serve, configs, ARCTIC, all_kernels, dev, args.seed, overrides=ARCTIC_CUTS)
+    print(f"serve arctic phase {time.perf_counter() - t0:.1f} s")
 
-    c_off, l_off, r_off = mixtral_prefill(cfg32, params)
-    _, l_free, r_on = mixtral_prefill(on32, params)
-    c_on, l_on, _ = mixtral_prefill(on32, params, pinned=r_off)
-    flips32 = flip_share(r_on, r_off)
-    logit_err = (l_on - l_off).abs().max().item()
-    cache_err = {n: (c_on["p0"][n] - c_off["p0"][n]).abs().max().item() for n in ("k", "v")}
-    print(f"parity mixtral fp32 {cfg32.n_layers} of {cfg.n_layers} layers B=2 prompt=512: free-running kernel on "
-          f"vs off routes {flips32:.4%} of (token, slot) choices otherwise (bar {MAX_FP32_FLIPS:.0%}), last logits "
-          f"max_abs_err {(l_free - l_off).abs().max().item():.3g}; routed as kernel-off: last logits max_abs_err "
-          f"{logit_err:.3g}, k {cache_err['k']:.3g}, v {cache_err['v']:.3g} (tol {PARITY_TOL}); peak memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
-    if not flips32 <= MAX_FP32_FLIPS:
-        fail(f"the fp32 kernel-on mixtral prefill routes {flips32:.2%} of its choices otherwise than kernel-off")
-    if not torch.allclose(l_on, l_off, rtol=PARITY_TOL, atol=PARITY_TOL):
-        fail("kernel-on mixtral prefill logits disagree with kernel-off under the same routing")
-    for n in ("k", "v"):
-        if not torch.allclose(c_on["p0"][n], c_off["p0"][n], rtol=PARITY_TOL, atol=PARITY_TOL):
-            fail(f"kernel-on mixtral prefill {n} disagrees with kernel-off")
-    del c_off, c_on
+    # --------------------------------------------------- 23. parity arctic
+    t0 = phase("parity arctic")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg32 = cfg.replace(use_pallas="off")
+    params = init_params(T.param_defs(cfg32), seed=args.seed, dtype=torch.float32, device=dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 512), generator=gen, device=dev)}
+    moe_parity(torch, moe, make_prefill_step, "arctic", f"{cfg32.n_layers} of {configs.get(ARCTIC).n_layers} layers",
+               cfg32, cache_len, params, batch, {flash_attention_fwd: cfg32.n_layers}, {"k", "v"})
+    del params, batch
+    print(f"parity arctic phase {time.perf_counter() - t0:.1f} s")
 
-    params16 = cast_tree(params, torch.bfloat16)
-    del params
-    _, l16_off_free, r16_off = mixtral_prefill(cfg32, params16)
-    _, l16_on_free, r16_on = mixtral_prefill(on32, params16)
-    _, l16_off, _ = mixtral_prefill(cfg32, params16, pinned=r_off)
-    _, l16_on, _ = mixtral_prefill(on32, params16, pinned=r_off)
-    flips_bf16, flips_kernel16 = flip_share(r16_off, r_off), flip_share(r16_on, r16_off)
-    err_kernel = (l16_on.float() - l16_off.float()).abs().max().item()
-    err_bf16 = (l16_off.float() - l_off.float()).abs().max().item()
-    print(f"parity mixtral bf16 {cfg32.n_layers} layers B=2 prompt=512: free-running, bf16 off vs fp32 off routes "
-          f"{flips_bf16:.4%} of the choices otherwise and bf16 on vs off {flips_kernel16:.4%} (bar: twice the "
-          f"former), last logits on vs off max_abs_err "
-          f"{(l16_on_free.float() - l16_off_free.float()).abs().max().item():.4g}; routed as fp32 kernel-off: last "
-          f"logits kernel on vs off max_abs_err {err_kernel:.4g}, bf16 off vs fp32 off {err_bf16:.4g} (bar: twice "
-          f"that, {2 * err_bf16:.4g}; ratio {err_kernel / err_bf16:.3f})")
-    if not flips_kernel16 <= 2 * flips_bf16:
-        fail("the bf16 kernel-on mixtral prefill reroutes more than twice the choices bf16 itself does")
-    if not err_kernel <= 2 * err_bf16:
-        fail("bf16 kernel-on mixtral prefill logits differ from kernel-off by more than twice bf16's own error")
-    del params16
-    print(f"parity mixtral phase {time.perf_counter() - t0:.1f} s; all phases {time.perf_counter() - t_all:.1f} s")
+    # --------------------------------------------- 24. serve jamba experts
+    t0 = phase("serve jamba experts")
+    gc.collect()
+    torch.cuda.empty_cache()
+    jamba_moe = configs.get(JAMBA).moe
+    cfg, jamba_moe_res, jamba_moe_launches = serve_phase(
+        torch, serve, configs, JAMBA, all_kernels, dev, args.seed,
+        overrides={"n_layers": JAMBA_MOE_LAYERS, "moe": dataclasses.replace(jamba_moe, n_experts=JAMBA_MOE_EXPERTS)})
+    print(f"serve jamba experts phase {time.perf_counter() - t0:.1f} s")
+
+    # -------------------------------------------- 25. parity jamba experts
+    t0 = phase("parity jamba experts")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg32 = cfg.replace(use_pallas="off", moe=dataclasses.replace(jamba_moe, n_experts=JAMBA_MOE_PARITY_EXPERTS))
+    params = init_params(T.param_defs(cfg32), seed=args.seed, dtype=torch.float32, device=dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 512), generator=gen, device=dev)}
+    n_mamba = sum(kind.mixer == "mamba" for kind in cfg32.pattern)
+    moe_parity(torch, moe, make_prefill_step, "jamba experts",
+               f"{cfg32.n_layers} of {configs.get(JAMBA).n_layers} layers, {cfg32.moe.n_experts} of "
+               f"{jamba_moe.n_experts} experts", cfg32, cache_len, params, batch,
+               {mamba_scan_fwd: n_mamba, flash_attention_fwd: cfg32.n_layers - n_mamba}, {"h", "conv", "k", "v"})
+    del params, batch
+    print(f"parity jamba experts phase {time.perf_counter() - t0:.1f} s; all phases "
+          f"{time.perf_counter() - t_all:.1f} s")
 
     runs = {"qwen3_0_6b": (qwen_launches, qwen_res.prefills, "prefill"),
             "rwkv6_1_6b": (rwkv_launches, rwkv_res.prefills, "prefill"),
@@ -1272,7 +1381,9 @@ def main() -> None:
             SEAMLESS: (seamless_launches, seamless_res.prefills, "prefill"),
             QWEN2_VL: (qwen2vl_launches, qwen2vl_res.prefills, "prefill"),
             MIXTRAL: (mixtral_launches, mixtral_res.prefills, "prefill"),
-            f"{MIXTRAL} long": (long_launches, long_res.prefills, "prefill")}
+            f"{MIXTRAL} long": (long_launches, long_res.prefills, "prefill"),
+            ARCTIC: (arctic_launches, arctic_res.prefills, "prefill"),
+            f"{JAMBA} with experts": (jamba_moe_launches, jamba_moe_res.prefills, "prefill")}
 
     def launch_counts(name: str) -> dict:
         """The kernel's launches over the main-path runs, by path, and per

@@ -8,6 +8,10 @@ the device's busy and idle share of each window.
         --arch jamba_1_5_large_398b --n-layers 16 --no-moe
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --full \\
         --arch mixtral_8x22b --n-layers 8 [--batch 1 --prompt-len 8192]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --full \\
+        --arch arctic_480b --n-layers 1
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --full \\
+        --arch jamba_1_5_large_398b --n-layers 8 --n-experts 8
 
 Needs a CUDA device. Busy time is the sum of the device-side events' time
 (kernels, copies and fills on one stream, so they do not overlap); idle

@@ -3,18 +3,22 @@
 of a checkpoint commit in a repository.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
-        --arch {qwen3_0_6b,rwkv6_1_6b,jamba_1_5_large_398b,seamless_m4t_large_v2,qwen2_vl_7b,mixtral_8x22b,...} \\
+        --arch {qwen3_0_6b,rwkv6_1_6b,jamba_1_5_large_398b,seamless_m4t_large_v2,qwen2_vl_7b,mixtral_8x22b,arctic_480b,...} \\
         --batch 8 --prompt-len 64 --gen 32 [--full] [--device cuda] [--dtype bfloat16] \\
-        [--n-layers N] [--no-moe] [--repo PATH [--commit OID]]
+        [--n-layers N] [--n-experts N | --no-moe] [--repo PATH [--commit OID]]
 
-Runs on CUDA unless ``--device cpu`` is given. ``--n-layers`` and
-``--no-moe`` override the registry's config (``run(overrides=...)``, applied
-with ``cfg.replace`` after the lookup, as ``repro.launch.dryrun`` does):
-jamba-1.5-large fits one H100 only without its experts and cut in depth,
-``--arch jamba_1_5_large_398b --full --n-layers 16 --no-moe`` (2 of its 9
-8-layer repeats, every layer a dense SwiGLU; experts beside Mamba layers are
-not ported yet), and mixtral-8x22b only cut in depth, ``--arch mixtral_8x22b
---full --n-layers 8`` (8 of 56 layers, 38.1 GiB of bf16 weights).
+Runs on CUDA unless ``--device cpu`` is given. ``--n-layers``,
+``--n-experts`` and ``--no-moe`` override the registry's config
+(``run(overrides=...)``, applied with ``cfg.replace`` after the lookup, as
+``repro.launch.dryrun`` does). The MoE models fit one H100 only cut:
+mixtral-8x22b in depth, ``--arch mixtral_8x22b --full --n-layers 8`` (8 of
+56 layers, 38.1 GiB of bf16 weights); arctic-480b to one layer, ``--arch
+arctic_480b --full --n-layers 1`` (1 of 35 layers, its 128 experts and
+dense residual whole: 26.2 GiB); jamba-1.5-large to one 8-layer repeat
+with half its experts, ``--arch jamba_1_5_large_398b --full --n-layers 8
+--n-experts 8`` (8 of 72 layers, 8 of 16 experts: 48.5 GiB), or without
+experts, ``--n-layers 16 --no-moe`` (16 of 72 layers, every layer a dense
+SwiGLU).
 
 The prompts are random tokens; models with a stub frontend also get its
 inputs from the same seeded generator (``prompt_batch``): seamless-m4t's
@@ -33,7 +37,7 @@ timed; each timed step is bracketed by ``torch.cuda.synchronize()``.
 commit, or from ``--commit`` (an oid, a unique prefix or a branch), in the
 dtype they were saved in (``--dtype`` is refused beside it), and prints the
 restored step. Every restored leaf must have the shape the config gives it
-(``--full``, ``--n-layers`` and ``--no-moe`` included), else the run raises.
+(``--full`` and the overrides included), else the run raises.
 """
 from __future__ import annotations
 
@@ -42,7 +46,7 @@ import contextlib
 import time
 from collections.abc import Callable
 from contextlib import AbstractContextManager
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -134,7 +138,8 @@ def run(arch: str = "qwen3_0_6b", *, batch: int = 8, prompt_len: int = 64, gen: 
     Without ``repo``, they are initialised from ``seed`` in ``dtype``.
 
     ``overrides``, if given, replaces fields of the registry's config (for
-    example ``{"moe": None, "n_layers": 16}``).
+    example ``{"moe": None, "n_layers": 16}``; ``overrides_from_args`` builds
+    them from the command line).
 
     ``window(name)``, if given, is entered around the timed prefill
     (``"prefill"``) and around the timed decode loop (``"decode"``), for a
@@ -206,16 +211,27 @@ def run(arch: str = "qwen3_0_6b", *, batch: int = 8, prompt_len: int = 64, gen: 
 
 def add_override_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--n-layers", type=int, help="cut the depth (a multiple of the pattern)")
-    ap.add_argument("--no-moe", action="store_true", help="dense SwiGLU in place of every MoE layer")
+    moe = ap.add_mutually_exclusive_group()
+    moe.add_argument("--n-experts", type=int, help="cut the experts of every MoE layer (top-k and capacity "
+                     "factor stay)")
+    moe.add_argument("--no-moe", action="store_true", help="dense SwiGLU in place of every MoE layer")
 
 
 def overrides_from_args(args: argparse.Namespace) -> dict:
-    """The config overrides that ``--n-layers`` and ``--no-moe`` ask for."""
+    """The config overrides that ``--n-layers``, ``--n-experts`` and
+    ``--no-moe`` ask for, on the config of ``args.arch`` (full with
+    ``args.full``). ``--n-experts`` raises ValueError for a model without
+    MoE layers."""
     out: dict = {}
     if args.n_layers is not None:
         out["n_layers"] = args.n_layers
     if args.no_moe:
         out["moe"] = None
+    if args.n_experts is not None:
+        moe = (configs.get(args.arch) if args.full else configs.get_smoke(args.arch)).moe
+        if moe is None:
+            raise ValueError(f"--n-experts: {args.arch} has no MoE layers")
+        out["moe"] = replace(moe, n_experts=args.n_experts)
     return out
 
 

@@ -2,7 +2,8 @@
 inside a version-store repository (port of ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_0_6b \\
-        --steps 40 --repo /tmp/myrun [--full] [--device cuda]
+        --steps 40 --repo /tmp/myrun [--full] [--device cuda] \\
+        [--n-layers N] [--n-experts N | --no-moe]
 
 Runs on CUDA unless ``--device cpu`` is given. ``--full`` selects the
 full-size config (qwen3-0.6B at B=8 x 512 fits one H100: bf16 weights,
@@ -10,7 +11,8 @@ fp32 moments, remat), the default the smoke config. The run checkpoints
 into the repository with machine-actionable records and resumes when the
 same command is given again. On CUDA the command line turns on PyTorch's
 deterministic algorithms, so that a resumed run reaches the bits of an
-unbroken one; ``run`` leaves that choice to its caller.
+unbroken one; ``run`` leaves that choice to its caller. ``--n-layers``,
+``--n-experts`` and ``--no-moe`` cut the config as in ``launch.serve``.
 """
 from __future__ import annotations
 
@@ -24,18 +26,23 @@ from ..core.repo import Repository
 from ..data.tokens import SyntheticTokens
 from ..optim.adamw import AdamW, cosine_schedule
 from ..train.loop import SegmentResult, check_token_only, train_segment
+from .serve import add_override_args, overrides_from_args
 
 
 def run(arch: str = "qwen3_0_6b", *, steps: int = 40, ckpt_every: int = 20, repo: str = "",
         seq_len: int = 128, batch: int = 4, lr: float = 3e-4, full: bool = False,
-        async_ckpt: bool = False, device: str | torch.device = "cuda") -> SegmentResult:
+        async_ckpt: bool = False, device: str | torch.device = "cuda",
+        overrides: dict | None = None) -> SegmentResult:
     """Train ``arch`` to step ``steps`` in the repository ``repo`` (created
     if it holds none; default ``./train_<arch>``) on ``SyntheticTokens(seed=0)``
-    with a cosine schedule (10 warm-up steps). Returns the segment's result,
+    with a cosine schedule (10 warm-up steps); ``overrides`` replaces fields
+    of the registry's config. Returns the segment's result,
     with each step's loss and time. Raises NotImplementedError, before any
     repository is made, for a model whose inputs are more than tokens."""
     dev = resolve_device(device)
     cfg = configs.get(arch) if full else configs.get_smoke(arch)
+    if overrides:
+        cfg = cfg.replace(**overrides)
     check_token_only(cfg)
     root = repo or os.path.abspath(f"train_{arch}")
     if os.path.exists(os.path.join(root, ".repro")):
@@ -62,6 +69,7 @@ def main(argv: list[str] | None = None) -> SegmentResult:
     ap.add_argument("--full", action="store_true", help="full-size config (a GPU)")
     ap.add_argument("--async-ckpt", action="store_true")
     ap.add_argument("--device", default="cuda")
+    add_override_args(ap)
     args = ap.parse_args(argv)
 
     if args.device != "cpu":
@@ -69,7 +77,7 @@ def main(argv: list[str] | None = None) -> SegmentResult:
         torch.use_deterministic_algorithms(True)
     res = run(args.arch, steps=args.steps, ckpt_every=args.ckpt_every, repo=args.repo,
               seq_len=args.seq_len, batch=args.batch, lr=args.lr, full=args.full,
-              async_ckpt=args.async_ckpt, device=args.device)
+              async_ckpt=args.async_ckpt, device=args.device, overrides=overrides_from_args(args))
     print(f"steps {res.start_step} -> {res.end_step}  loss {res.final_loss:.4f}")
     print(f"checkpoint commit: {res.checkpoint_commit}")
     return res

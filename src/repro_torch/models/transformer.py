@@ -3,13 +3,14 @@ and M-RoPE stacks of ``repro.models.transformer``, in PyTorch.
 
 Layers of ``LayerKind("attn")`` (dense GQA, optional qk-norm, RoPE or
 M-RoPE, optional sliding window, then SwiGLU or, with ``moe=True``, the
-top-k expert FFN of ``models/moe.py``; tied or separate LM head),
-``LayerKind("rwkv6")`` (time mix with token shift, LoRA decay and the WKV
-recurrence, then channel mix) and ``LayerKind("mamba", moe=False)`` (the
-Mamba mixer, then SwiGLU), in the pattern the config gives: a hybrid puts
-attention at ``attn_offset`` of every ``attn_period`` layers and Mamba
-elsewhere. Two MoE variants are not ported yet (``check_supported``):
-arctic's dense residual FFN and experts beside Mamba mixers (jamba).
+top-k expert FFN of ``models/moe.py``, plus a dense SwiGLU on the same
+normed input where ``cfg.moe.dense_residual`` is set (arctic); tied or
+separate LM head), ``LayerKind("rwkv6")`` (time mix with token shift, LoRA
+decay and the WKV recurrence, then channel mix) and ``LayerKind("mamba")``
+(the Mamba mixer, then SwiGLU or, with ``moe=True``, the expert FFN), in the
+pattern the config gives: a hybrid puts attention at ``attn_offset`` of
+every ``attn_period`` layers and Mamba elsewhere, and experts on every
+``moe.every_k_layers``-th layer of either kind (jamba).
 
 A sliding-window model (``cfg.sliding_window``) keeps a ring KV cache of
 ``min(cache_len, window)`` slots: token s lives in slot s % L, so prefill
@@ -84,17 +85,6 @@ from .moe import moe_ffn
 from .params import ParamDef
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the parts of ``cfg`` the port does not run yet, naming the
-    ROADMAP.md §A item that brings them."""
-    if not any(kind.moe for kind in cfg.pattern):
-        return
-    if cfg.moe.dense_residual:
-        raise NotImplementedError("MoE with a dense residual FFN (arctic): ROADMAP.md §A item 6")
-    if any(kind.mixer == "mamba" for kind in cfg.pattern):
-        raise NotImplementedError("MoE beside Mamba mixers (jamba with experts): ROADMAP.md §A item 6")
-
-
 def _use_kernels(cfg: ModelConfig, x: torch.Tensor) -> bool:
     """'on' forces the kernels' wrappers (which take the plain versions on
     CPU tensors); 'off' keeps the plain paths; 'auto' means on for CUDA."""
@@ -162,25 +152,32 @@ def _mamba_defs(cfg: ModelConfig) -> dict:
     }
 
 
+def _ffn_defs(cfg: ModelConfig) -> dict:
+    D, F = cfg.d_model, cfg.d_ff
+    return {"w1": ParamDef((D, F)), "w3": ParamDef((D, F)), "w2": ParamDef((F, D))}
+
+
 def _moe_defs(cfg: ModelConfig) -> dict:
     D, F, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
-    return {
+    d = {
         "router": ParamDef((D, E)),
         "e_w1": ParamDef((E, D, F)),
         "e_w3": ParamDef((E, D, F)),
         "e_w2": ParamDef((E, F, D)),
     }
+    if cfg.moe.dense_residual:
+        d["dense"] = _ffn_defs(cfg)
+    return d
 
 
 def _block_defs(cfg: ModelConfig, kind: LayerKind, cross_attn: bool = False) -> dict:
-    D, F = cfg.d_model, cfg.d_ff
+    D = cfg.d_model
     if kind.mixer == "rwkv6":  # time mix + channel mix, no swiglu
         return {"ln1": ParamDef((D,), "ones"), "rwkv": _rwkv_defs(cfg),
                 "ln2": ParamDef((D,), "ones")}
     mixer = {"mamba": _mamba_defs(cfg)} if kind.mixer == "mamba" else {"attn": _attn_defs(cfg)}
     xattn = {"ln_x": ParamDef((D,), "ones"), "xattn": _attn_defs(cfg)} if cross_attn else {}
-    ffn = {"moe": _moe_defs(cfg)} if kind.moe else {
-        "ffn": {"w1": ParamDef((D, F)), "w3": ParamDef((D, F)), "w2": ParamDef((F, D))}}
+    ffn = {"moe": _moe_defs(cfg)} if kind.moe else {"ffn": _ffn_defs(cfg)}
     return {
         "ln1": ParamDef((D,), "ones"),
         **mixer,
@@ -198,7 +195,6 @@ def _stack(defs: dict, n: int) -> dict:
 
 
 def param_defs(cfg: ModelConfig) -> dict:
-    check_supported(cfg)
     D, Vp = cfg.d_model, cfg.padded_vocab
     defs: dict = {
         "embed": ParamDef((Vp, D), "normal", 0.02),
@@ -415,6 +411,23 @@ def _mamba_mixer(cfg: ModelConfig, p: dict, x: torch.Tensor, ctx: Ctx, cache):
     return out, new_cache
 
 
+def _ffn_or_moe(cfg: ModelConfig, kind: LayerKind, p: dict, x: torch.Tensor):
+    """The feed-forward sub-layer on rmsnorm(x): SwiGLU, or the expert FFN
+    plus, with a dense residual, a SwiGLU on the same normed input (every
+    token gets it, the capacity queue's drops included). Returns (out, aux):
+    aux is the MoE layer's load-balancing loss (fp32 scalar), else None."""
+    h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    if not kind.moe:
+        f = p["ffn"]
+        return swiglu(h, f["w1"], f["w3"], f["w2"]), None
+    pm = p["moe"]
+    out, aux = moe_ffn(h, pm["router"], pm["e_w1"], pm["e_w3"], pm["e_w2"], cfg.moe)
+    if cfg.moe.dense_residual:
+        d = pm["dense"]
+        out = out + swiglu(h, d["w1"], d["w3"], d["w2"])
+    return out, aux
+
+
 def apply_block(cfg: ModelConfig, kind: LayerKind, p: dict, x: torch.Tensor, ctx: Ctx, cache):
     """One pattern-position layer. Returns (x, new_cache, aux): aux is an MoE
     layer's load-balancing loss (fp32 scalar), None for any other layer."""
@@ -427,13 +440,8 @@ def apply_block(cfg: ModelConfig, kind: LayerKind, p: dict, x: torch.Tensor, ctx
         xmix, xcache = _cross_attention(cfg, p, x, ctx, cache)
         x = x + xmix
         new_cache = {**new_cache, **xcache}
-    h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    if kind.moe:
-        pm = p["moe"]
-        out, aux = moe_ffn(h, pm["router"], pm["e_w1"], pm["e_w3"], pm["e_w2"], cfg.moe)
-        return x + out, new_cache, aux
-    f = p["ffn"]
-    return x + swiglu(h, f["w1"], f["w3"], f["w2"]), new_cache, None
+    out, aux = _ffn_or_moe(cfg, kind, p, x)
+    return x + out, new_cache, aux
 
 
 # ================================================================ stacks
@@ -543,7 +551,6 @@ def forward_train(cfg: ModelConfig, params: dict, batch: dict) -> tuple[torch.Te
     """Full-sequence causal forward. Returns (logits [B,S,Vp], aux_loss): the
     MoE layers' load-balancing losses summed over the layers, fp32; 0 for a
     model without MoE layers."""
-    check_supported(cfg)
     x = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
     ctx = Ctx(mode="train", positions=_positions(batch, B, S, x.device),
@@ -558,7 +565,6 @@ def forward_train(cfg: ModelConfig, params: dict, batch: dict) -> tuple[torch.Te
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int):
     """Process a full prompt; returns (caches, last-token logits [B,Vp])."""
-    check_supported(cfg)
     x = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
     eff_cache = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
@@ -573,7 +579,6 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int):
 def decode_step(cfg: ModelConfig, params: dict, caches: dict, token: torch.Tensor, pos: int):
     """One decode step. token [B,1] int; pos: position of the new token.
     Returns (logits [B,Vp], caches) — the caches are updated in place."""
-    check_supported(cfg)
     x = _embed(params, token)
     x, caches, _ = _run_blocks(cfg, params["blocks"], x, Ctx(mode="decode", pos=int(pos)), caches)
     return _logits(cfg, params, x)[:, 0], caches

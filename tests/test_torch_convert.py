@@ -17,9 +17,6 @@ from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.params import init_params, tree_paths  # noqa: E402
 
 ARCH = "qwen3_0_6b"
-# Config overrides of the architectures the port runs only in part: jamba
-# without its experts (MoE is not ported), at two repeats of its pattern.
-CUTS = {"jamba_1_5_large_398b": dict(moe=None, n_layers=16)}
 BITS = {"float32": (np.uint32, torch.int32), "bfloat16": (np.uint16, torch.int16)}
 
 
@@ -35,8 +32,7 @@ def _flatten(tree, prefix=""):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", configs.ARCH_IDS)
 def test_jax_tree_converts_bit_for_bit(arch, dtype):
-    cfg = jconfigs.get_smoke(arch).replace(**CUTS.get(arch, {}))
-    defs = JT.param_defs(cfg)
+    defs = JT.param_defs(jconfigs.get_smoke(arch))
     tree = jax.tree.map(np.asarray, jax_init_params(defs, seed=0, dtype=getattr(jnp, dtype)))
     converted = params_from_numpy(tree, device="cpu")
     want, got = dict(_flatten(tree)), dict(_flatten(converted))
@@ -54,8 +50,8 @@ def test_jax_tree_converts_bit_for_bit(arch, dtype):
 def test_port_param_defs_match_reference(arch):
     """Same /-paths, shapes and init kinds; the port's own init fills the
     same tree."""
-    jdefs = dict(jax_tree_paths(JT.param_defs(jconfigs.get_smoke(arch).replace(**CUTS.get(arch, {})))))
-    cfg = configs.get_smoke(arch).replace(**CUTS.get(arch, {}))
+    jdefs = dict(jax_tree_paths(JT.param_defs(jconfigs.get_smoke(arch))))
+    cfg = configs.get_smoke(arch)
     tdefs = dict(tree_paths(T.param_defs(cfg)))
     assert list(tdefs) == list(jdefs)
     for path, d in tdefs.items():

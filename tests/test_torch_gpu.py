@@ -53,6 +53,7 @@ SHAPES = [
     (8, 512, 512, 28, 4, 128, True, None),  # qwen2-vl-7b: GQA group 7
     (8, 512, 512, 48, 8, 128, True, 4096),  # mixtral-8x22b: GQA group 6, the window does not bind
     (1, 8192, 8192, 48, 8, 128, True, 4096),  # mixtral-8x22b's long prompt: the window binds
+    (8, 512, 512, 56, 8, 128, True, None),  # arctic-480b: 56 heads, GQA group 7
 ]
 
 
@@ -211,6 +212,78 @@ def test_moe_ffn_on_the_card_matches_the_cpu(cuda, capacity_factor):
     assert torch.equal(got_route[1].cpu(), want_route[1])
     torch.testing.assert_close(got_route[0].cpu(), want_route[0], rtol=1e-5, atol=1e-5)
     (want, want_aux), (got, got_aux) = moe.moe_ffn(*cpu, cfg), moe.moe_ffn(*(t.to(cuda) for t in cpu), cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got_aux.cpu(), want_aux, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,counts", [
+    ("arctic_480b", {"flash_attention_fwd": 2}),
+    ("jamba_1_5_large_398b", {"mamba_scan_fwd": 7, "flash_attention_fwd": 1}),
+])
+def test_smoke_arctic_and_jamba_experts_prefill_kernels_on_match_off(cuda, arch, counts):
+    """fp32 smoke prefill of the last two MoE variants, arctic (the dense
+    residual beside the experts) and jamba with its experts (MoE beside
+    Mamba and attention), the kernels against the plain paths on the card:
+    the same experts chosen in every MoE layer, then the last logits and
+    every layer's caches (k/v; jamba's Mamba states and conv tails too) at
+    the 2e-3 bar."""
+    cfg = configs.get_smoke(arch).replace(use_pallas="off")
+    params = init_params(T.param_defs(cfg), seed=0, dtype=torch.float32, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 64))).to(cuda)
+    wrappers = {"mamba_scan_fwd": mamba_scan_fwd, "flash_attention_fwd": flash_attention_fwd}
+    routes = {}
+    original = moe.router_topk
+
+    def recording(name):
+        def router_topk(*args):
+            out = original(*args)
+            routes.setdefault(name, []).append(out[1])
+            return out
+        return router_topk
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(moe, "router_topk", recording("off"))
+        c_off, l_off = make_prefill_step(cfg, 72)(params, {"tokens": tokens})
+        before = {n: wrappers[n].launches for n in counts}
+        mp.setattr(moe, "router_topk", recording("on"))
+        c_on, l_on = make_prefill_step(cfg.replace(use_pallas="auto"), 72)(params, {"tokens": tokens})
+    assert {n: wrappers[n].launches - before[n] for n in counts} == counts
+    n_moe = cfg.n_repeats * sum(kind.moe for kind in cfg.pattern)
+    assert len(routes["on"]) == len(routes["off"]) == n_moe
+    assert all(torch.equal(a, b) for a, b in zip(routes["on"], routes["off"]))
+    torch.testing.assert_close(l_on, l_off, rtol=2e-3, atol=2e-3)
+    assert set(c_on) == set(c_off)
+    for key in c_off:
+        assert set(c_on[key]) == set(c_off[key])
+        for name in c_off[key]:
+            torch.testing.assert_close(c_on[key][name], c_off[key][name], rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("capacity_factor", [8.0, 0.5])
+def test_moe_ffn_with_the_dense_residual_on_the_card_matches_the_cpu(cuda, capacity_factor):
+    """fp32 feed-forward sub-layer of the arctic smoke model (``moe_ffn``
+    plus the dense SwiGLU) on the card against the CPU, with and without
+    dropped choices: equal expert indices, then output and aux within 1e-5."""
+    cfg = configs.get_smoke("arctic_480b")
+    cfg = cfg.replace(moe=MoEConfig(n_experts=4, top_k=2, dense_residual=True, capacity_factor=capacity_factor))
+    p = T._at(init_params(T.param_defs(cfg), seed=0, dtype=torch.float32, device="cpu")["blocks"]["p0"], 0)
+    x = torch.from_numpy(np.random.default_rng(3).normal(0, 1, (2, 64, cfg.d_model)).astype(np.float32))
+    kind = cfg.pattern[0]
+    routes = {}
+    original = moe.router_topk
+
+    def recording(*args):
+        out = original(*args)
+        routes[out[1].device.type] = out[1].cpu()
+        return out
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(moe, "router_topk", recording)
+        want, want_aux = T._ffn_or_moe(cfg, kind, p, x)
+        got, got_aux = T._ffn_or_moe(cfg, kind, tree_map(lambda t: t.to(cuda), p), x.to(cuda))
+    assert torch.equal(routes["cuda"], routes["cpu"])
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got_aux.cpu(), want_aux, rtol=1e-5, atol=1e-5)
 

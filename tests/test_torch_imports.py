@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither jax nor anything of ``repro``,
-its configs are copies of the JAX package's, and what it does not run yet
-raises and names the ROADMAP item that brings it."""
+its configs are copies of the JAX package's, it registers every
+architecture of the JAX package, and the layers each family adds build."""
 import dataclasses
 import os
 import subprocess
@@ -55,31 +55,44 @@ def test_config_is_a_copy_of_the_reference(which):
 
 
 def test_registry_names_the_roadmap_item_for_unported_archs():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §A item 6"):
-        configs.get("arctic_480b")
+    """No architecture is left unported: the port's registry holds exactly
+    the JAX package's, and only an unknown name raises (KeyError)."""
+    pytest.importorskip("jax")
+    from repro import configs as jconfigs
+
+    assert set(configs.ARCH_IDS) == set(jconfigs.ARCH_IDS) and len(configs.ARCH_IDS) == 10
+    for arch in configs.ARCH_IDS:
+        assert configs.get(arch).name == jconfigs.get(arch).name
+    with pytest.raises(KeyError):
+        configs.get("no_such_arch")
     with pytest.raises(KeyError):
         configs.get_smoke("no_such_arch")
-
-
-@pytest.mark.parametrize("change,item", [
-    (dict(attn_period=2, attn_offset=1, moe=MoEConfig(n_experts=4)), "item 6"),  # experts beside Mamba
-    (dict(moe=MoEConfig(n_experts=4, dense_residual=True)), "item 6"),  # arctic's dense residual
-])
-def test_unported_layers_raise(change, item):
-    cfg = configs.get_smoke("qwen3_0_6b").replace(**change)
-    with pytest.raises(NotImplementedError, match=item):
-        T.param_defs(cfg)
 
 
 def test_moe_layers_build():
     """ROADMAP.md §A item 6 is ported for plain top-k MoE: every layer's
     SwiGLU becomes the router and three stacked expert leaves, under the
-    reference's names."""
+    reference's names; with a dense residual (arctic) a fourth subtree,
+    ``dense``, holds the SwiGLU beside them."""
     cfg = configs.get_smoke("qwen3_0_6b").replace(moe=MoEConfig(n_experts=4))
     block = T.param_defs(cfg)["blocks"]["p0"]
     assert "ffn" not in block and list(block["moe"]) == ["router", "e_w1", "e_w3", "e_w2"]
     D, F, E, n = cfg.d_model, cfg.d_ff, 4, cfg.n_repeats
     assert [d.shape for d in block["moe"].values()] == [(n, D, E), (n, E, D, F), (n, E, D, F), (n, E, F, D)]
+    dense = T.param_defs(cfg.replace(moe=MoEConfig(n_experts=4, dense_residual=True)))["blocks"]["p0"]["moe"]
+    assert list(dense) == ["router", "e_w1", "e_w3", "e_w2", "dense"]
+    assert [d.shape for d in dense["dense"].values()] == [(n, D, F), (n, D, F), (n, F, D)]
+
+
+def test_experts_beside_mamba_build():
+    """Experts beside Mamba mixers (jamba): a hybrid pattern puts the MoE
+    FFN on every ``every_k_layers``-th layer, Mamba or attention alike."""
+    cfg = configs.get_smoke("qwen3_0_6b").replace(
+        attn_period=4, attn_offset=1, moe=MoEConfig(n_experts=4, every_k_layers=2), n_layers=4)
+    blocks = T.param_defs(cfg)["blocks"]
+    mixers = [next(k for k in ("mamba", "attn") if k in blocks[f"p{i}"]) for i in range(4)]
+    assert mixers == ["mamba", "attn", "mamba", "mamba"]
+    assert ["moe" in blocks[f"p{i}"] for i in range(4)] == [False, True, False, True]
 
 
 @pytest.mark.parametrize("change,added", [

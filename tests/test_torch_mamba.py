@@ -3,8 +3,9 @@ the Mamba functions of ``models/ssm.py``, the selective-scan kernel's plain
 version against the Pallas kernel (interpret mode) and the JAX reference,
 the ``mamba_a`` init, and the hybrid model's prefill, decode, greedy tokens
 and forward, in fp32 on weights initialised by JAX and converted leaf by
-leaf. The smoke config runs without experts (MoE is not ported) at 16
-layers: two repeats of the 8-layer pattern, attention at position 3.
+leaf. The smoke config runs here without experts at 16 layers: two repeats
+of the 8-layer pattern, attention at position 3 (the card's serving cut;
+tests/test_torch_jamba_moe.py holds jamba with its experts).
 
 Tolerances: 1e-5 for the Mamba functions (the same fp32 arithmetic in
 another order); tests/test_kernels.py's for the kernel's plain version
@@ -146,13 +147,6 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 # ------------------------------------------------------------------ the model
 def _cfg(use_pallas="auto"):
     return configs.get_smoke(ARCH).replace(use_pallas=use_pallas, **CUTS)
-
-
-def test_jamba_with_experts_is_refused():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §A item 6"):
-        T.param_defs(configs.get(ARCH))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §A item 6"):
-        T.param_defs(configs.get_smoke(ARCH))
 
 
 @pytest.fixture(scope="module")

@@ -1,7 +1,9 @@
 """The training path, the port against the JAX package, on the CPU at smoke
-sizes: data, loss, optimizer, compression, one train step for every config
-the port runs, remat, microbatches, checkpoints with their records, the
-resumable loop (bit for bit, and across the packages) and the launcher.
+sizes: data, loss, optimizer, schedule, compression, checkpoints with their
+records, the resumable loop (bit for bit, and across the packages) and the
+launcher, and the loss drop of every config on a repeated batch.
+tests/test_torch_train_steps.py holds the train step of every config
+against JAX, remat and microbatches.
 
 Parameters are initialised by JAX and converted leaf by leaf. Tolerances:
 - batches, ``step``, ``lr`` and resumed state: bitwise (integers, or the
@@ -12,11 +14,6 @@ Parameters are initialised by JAX and converted leaf by leaf. Tolerances:
   1e-5 absolute after a model's forward;
 - optimizer and compression on the same gradients: 1e-6 (fp32 updates of
   values O(1); bf16 leaves are compared in fp32 after the same rounding);
-- one train step in fp32: each gradient within rtol 1e-4 / atol 1e-5 (two
-  layers of fp32 arithmetic in another order; gradients are O(1e-2)). The
-  step's first moment is (1 - b1) clip(g), so its m is compared at
-  rtol 1e-4 / atol 1e-6; post-Adam parameters are not compared, since
-  Adam's first step is lr sign(g), which flips on tiny gradients;
 - a bf16 checkpoint continued two steps by each package: the step equal;
   the loss within 1e-2 (bf16 logits); parameters within one bf16 rounding
   (rtol 2^-7) plus 4e-3 = 2 steps x 2 lr, since Adam moves a parameter by
@@ -59,16 +56,13 @@ from repro_torch.optim import adamw, compression  # noqa: E402
 from repro_torch.train import steps  # noqa: E402
 from repro_torch.train.checkpoint import CheckpointManager, _flatten  # noqa: E402
 from repro_torch.train.loop import train_segment  # noqa: E402
-from repro_torch.tree import leaves, tree_map  # noqa: E402
+from repro_torch.tree import leaves  # noqa: E402
 
-# jamba runs without its experts: MoE is not ported (ROADMAP.md §A item 6)
-OVERRIDES = {"jamba_1_5_large_398b": {"moe": None}}
 QWEN = "qwen3_0_6b"
 
 
 def _cfgs(arch, **change):
-    over = {**OVERRIDES.get(arch, {}), **change}
-    return jconfigs.get_smoke(arch).replace(**over), configs.get_smoke(arch).replace(**over)
+    return jconfigs.get_smoke(arch).replace(**change), configs.get_smoke(arch).replace(**change)
 
 
 def _params(jcfg, dtype=jnp.float32):
@@ -229,97 +223,7 @@ def test_ef_compression_matches_jax():
     np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-7)
 
 
-# ------------------------------------------------------------ train step
-def _one_step(arch, *, n_mb=1, compress=False, n_steps=1):
-    """``n_steps`` fp32 train steps from identical state in both packages;
-    returns (JAX (params, opt_state, metrics), port's)."""
-    jcfg, cfg = _cfgs(arch, microbatches=n_mb)
-    jparams, params = _params(jcfg)
-    jbatch, batch = _batches(cfg, (4, 32))
-    jopt, opt = jadamw.AdamW(lr=1e-3), adamw.AdamW(lr=1e-3)
-    jfn = jax.jit(jsteps.make_train_step(jcfg, None, jopt, compress_grads=compress))
-    fn = steps.make_train_step(cfg, opt, compress_grads=compress)
-    jout = (jparams, jopt.init(jparams), None)
-    out = (params, opt.init(params), None)
-    for _ in range(n_steps):
-        jout = jfn(jout[0], jout[1], jbatch)
-        out = fn(out[0], out[1], batch)
-    return jout, out
-
-
-@pytest.mark.parametrize("arch", configs.ARCH_IDS)
-def test_train_step_matches_jax(arch):
-    (_, jst, jm), (_, st, m) = _one_step(arch)
-    np.testing.assert_allclose(m["loss"].item(), float(jm["loss"]), rtol=0, atol=1e-5)
-    np.testing.assert_allclose(m["grad_norm"].item(), float(jm["grad_norm"]), rtol=1e-5)
-    if _cfgs(arch)[1].moe is None:
-        assert m["aux_loss"].item() == float(jm["aux_loss"]) == 0.0
-    else:  # mixtral: the router's load-balancing loss, also weighted into the gradients above
-        assert float(jm["aux_loss"]) > 0
-        np.testing.assert_allclose(m["aux_loss"].item(), float(jm["aux_loss"]), rtol=1e-5)
-    _close(st["m"], jst["m"], rtol=1e-4, atol=1e-6)  # (1 - b1) clip(g)
-
-
-def test_train_step_with_compressed_gradients_matches_jax():
-    """Two steps through int8 error feedback. A gradient that the packages
-    give within ~1e-7 of a rounding boundary of its int8 code may take the
-    next code in one of them, which moves that element's residual by one
-    code step (its row's max |g| / 127) and its m by a tenth of that; any
-    other element is held as in the uncompressed step."""
-    (_, jst, jm), (_, st, m) = _one_step(QWEN, compress=True, n_steps=2)
-    np.testing.assert_allclose(m["loss"].item(), float(jm["loss"]), rtol=0, atol=1e-5)
-    assert sorted(st) == sorted(jst) == ["ef_residual", "m", "step", "v"]
-    # a residual's largest value is about half its leaf's largest code step
-    for name, step_of in (("m", lambda w: 4 * np.abs(w).max() / 127), ("ef_residual", lambda w: 2 * np.abs(w).max())):
-        for g, w in zip(leaves(st[name]), jax.tree.leaves(jst[name])):
-            g, w = _np(g), _np(w)
-            off = ~np.isclose(g, w, rtol=1e-4, atol=1e-6)
-            assert off.mean() <= 1e-3, name
-            assert np.all(np.abs(g - w)[off] <= step_of(w) + 1e-6), name
-
-
-def _grads(cfg, params, tokens):
-    _, _, grads = steps.make_grad_fn(cfg)(params, {"tokens": torch.from_numpy(tokens)})
-    return grads
-
-
-@pytest.mark.parametrize("arch", ["qwen3_0_6b", "rwkv6_1_6b", "jamba_1_5_large_398b", "mixtral_8x22b"])
-def test_remat_gives_the_gradients_of_the_plain_backward(arch):
-    """Recomputing each repeat's forward in the backward changes no bit
-    (mixtral's aux loss passes through each repeat's checkpoint)."""
-    jcfg, cfg = _cfgs(arch)
-    _, params = _params(jcfg)
-    tokens = _tokens(cfg.vocab_size, (2, 32))
-    assert cfg.remat
-    on, off = _grads(cfg, params, tokens), _grads(cfg.replace(remat=False), params, tokens)
-    for a, b in zip(leaves(on), leaves(off)):
-        assert torch.equal(a, b)
-
-
-def test_split_microbatches_matches_jax():
-    rng = np.random.default_rng(5)
-    batch = {"tokens": rng.integers(0, 9, (4, 6)).astype(np.int32),
-             "positions3": rng.integers(0, 9, (3, 4, 6)).astype(np.int32)}
-    want = jsteps._split_microbatches({k: jnp.asarray(v) for k, v in batch.items()}, 2)
-    got = steps._split_microbatches({k: torch.from_numpy(v) for k, v in batch.items()}, 2)
-    for k in batch:
-        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
-    with pytest.raises(ValueError, match="microbatches"):
-        steps._split_microbatches({"tokens": torch.zeros(3, 2)}, 2)
-
-
-def test_microbatches_match_the_full_batch_and_jax():
-    """tests/test_microbatch.py's bounds for 2 microbatches against 1 (loss
-    2e-3, params 5e-3), and the port against JAX at 2 (the same bf16 cast
-    of the mean gradient)."""
-    (jp2, jst2, jm2), (p2, st2, m2) = _one_step(QWEN, n_mb=2)
-    _, (p1, _, m1) = _one_step(QWEN, n_mb=1)
-    assert abs(m1["loss"].item() - m2["loss"].item()) < 2e-3
-    _close(p2, tree_map(_np, p1), rtol=5e-3, atol=5e-3)
-    np.testing.assert_allclose(m2["loss"].item(), float(jm2["loss"]), rtol=0, atol=1e-5)
-    _close(st2["m"], jst2["m"], rtol=1e-4, atol=1e-6)
-
-
+# ------------------------------------------------------------- loss drop
 @pytest.mark.parametrize("arch", configs.ARCH_IDS)
 def test_train_step_reduces_loss_on_a_repeated_batch(arch):
     """tests/test_archs.py:65-77 in the port: bf16, the same batch 5 times."""
@@ -434,6 +338,18 @@ def test_launch_train_runs_and_resumes_on_the_cpu(tmp_path, capsys):
     assert (again.start_step, again.end_step) == (3, 5)
     assert "resuming in existing repository" in capsys.readouterr().out
     assert [s for _, s in CheckpointManager(Repository(repo)).checkpoints()] == [5, 4, 3, 2]
+
+
+def test_launch_train_takes_the_config_cuts(tmp_path):
+    """``--n-layers`` and ``--n-experts``, as ``launch.serve`` takes them:
+    the checkpoint holds arctic's smoke model at 1 layer with 2 experts."""
+    repo = str(tmp_path / "run")
+    launch_train.main(["--arch", "arctic_480b", "--n-layers", "1", "--n-experts", "2", "--steps", "1",
+                       "--ckpt-every", "1", "--repo", repo, "--seq-len", "16", "--batch", "2", "--device", "cpu"])
+    _, manifest = CheckpointManager(Repository(repo)).restore(device="cpu")
+    cfg = configs.get_smoke("arctic_480b")
+    assert manifest["leaves"]["params/blocks/p0/moe/e_w1"]["shape"] == [1, 2, cfg.d_model, cfg.d_ff]
+    assert manifest["leaves"]["params/blocks/p0/moe/dense/w1"]["shape"] == [1, cfg.d_model, cfg.d_ff]
 
 
 def test_training_needs_cuda_unless_the_cpu_is_asked_for(tmp_path):
