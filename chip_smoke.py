@@ -142,6 +142,26 @@ Phases; any failure exits non-zero before the result lines are printed.
                     experts (65.4 GB of fp32 weights), B=2 x 512, by phase
                     21's rule, holding every Mamba layer's state and conv
                     tail beside the logits and k/v; then bf16 as phase 23.
+ 26. sharded qwen3 — a one-rank NCCL process group and a (1, 1) ("data",
+                    "model") DeviceMesh, sharding rules from qwen3's config
+                    knobs: full-width, full-depth qwen3-0.6B served from phase
+                    5's seed weights placed as DTensors by
+                    ``param_defs(cfg, rules)``, phase 5's prompts, through
+                    ``make_prefill_step``/``make_decode_step(..., rules=...)``
+                    (the flash kernel on each rank's heads through
+                    ``local_map``): 28 flash launches a prefill and phase 5's
+                    greedy tokens exactly, with prefill and decode times beside
+                    phase 5's. Then one bf16 train step at phase 14's batch
+                    under FSDP rules against the unsharded step (deterministic
+                    algorithms for both, as phase 14's resume): where not bit
+                    for bit, the loss and the first moments (the gradients,
+                    as one vector) within 2e-2 relative, and every param
+                    within a flipped first Adam step (2 lr) plus bf16 rounding;
+                    the sharded state saved from the mesh and restored onto the
+                    mesh (``shardings``) and onto the card, both bit for bit,
+                    with the annex keys of an unsharded save of the same tree.
+                    One card holds one NCCL rank: the multi-rank checks run on
+                    the CPU (tests/test_torch_sharded_run.py).
 Phases 3, 4 and 9 also run one backward through each kernel op
 (``ops.flash_attention``, ``ops.rwkv6``, ``ops.mamba_scan``) at a small fp32
 shape and hold its gradients against the plain version's autograd.
@@ -222,6 +242,7 @@ RWKV_SHAPES = [RWKV_SERVE_SHAPE, (2, 64, 2, 32), (1, 128, 4, 64), (1, 32, 1, 128
 MAMBA_SERVE_SHAPE = (8, 512, 16384, 16)
 MAMBA_SHAPES = [MAMBA_SERVE_SHAPE, (2, 64, 64, 8), (1, 128, 256, 16), (2, 40, 96, 4), (1, 64, 200, 16)]
 SERVE = dict(batch=8, prompt_len=512, gen=32)
+SHARDED_STEP_TOL = 2e-2  # phase 26: the FSDP step's loss and first moments against the unsharded one, relative
 JAMBA = "jamba_1_5_large_398b"
 JAMBA_CUTS = {"moe": None, "n_layers": 16}  # without experts, 16 of 72 layers fit the card
 GRAD_TOL = 1e-5  # fp32: the backward recomputes through the plain version
@@ -649,6 +670,196 @@ def serve_phase(torch, serve, configs, arch: str, kernels: dict, dev, seed: int,
     if not res.logits_finite:
         fail("non-finite logits while serving")
     return cfg, res, launches
+
+
+def sharded_phase(torch, np, configs, T, kernels: dict, dev, seed: int, qwen_res):
+    """Phase 26 (see the module docstring). Returns (serving launches by
+    wrapper, prefills run, train-step launches by wrapper)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.repo import Repository
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.distributed.sharding import rules_for
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.models.params import init_params, param_shardings
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.steps import greedy_token, make_decode_step, make_prefill_step, make_train_step
+
+    def counts():
+        return {c.__name__: c.launches for c in kernels.values()}
+
+    def full(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    with tempfile.TemporaryDirectory() as pg_dir:
+        dist.init_process_group("nccl", init_method=f"file://{pg_dir}/store", rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+            cfg = configs.get("qwen3_0_6b")
+            rules = rules_for(cfg, mesh)
+            print(f"mesh {mesh}; rules dp={rules.dp} tp={rules.tp} seq_shard_residual={rules.seq_shard_residual} "
+                  f"kv_shard={rules.kv_shard} expert_axis={rules.expert_axis} fsdp={rules.fsdp}")
+            b, s, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+            params = init_params(T.param_defs(cfg, rules), seed=seed, dtype=torch.bfloat16, device=dev, rules=rules)
+            batch = prompt_batch(cfg, b, s, seed, dev)
+            prefill = make_prefill_step(cfg, s + gen, rules=rules)
+            decode = make_decode_step(cfg, rules=rules)
+            for c in kernels.values():
+                c.launches = 0
+            caches, logits = prefill(params, batch)  # warm-up, as serve.run
+            decode(params, caches, greedy_token(cfg, logits), s)
+            del caches, logits
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            caches, logits = prefill(params, batch)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t) * 1e3
+            kv = caches["p0"]["k"]
+            tok = greedy_token(cfg, logits)
+            toks, lat = [full(tok)], []
+            for i in range(gen - 1):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                logits, caches = decode(params, caches, tok, s + i)
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t) * 1e3)
+                tok = greedy_token(cfg, logits)
+                toks.append(full(tok))
+            launches = counts()
+            tokens = torch.cat(toks, dim=1).cpu()
+            p50, p95 = float(np.percentile(lat, 50)), float(np.percentile(lat, 95))
+            print(f"sharded serve qwen3_0_6b bf16 B={b} prompt={s} gen={gen} on the (1, 1) mesh: prefill "
+                  f"{prefill_ms:.2f} ms (phase 5: {qwen_res.prefill_ms:.2f} ms), decode p50 {p50:.3f} ms p95 "
+                  f"{p95:.3f} ms (phase 5: {qwen_res.decode_p50_ms:.3f} / {qwen_res.decode_p95_ms:.3f} ms); "
+                  f"k cache {type(kv).__name__} {tuple(kv.shape)} placed {tuple(kv.placements)}; launches over 2 "
+                  f"prefills (warm-up included): {launches}")
+            if launches["flash_attention_fwd"] != 2 * cfg.n_layers or any(
+                    n for name, n in launches.items() if name != "flash_attention_fwd"):
+                fail(f"sharded serving launched {launches}, expected flash_attention_fwd {cfg.n_layers} times "
+                     "per prefill and nothing else")
+            if type(kv).__name__ != "DTensor" or type(logits).__name__ != "DTensor":
+                fail("sharded serving returned plain tensors")
+            if not torch.equal(tokens, qwen_res.tokens):
+                fail(f"sharded greedy tokens differ from phase 5's in {int((tokens != qwen_res.tokens).sum())} "
+                     f"of {tokens.numel()} places")
+            print(f"sharded greedy tokens equal phase 5's ({tuple(tokens.shape)})")
+            del params, caches, logits, kv, tok
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # one bf16 train step under FSDP rules against the unsharded step
+            frules = rules_for(cfg, mesh, fsdp=True)
+            ds = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq_len"],
+                                 global_batch=TRAIN["batch"], seed=seed)
+            tbatch = {"tokens": torch.from_numpy(ds.global_batch_at(0)).to(dev)}
+            opt = AdamW(lr=TRAIN_LR, moment_dtype=cfg.opt_moment_dtype)
+            stepped, train_launches = {}, {}
+            # deterministic algorithms, as phase 14's resume: else the embedding's backward adds
+            # with atomics in a varying order, and even two unsharded steps differ
+            torch.use_deterministic_algorithms(True)
+            try:
+                for name, r in (("unsharded", None), ("sharded", frules)):
+                    p = init_params(T.param_defs(cfg, r), seed=seed, device=dev, rules=r)
+                    st = opt.init(p)
+                    for c in kernels.values():
+                        c.launches = 0
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    p, st, metrics = make_train_step(cfg, opt, rules=r)(p, st, tbatch)
+                    torch.cuda.synchronize()
+                    stepped[name] = (p, st, float(full(metrics["loss"])), (time.perf_counter() - t) * 1e3)
+                    train_launches = counts()
+                    if train_launches["flash_attention_fwd"] != 2 * cfg.n_layers:
+                        fail(f"the {name} train step launched {train_launches}, expected flash_attention_fwd "
+                             f"{2 * cfg.n_layers} times")
+            finally:
+                torch.use_deterministic_algorithms(False)
+            (p0, st0, loss0, ms0), (p1, st1, loss1, ms1) = stepped["unsharded"], stepped["sharded"]
+            flat0, flat1 = dict(leaves(p0)), {k: full(v).detach() for k, v in leaves(p1)}
+            bitwise = loss0 == loss1 and all(torch.equal(flat1[k], v.detach()) for k, v in flat0.items())
+
+            def rel(got, want):  # per leaf: max |got - want| / max |want|
+                return {k: ((got[k].float() - w.detach().float()).abs().max()
+                            / w.detach().float().abs().max().clamp(min=1e-30)).item() for k, w in want.items()}
+
+            # the gradients, through the first moments (1 - b1) clip(g), in fp32: per leaf, and
+            # over the whole tree (a small leaf's bf16 sums cancel, and its largest element moves most)
+            m1, m0 = {k: full(v) for k, v in leaves(st1["m"])}, dict(leaves(st0["m"]))
+            m_rel = rel(m1, m0)
+            m_all = (math.sqrt(sum(float((m1[k] - v).double().square().sum()) for k, v in m0.items()))
+                     / math.sqrt(sum(float(v.double().square().sum()) for v in m0.values())))
+            # Adam's first step is about lr sign(g): where bf16 rounding flips a tiny gradient's
+            # sign, the two params differ by up to 2 lr, and by the rounding of bf16 params
+            p_abs = {k: (flat1[k].float() - w.detach().float()).abs().max().item() for k, w in flat0.items()}
+            p_bound = {k: 2 * TRAIN_LR + 2.0**-7 * w.detach().float().abs().max().item() for k, w in flat0.items()}
+            worst_m = max(m_rel, key=m_rel.get)
+            worst_p = max(p_abs, key=lambda k: p_abs[k] / p_bound[k])
+            n_diff = sum(int((flat1[k] != w.detach()).sum()) for k, w in flat0.items())
+            print(f"sharded train step qwen3_0_6b bf16, FSDP rules, deterministic algorithms, "
+                  f"B={TRAIN['batch']} x {TRAIN['seq_len']}: "
+                  f"loss {loss1!r} (unsharded {loss0!r}); {len(flat0)} params bit for bit {bitwise} ({n_diff} of "
+                  f"{sum(w.numel() for w in flat0.values())} elements differ); first moments: "
+                  f"||sharded - unsharded|| / ||unsharded|| over the tree {m_all:.3g}, largest per leaf "
+                  f"|sharded - unsharded| / max |unsharded| {m_rel[worst_m]:.3g} ({worst_m}); params: largest "
+                  f"|sharded - unsharded| {p_abs[worst_p]:.3g} against 2 lr + 2^-7 max |p| = {p_bound[worst_p]:.3g} "
+                  f"({worst_p}); step {ms1:.1f} ms (unsharded, first step: {ms0:.1f} ms); launches {train_launches}")
+            if not bitwise and (abs(loss1 - loss0) > SHARDED_STEP_TOL * abs(loss0) or m_all > SHARDED_STEP_TOL
+                                or p_abs[worst_p] > p_bound[worst_p]):
+                fail(f"the sharded train step differs from the unsharded one: the loss or the first moments "
+                     f"beyond {SHARDED_STEP_TOL} relative, or a param by more than a flipped first step")
+            del stepped, p0, st0, flat0
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # the sharded state saved from the mesh, restored onto it and onto the card
+            saved = {k: full(v).detach() for k, v in leaves({"params": p1, "opt_state": st1})}
+            with tempfile.TemporaryDirectory() as repo_dir:
+                ckpt = CheckpointManager(Repository.init(f"{repo_dir}/sharded"))
+                t = time.perf_counter()
+                oid = ckpt.save(1, p1, st1)
+                save_s = time.perf_counter() - t
+                placed = param_shardings(T.param_defs(cfg, frules), frules)
+                t = time.perf_counter()
+                onto_mesh, manifest = ckpt.restore(oid, device=dev, shardings={
+                    "params": placed, "opt_state": {"m": placed, "v": placed}})
+                torch.cuda.synchronize()
+                mesh_s = time.perf_counter() - t
+                got = dict(leaves(onto_mesh))
+                if not all(type(got[k]).__name__ == "DTensor" for k in got if not k.endswith("step")):
+                    fail("the restore with shardings returned plain tensors")
+                check_bit_equal(torch, "state restored onto the mesh", {k: full(v) for k, v in got.items()},
+                                saved, dev)
+                del onto_mesh, got
+                onto_card, _ = ckpt.restore(oid, device=dev)
+                check_bit_equal(torch, "state restored onto the card", dict(leaves(onto_card)), saved, dev)
+                del onto_card
+                plain = CheckpointManager(Repository.init(f"{repo_dir}/unsharded"))
+                plain.save(1, unflat(saved, "params/"), unflat(saved, "opt_state/"))
+                _, plain_manifest = plain.restore(device="cpu")
+                keys = {k: m["key"] for k, m in manifest["leaves"].items()}
+                if keys != {k: m["key"] for k, m in plain_manifest["leaves"].items()}:
+                    fail("the sharded save's annex keys differ from an unsharded save of the same tree")
+            print(f"sharded checkpoint: {len(keys)} leaves saved from the (1, 1) mesh in {save_s:.3f} s, restored "
+                  f"onto the mesh in {mesh_s:.3f} s and onto the card, both bit for bit; annex keys equal an "
+                  f"unsharded save's")
+        finally:
+            dist.destroy_process_group()
+    return launches, 2, train_launches
+
+
+def unflat(flat: dict, prefix: str) -> dict:
+    """The nested dict of the ``prefix``-ed paths of a flat ``{path: leaf}``."""
+    root: dict = {}
+    for path, v in flat.items():
+        if path.startswith(prefix):
+            *parents, name = path[len(prefix):].split("/")
+            node = root
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[name] = v
+    return root
 
 
 def main() -> None:
@@ -1370,7 +1581,15 @@ def main() -> None:
                f"{jamba_moe.n_experts} experts", cfg32, cache_len, params, batch,
                {mamba_scan_fwd: n_mamba, flash_attention_fwd: cfg32.n_layers - n_mamba}, {"h", "conv", "k", "v"})
     del params, batch
-    print(f"parity jamba experts phase {time.perf_counter() - t0:.1f} s; all phases "
+    print(f"parity jamba experts phase {time.perf_counter() - t0:.1f} s")
+
+    # ---------------------------------------------------- 26. sharded qwen3
+    t0 = phase("sharded qwen3")
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded_launches, sharded_prefills, sharded_train_launches = sharded_phase(
+        torch, np, configs, T, all_kernels, dev, args.seed, qwen_res)
+    print(f"sharded qwen3 phase {time.perf_counter() - t0:.1f} s; all phases "
           f"{time.perf_counter() - t_all:.1f} s")
 
     runs = {"qwen3_0_6b": (qwen_launches, qwen_res.prefills, "prefill"),
@@ -1383,7 +1602,9 @@ def main() -> None:
             MIXTRAL: (mixtral_launches, mixtral_res.prefills, "prefill"),
             f"{MIXTRAL} long": (long_launches, long_res.prefills, "prefill"),
             ARCTIC: (arctic_launches, arctic_res.prefills, "prefill"),
-            f"{JAMBA} with experts": (jamba_moe_launches, jamba_moe_res.prefills, "prefill")}
+            f"{JAMBA} with experts": (jamba_moe_launches, jamba_moe_res.prefills, "prefill"),
+            "qwen3_0_6b sharded, (1, 1) mesh": (sharded_launches, sharded_prefills, "prefill"),
+            "qwen3_0_6b sharded train, (1, 1) mesh, FSDP": (sharded_train_launches, 1, "step")}
 
     def launch_counts(name: str) -> dict:
         """The kernel's launches over the main-path runs, by path, and per

@@ -3,7 +3,9 @@
 A JAX tree, turned into numpy arrays (``jax.tree.map(np.asarray, params)``),
 becomes a tree of torch tensors with the same nested keys. bf16 arrives as
 an ``ml_dtypes`` bfloat16 array; it crosses as its uint16 bit pattern, so
-every value arrives bit for bit.
+every value arrives bit for bit. With sharding rules, each leaf arrives as a
+DTensor placed by ``param_defs(cfg, rules)``'s spec, every rank keeping its
+own shard of the whole array it was given.
 """
 from __future__ import annotations
 
@@ -11,6 +13,9 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .distributed.sharding import distribute_local, placements
+from .models import transformer as T
+from .models.params import param_specs
 
 
 def bf16_tensor_from_bits(bits: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -25,14 +30,25 @@ def tensor_from_numpy(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, order="C")).to(device)
 
 
-def params_from_numpy(tree: dict, device: str | torch.device = "cuda") -> dict:
-    """Nested dict of numpy arrays -> the same dict of tensors on ``device``."""
+def params_from_numpy(tree: dict, device: str | torch.device = "cuda", rules=None, cfg=None) -> dict:
+    """Nested dict of numpy arrays -> the same dict of tensors on ``device``;
+    with ``rules`` (and the model's ``cfg``), DTensors placed by
+    ``param_defs(cfg, rules)``."""
     dev = resolve_device(device)
+    if rules is None:
+        specs = None
+    elif cfg is None:
+        raise ValueError("params_from_numpy: rules need the model's cfg to place the weights")
+    else:
+        specs = param_specs(T.param_defs(cfg, rules))
 
-    def walk(node):
-        return {
-            k: walk(v) if isinstance(v, dict) else tensor_from_numpy(np.asarray(v), dev)
-            for k, v in node.items()
-        }
+    def one(v, spec):
+        t = tensor_from_numpy(np.asarray(v), dev)
+        return t if spec is None else distribute_local(t, rules.mesh, placements(spec, rules.mesh))
 
-    return walk(tree)
+    def walk(node, spec_node):
+        return {k: walk(v, None if spec_node is None else spec_node[k]) if isinstance(v, dict)
+                else one(v, None if spec_node is None else spec_node[k])
+                for k, v in node.items()}
+
+    return walk(tree, specs)

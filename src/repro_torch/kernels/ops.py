@@ -8,10 +8,15 @@ returns that version's vector-Jacobian product, as the reference's
 ``custom_vjp``s do (``repro/kernels/ops.py``); there is no backward kernel.
 Under ``torch.inference_mode()`` or ``no_grad`` nothing is recorded, and the
 forward is the one launch.
+
+A wrapper refuses a DTensor (TypeError) rather than hand it to the plain
+version or to a kernel's raw pointers: a sharded run calls it inside
+``local_map``, on each rank's local shard (``models/transformer.py``).
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from . import ref
 from .flash_attention import flash_attention_fwd
@@ -38,6 +43,12 @@ def _recompute_vjp(ctx, plain, n_diff: int, grads_out):
         got = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
                                        allow_unused=True) if wrt and pairs else ())
     return tuple(next(got) if t is not None and t.requires_grad else None for t in inputs)
+
+
+def _local_only(name: str, *tensors) -> None:
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{name} takes local tensors, not DTensors: call it inside local_map on each "
+                        "rank's shard")
 
 
 class FlashAttention(torch.autograd.Function):
@@ -88,6 +99,7 @@ def flash_attention(
     causal: bool = True, window: int | None = None,
 ) -> torch.Tensor:
     """q [B,Sq,H,Dh]; k/v [B,Sk,KV,Dh] -> [B,Sq,H,Dh]."""
+    _local_only("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal, window)
     return FlashAttention.apply(q, k, v, causal, window)
@@ -99,6 +111,7 @@ def rwkv6(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """r, k, v, logw [B,S,H,Dh]; u [H,Dh]; state0 [B,H,Dh,Dh] fp32 or None
     (zeros). Returns (out [B,S,H,Dh] in r's dtype, state [B,H,Dh,Dh] fp32)."""
+    _local_only("rwkv6", r, k, v, logw, u, state0)
     if r.device.type == "cpu":
         return ref.rwkv6_ref(r, k, v, logw, u, state0)
     return RWKV6.apply(r, k, v, logw, u, state0)
@@ -111,6 +124,7 @@ def mamba_scan(
     """u, dt [B,S,Di]; A [Di,St] fp32; B_, C_ [B,S,St] in u's dtype; h0
     [B,Di,St] fp32 or None (zeros). Returns (y [B,S,Di] in u's dtype, h
     [B,Di,St] fp32)."""
+    _local_only("mamba_scan", u, dt, A, B_, C_, h0)
     if u.device.type == "cpu":
         return ref.mamba_ref(u, dt, A, B_, C_, h0)
     return MambaScan.apply(u, dt, A, B_, C_, h0)

@@ -6,6 +6,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from ..distributed.sharding import distribute_local
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -63,6 +66,28 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
 
 
 # ---------------------------------------------------------------- loss
+def _lse_sharded(logits: DTensor) -> DTensor:
+    """logsumexp over the last dim of DTensor logits from each rank's vocab
+    shard: a max and a sum reduced across ranks ([B, S] each), where
+    ``torch.logsumexp`` on a vocab-sharded DTensor all-gathers the logits."""
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    return (m + torch.log(torch.exp(logits - m).sum(dim=-1, keepdim=True))).squeeze(-1)
+
+
+def _gold_sharded(logits: DTensor, labels: torch.Tensor) -> DTensor:
+    """The gold logit of DTensor logits by the reference's one-hot
+    contraction (``repro/models/layers.py:74-75``): each rank multiplies its
+    own vocab shard and the sum over the vocab reduces partial sums, so
+    vocab-sharded logits are never gathered. (DTensor's gather on a sharded
+    dim gives a masked partial sum, which fails on a second call.) The
+    labels take the logits' placements of their leading dims."""
+    mesh = logits.device_mesh
+    place = [p if isinstance(p, Shard) and p.dim < labels.ndim else Replicate() for p in logits.placements]
+    labels = (labels.redistribute(mesh, place) if isinstance(labels, DTensor)
+              else distribute_local(labels, mesh, place))
+    return (logits * F.one_hot(labels.long(), logits.shape[-1]).to(logits.dtype)).sum(-1)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None) -> torch.Tensor:
     """Mean token cross-entropy in fp32. The gold logit is gathered rather
@@ -70,8 +95,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     is 2.5 GB at B=8, S=512, V=152064); the value is the same, since that
     product's sum has one nonzero term."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
+    if isinstance(logits, DTensor):
+        lse, gold = _lse_sharded(logits), _gold_sharded(logits, labels)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
     nll = lse - gold
     if mask is not None:
         mask = mask.float()

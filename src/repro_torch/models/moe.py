@@ -23,7 +23,8 @@ Where torch and jax differ, the port computes what the reference does:
 
 ``moe_ffn`` names its three parts as profiler ranges (``RANGES``): the
 router and the dispatch and combine tensors with the gather into the expert
-buffer, the expert GEMMs, and the combine back to tokens.
+buffer (two ranges of that name a layer: the router's, then
+``expert_ffn``'s), the expert GEMMs, and the combine back to tokens.
 """
 from __future__ import annotations
 
@@ -62,11 +63,20 @@ def moe_ffn(
     cfg: MoEConfig,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (output [B,S,D] in x's dtype, aux_loss fp32)."""
+    with record_function(DISPATCH):
+        gates, idx, aux = router_topk(x, w_router, cfg)
+    return expert_ffn(x, gates, idx, w1, w3, w2, cfg), aux.float()
+
+
+def expert_ffn(x: torch.Tensor, gates: torch.Tensor, idx: torch.Tensor, w1: torch.Tensor,
+               w3: torch.Tensor, w2: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+    """``moe_ffn`` after the router: each batch row's capacity queue, the
+    dispatch, the expert GEMMs and the combine. Returns [B,S,D] in x's
+    dtype. Every batch row is computed on its own, so a sharded run calls it
+    on each rank's batch shard (``models/transformer.py``)."""
     b, s, d = x.shape
     e, k = w1.shape[0], cfg.top_k
     with record_function(DISPATCH):
-        gates, idx, aux = router_topk(x, w_router, cfg)
-
         capacity = max(1, int(cfg.capacity_factor * s * k / e))
         # expert one-hot per (token, k-slot), flattened to the (S, k) order: [B, S*k, E]
         mask_flat = F.one_hot(idx, e).float().reshape(b, s * k, e)
@@ -86,5 +96,4 @@ def moe_ffn(
         lin_h = torch.einsum("ebcd,edf->ebcf", expert_in, w3)
         y = torch.einsum("ebcf,efd->ebcd", gate_h * lin_h, w2)  # [E, B, C, D]
     with record_function(COMBINE):
-        out = torch.einsum("bsec,ebcd->bsd", combine, y)
-    return out, aux.float()
+        return torch.einsum("bsec,ebcd->bsd", combine, y)

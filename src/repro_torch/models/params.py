@@ -1,8 +1,13 @@
 """Parameter definition trees (port of ``repro.models.params``).
 
-A model is declared as a nested dict of :class:`ParamDef`; ``init_params``
-materialises it with the same nested keys and ``/``-paths as the reference,
-so a tree crosses between the packages leaf by leaf (``convert.py``).
+A model is declared as a nested dict of :class:`ParamDef`: a shape, a
+logical partition spec and an init. ``init_params`` materialises it with
+the same nested keys and ``/``-paths as the reference, so a tree crosses
+between the packages leaf by leaf (``convert.py``); with sharding rules
+each leaf is a DTensor placed by its spec. ``abstract_params`` gives the
+same tree (or each device's shard of it) on the ``meta`` device,
+allocating nothing, and ``param_shardings`` the ``(mesh, placements)`` of
+each leaf.
 
 Init: each leaf draws from its own ``torch.Generator`` on the target device,
 seeded by the same sha256 of ``f"{seed}:{path}"`` as the reference. The
@@ -16,15 +21,18 @@ import hashlib
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.tensor import Shard
 
 from .. import resolve_device
+from ..distributed.sharding import P, distribute_local, placements
 
 
 @dataclass(frozen=True)
 class ParamDef:
     shape: tuple[int, ...]
-    init: str = "normal"  # normal | zeros | ones | mamba_a
+    init: str = "normal"  # normal | zeros | ones | mamba_a (cache_defs: fp32 marks an fp32 state)
     scale: float | None = None  # stddev; None -> 1/sqrt(fan_in)
+    spec: P = P()  # logical partition spec (not used without rules)
 
 
 def _is_def(x) -> bool:
@@ -71,17 +79,67 @@ def _init_one(path: str, d: ParamDef, seed: int, dtype: torch.dtype,
     return x.mul_(scale).to(dtype)
 
 
+def _map_defs(defs: dict, fn) -> dict:
+    return {name: fn(node) if _is_def(node) else _map_defs(node, fn) for name, node in defs.items()}
+
+
 def init_params(defs: dict, seed: int, dtype: torch.dtype = torch.bfloat16,
-                device: str | torch.device = "cuda") -> dict:
-    """Materialise parameters on ``device``."""
+                device: str | torch.device = "cuda", rules=None) -> dict:
+    """Materialise parameters on ``device``. With ``rules`` each leaf is a
+    DTensor on ``rules.mesh`` placed by its spec: every rank draws the whole
+    leaf from the same per-path generator (so the full leaf is drawn once per
+    rank, and the values are those of an unsharded init) and keeps its own
+    shard; nothing is communicated."""
     dev = resolve_device(device)
+
+    def one(path, d):
+        leaf = _init_one(path, d, seed, dtype, dev)
+        if rules is None:
+            return leaf
+        return distribute_local(leaf, rules.mesh, placements(d.spec, rules.mesh))
 
     def walk(node, prefix):
         return {
-            name: _init_one(f"{prefix}/{name}", child, seed, dtype, dev)
-            if _is_def(child)
-            else walk(child, f"{prefix}/{name}")
+            name: one(f"{prefix}/{name}", child) if _is_def(child) else walk(child, f"{prefix}/{name}")
             for name, child in node.items()
         }
 
     return walk(defs, "")
+
+
+def abstract_params(defs: dict, dtype: torch.dtype, rules=None) -> dict:
+    """The parameter tree as tensors on the ``meta`` device: shapes and
+    dtype, no storage on any device. With ``rules``, each leaf has the shape
+    of the largest shard one device holds of it (the first rank's, split as
+    ``torch.chunk`` splits), for a per-device memory count; its placements
+    are in ``param_shardings(defs, rules)``."""
+
+    def one(d: ParamDef) -> torch.Tensor:
+        shape = list(d.shape)
+        if rules is not None:
+            for i, p in enumerate(placements(d.spec, rules.mesh)):
+                if isinstance(p, Shard):
+                    shape[p.dim] = -(-shape[p.dim] // tuple(rules.mesh.shape)[i])
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    return _map_defs(defs, one)
+
+
+def param_specs(defs: dict) -> dict:
+    return _map_defs(defs, lambda d: d.spec)
+
+
+def param_shardings(defs: dict, rules) -> dict:
+    """``(mesh, placements)`` of every leaf, as ``CheckpointManager.restore``
+    takes them."""
+    return _map_defs(defs, lambda d: rules.sharding(d.spec))
+
+
+def param_count(defs: dict) -> int:
+    total = 0
+    for _, d in tree_paths(defs):
+        n = 1
+        for s in d.shape:
+            n *= s
+        total += n
+    return total

@@ -8,6 +8,12 @@ are computed from it in fp32, as the reference computes them, so the update
 is the reference's to fp32 rounding. The state has the reference's tree
 paths (``m``, ``v``, ``step``), so a checkpoint's leaf paths and annex keys
 match across the packages.
+
+Sharded (DTensor) parameters: the moments are made with ``zeros_like`` and
+so carry their parameters' placements, as the reference's moments inherit
+their parameters' shardings; each gradient is first redistributed to its
+parameter's placements (a gradient may come back ``Partial``), and the
+global norm reduces over the DTensors to one replicated scalar.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ from collections.abc import Callable
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..tree import leaves, tree_map
 
@@ -44,6 +51,13 @@ def cosine_schedule(base_lr: float, warmup: int, total: int) -> Callable:
     return lr
 
 
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient redistributed to its parameter's placements."""
+    if isinstance(g, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 @dataclass(frozen=True)
 class AdamW:
     lr: Callable | float = 3e-4
@@ -62,6 +76,8 @@ class AdamW:
         device = leaves(params)[0].device
 
         def zeros(p):
+            if isinstance(p, DTensor):
+                return torch.zeros_like(p, dtype=mdt)
             return torch.zeros(p.shape, dtype=mdt, device=p.device)
 
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
@@ -71,6 +87,7 @@ class AdamW:
     def update(self, grads, state, params):
         """Clip ``grads``, then update ``params`` and the moments of ``state``
         in place. Returns (params, {"m", "v", "step"}, {"grad_norm", "lr"})."""
+        grads = tree_map(_placed_like, grads, params)
         grads, gnorm = clip_by_global_norm(grads, self.max_grad_norm)
         step = state["step"] + 1
         lr = self.lr(step) if callable(self.lr) else self.lr

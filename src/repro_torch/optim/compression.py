@@ -30,7 +30,7 @@ def ef_compress_tree(grads, residual):
     """(dequantised grads in their own dtypes, new fp32 residual) for the
     gradient tree ``grads`` and the previous ``residual`` (None: zeros)."""
     if residual is None:
-        residual = tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device), grads)
+        residual = tree_map(lambda g: torch.zeros_like(g, dtype=torch.float32), grads)
     new_g, new_r = [], []
     for g, r in zip(leaves(grads), leaves(residual)):
         g32 = g.float() + r

@@ -20,6 +20,15 @@ to the host once. ``save_async`` takes that copy, then writes and commits
 on a worker thread; a failure there is re-raised from ``wait()`` or the next
 ``save_async``. ``restore`` reads, verifies and loads the leaves on a thread
 pool and returns tensors on ``device``.
+
+Sharded state (DTensor leaves, every rank of the process group calling):
+``save`` gathers each DTensor leaf with ``full_tensor()`` on every rank, in
+path order; only rank 0 writes and commits, then every rank passes a
+barrier and returns rank 0's commit. The files, manifest and annex keys are
+those of an unsharded save of the same values. ``restore(...,
+shardings=...)`` is the elastic restart: rank 0 alone reads each leaf, once,
+and each leaf is distributed from rank 0 onto the mesh and placements it is
+given, which need not be those it was saved under.
 """
 from __future__ import annotations
 
@@ -30,6 +39,8 @@ from multiprocessing.pool import ThreadPool
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from .. import resolve_device
 from ..convert import bf16_tensor_from_bits, tensor_from_numpy
@@ -105,19 +116,46 @@ def _host(leaf) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
+def _mesh_device(mesh) -> torch.device:
+    """The device of this rank's shards on ``mesh``."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _from_rank0(obj):
+    """Rank 0's ``obj`` on every rank."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 class CheckpointManager:
     def __init__(self, repo: Repository):
         self.repo = repo
         self._thread: threading.Thread | None = None
         self._async_exc: BaseException | None = None
+        self._async_sharded = False  # the save in flight ends in a barrier of every rank
         # checkpoints() cache, per branch: the tip it was computed at, every
         # commit already walked, and the (timestamp, oid, step) rows
         self._ckpt_cache: dict[str, dict] = {}
 
     # ------------------------------------------------------------- save
     @staticmethod
-    def _snapshot(params, opt_state) -> dict:
-        return {p: _host(v) for p, v in _flatten({"params": params, "opt_state": opt_state}).items()}
+    def _snapshot(params, opt_state) -> tuple[dict | None, bool]:
+        """(host copies of every leaf, whether the state is sharded). A
+        sharded state's DTensor leaves are gathered on every rank, in path
+        order, and only rank 0 keeps the copies (None elsewhere)."""
+        flat = _flatten({"params": params, "opt_state": opt_state})
+        sharded = any(isinstance(v, DTensor) for v in flat.values())
+        keep = not sharded or dist.get_rank() == 0
+        host = {}
+        for p, v in flat.items():
+            if isinstance(v, DTensor):
+                v = v.full_tensor()  # a collective: every rank, in the same order
+            if keep:
+                host[p] = _host(v)
+        return (host if keep else None), sharded
 
     def save(self, step: int, params, opt_state, data_step: int = 0, extra: dict | None = None,
              message: str = "") -> str:
@@ -125,15 +163,25 @@ class CheckpointManager:
         ``data_step`` (the data position to resume at) and ``extra`` go into
         the manifest and the run record; ``message`` heads the commit
         message (default ``"[REPRO CKPT] step N"``; the marker is prefixed
-        when missing)."""
-        return self._write(step, self._snapshot(params, opt_state), data_step, extra, message)
+        when missing). With DTensor leaves every rank calls it and gets rank
+        0's commit."""
+        host, sharded = self._snapshot(params, opt_state)
+        oid = self._write(step, host, data_step, extra, message) if host is not None else None
+        if sharded:
+            dist.barrier()
+            oid = _from_rank0(oid)
+        return oid
 
     def save_async(self, step: int, params, opt_state, data_step: int = 0, extra: dict | None = None,
                    message: str = "") -> None:
         """Copy the state to the host now, then write and commit on a worker
-        thread. The previous async save's failure, if any, is raised here."""
+        thread (rank 0's, for a sharded state: every rank then meets at a
+        barrier in ``wait()``). The previous async save's failure, if any,
+        is raised here."""
         self.wait()
-        host = self._snapshot(params, opt_state)
+        host, self._async_sharded = self._snapshot(params, opt_state)
+        if host is None:
+            return
 
         def work():
             try:
@@ -149,6 +197,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._async_sharded:
+            self._async_sharded = False
+            dist.barrier()
         exc, self._async_exc = self._async_exc, None
         if exc is not None:
             raise exc
@@ -238,11 +289,20 @@ class CheckpointManager:
         return self.repo.annex.read(entry["key"])
 
     def restore(self, commitish: str | None = None, device: str | torch.device = "cuda",
-                fetch_workers: int = FETCH_WORKERS):
+                fetch_workers: int = FETCH_WORKERS, shardings=None):
         """(state tree of tensors on ``device``, manifest) of a checkpoint
         commit (branch, oid or unique prefix; default the newest), or
         (None, None) when there is none. Leaves are read and verified on
-        ``fetch_workers`` threads."""
+        ``fetch_workers`` threads.
+
+        ``shardings``: a tree like the state's, or a flat ``{path: (mesh,
+        placements)}``, to restore under a mesh (the elastic restart; any
+        mesh, not only the one saved from). Every rank calls it. Rank 0 reads
+        the checkpoint; each leaf with a sharding becomes a DTensor
+        distributed from rank 0, each other leaf a tensor on ``device``
+        broadcast from rank 0."""
+        if shardings is not None:
+            return self._restore_sharded(commitish, device, fetch_workers, _flatten(shardings))
         dev = resolve_device(device)
         if commitish is None:
             latest = self.latest()
@@ -291,4 +351,36 @@ class CheckpointManager:
             arr = arrays[path]
             flat[path] = (bf16_tensor_from_bits(arr, dev) if meta["dtype"] == "bfloat16"
                           else tensor_from_numpy(arr, dev))
+        return _unflatten(flat), manifest
+
+    def _restore_sharded(self, commitish, device, fetch_workers: int, shardings: dict):
+        """``restore`` with ``shardings`` (flat): rank 0 restores to the CPU
+        and every leaf is sent from there."""
+        dev = resolve_device(device)
+        state, manifest = (self.restore(commitish, device="cpu", fetch_workers=fetch_workers)
+                           if dist.get_rank() == 0 else (None, None))
+        manifest = _from_rank0(manifest)
+        if manifest is None:
+            return None, None
+        host = _flatten(state) if state is not None else {}
+        flat = {}
+        for path in sorted(manifest["leaves"]):
+            meta = manifest["leaves"][path]
+            dtype = torch.bfloat16 if meta["dtype"] == "bfloat16" else getattr(torch, meta["dtype"])
+            if path in shardings:
+                mesh, place = shardings[path]
+                if int(mesh.mesh.flatten()[0]) != 0:
+                    raise ValueError(f"{path}: the mesh's first rank must be rank 0, which reads the checkpoint")
+                target = _mesh_device(mesh)
+            else:
+                target = dev
+            if dist.get_rank() == 0:
+                leaf = host[path].to(target)
+            else:
+                leaf = torch.empty(meta["shape"], dtype=dtype, device=target)
+            if path in shardings:
+                flat[path] = distribute_tensor(leaf, mesh, place)  # scattered from the mesh's first rank
+            else:
+                dist.broadcast(leaf, src=0)
+                flat[path] = leaf
         return _unflatten(flat), manifest

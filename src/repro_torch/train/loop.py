@@ -22,7 +22,7 @@ from .. import resolve_device
 from ..configs.base import ModelConfig
 from ..core.repo import Repository
 from ..models import transformer as T
-from ..models.params import init_params
+from ..models.params import init_params, param_shardings
 from ..optim.adamw import AdamW
 from .checkpoint import CheckpointManager
 from .steps import make_train_step
@@ -68,23 +68,33 @@ def train_segment(
     seed: int = 0,
     async_ckpt: bool = False,
     device: str | torch.device = "cuda",
+    rules=None,
 ) -> SegmentResult:
     """Train from the newest checkpoint (or from ``init_params(seed=seed)``,
     bf16) to step ``n_steps``. Each checkpoint records ``data_step`` and
     ``extra={"loss", "config"}``; with ``async_ckpt`` its write and commit
-    overlap the next steps."""
+    overlap the next steps. With sharding ``rules`` every rank of the mesh
+    calls it: the params and moments are initialised, or restored, as
+    DTensors placed by ``param_defs(cfg, rules)``, whatever mesh the
+    checkpoint was saved from; every rank reads the whole batch of a step and
+    keeps its shard."""
     check_token_only(cfg)
     dev = resolve_device(device)
     optimizer = optimizer or AdamW(lr=1e-3, moment_dtype=cfg.opt_moment_dtype)
     ckpt = CheckpointManager(repo)
-    step_fn = make_train_step(cfg, optimizer)
+    step_fn = make_train_step(cfg, optimizer, rules=rules)
+    defs = T.param_defs(cfg, rules)
 
-    state, manifest = ckpt.restore(device=dev)
+    shardings = None
+    if rules is not None:
+        placed = param_shardings(defs, rules)
+        shardings = {"params": placed, "opt_state": {"m": placed, "v": placed}}
+    state, manifest = ckpt.restore(device=dev, shardings=shardings)
     if state is not None:
         params, opt_state = state["params"], state["opt_state"]
         start = int(manifest["step"])
     else:
-        params = init_params(T.param_defs(cfg), seed=seed, device=dev)
+        params = init_params(defs, seed=seed, device=dev, rules=rules)
         opt_state = optimizer.init(params)
         start = 0
 

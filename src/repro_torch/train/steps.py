@@ -8,12 +8,19 @@ the parameters in place. The serving steps run under
 ``torch.inference_mode()``. Every step hands the whole batch to the model:
 the tokens and, for encoder-decoder and VLM configs, the stub frontends'
 ``encoder_embeds``, ``vision_embeds`` and ``positions3``.
+
+Every step takes ``rules=None`` as a keyword. With sharding rules the params
+and optimizer state are DTensors placed by ``param_defs(cfg, rules)``; the
+forward and the backward run inside ``sharded_region(rules)``, and the
+serving steps under ``torch.no_grad()`` rather than ``inference_mode()``,
+whose tensors DTensor's views refuse.
 """
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import sharded_region
 from ..models import transformer as T
 from ..models.layers import cross_entropy
 from ..optim.adamw import AdamW
@@ -44,7 +51,7 @@ def _split_microbatches(batch: dict, n: int) -> dict:
     return out
 
 
-def make_grad_fn(cfg: ModelConfig):
+def make_grad_fn(cfg: ModelConfig, *, rules=None):
     """``grads_of(params, batch) -> (loss, aux, grads)``: the loss and aux
     loss as fp32 scalars and the gradient tree of the weighted loss. Each
     parameter is marked as needing a gradient. With ``cfg.microbatches > 1``
@@ -56,9 +63,10 @@ def make_grad_fn(cfg: ModelConfig):
 
     def one(params, batch):
         flat = [p.requires_grad_() for p in leaves(params)]
-        logits, aux = T.forward_train(cfg, params, batch)
-        loss = masked_loss(logits, batch["tokens"], cfg.vocab_size)
-        grads = torch.autograd.grad(loss + aux_w * aux, flat)
+        with sharded_region(rules):
+            logits, aux = T.forward_train(cfg, params, batch, rules=rules)
+            loss = masked_loss(logits, batch["tokens"], cfg.vocab_size)
+            grads = torch.autograd.grad(loss + aux_w * aux, flat)
         return loss.detach(), aux.detach(), grads
 
     def grads_of(params, batch):
@@ -80,12 +88,12 @@ def make_grad_fn(cfg: ModelConfig):
     return grads_of
 
 
-def make_train_step(cfg: ModelConfig, optimizer: AdamW, compress_grads: bool = False):
+def make_train_step(cfg: ModelConfig, optimizer: AdamW, compress_grads: bool = False, *, rules=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``;
     ``params`` and the moments are updated in place. With ``compress_grads``
     the gradients pass through int8 error-feedback compression first, and
     its residual rides in ``opt_state["ef_residual"]``."""
-    grads_of = make_grad_fn(cfg)
+    grads_of = make_grad_fn(cfg, rules=rules)
 
     def train_step(params, opt_state, batch):
         loss, aux, grads = grads_of(params, batch)
@@ -99,18 +107,22 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, compress_grads: bool = F
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, cache_len: int):
-    @torch.inference_mode()
+def _serving_mode(rules):
+    return torch.inference_mode() if rules is None else torch.no_grad()
+
+
+def make_prefill_step(cfg: ModelConfig, cache_len: int, *, rules=None):
     def prefill_step(params, batch):
-        return T.prefill(cfg, params, batch, cache_len=cache_len)
+        with _serving_mode(rules):
+            return T.prefill(cfg, params, batch, cache_len=cache_len, rules=rules)
 
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig):
-    @torch.inference_mode()
+def make_decode_step(cfg: ModelConfig, *, rules=None):
     def decode_step(params, caches, token, pos):
-        return T.decode_step(cfg, params, caches, token, pos)
+        with _serving_mode(rules):
+            return T.decode_step(cfg, params, caches, token, pos, rules=rules)
 
     return decode_step
 
@@ -120,10 +132,11 @@ def greedy_token(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
     return logits[:, : cfg.vocab_size].argmax(dim=-1, keepdim=True)
 
 
-def greedy_decode(cfg: ModelConfig, params, batch, n_tokens: int, cache_len: int) -> torch.Tensor:
+def greedy_decode(cfg: ModelConfig, params, batch, n_tokens: int, cache_len: int, *,
+                  rules=None) -> torch.Tensor:
     """Batched greedy generation on prefill + decode_step: [B, n_tokens]."""
-    prefill_fn = make_prefill_step(cfg, cache_len)
-    step_fn = make_decode_step(cfg)
+    prefill_fn = make_prefill_step(cfg, cache_len, rules=rules)
+    step_fn = make_decode_step(cfg, rules=rules)
     caches, logits = prefill_fn(params, batch)
     prompt_len = batch["tokens"].shape[1]
     tok = greedy_token(cfg, logits)

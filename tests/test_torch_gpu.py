@@ -701,3 +701,143 @@ def test_train_segment_runs_the_flash_op_with_gradients(cuda, tmp_path, monkeypa
     assert flash_attention_fwd.launches - before == 2 * 2 * cfg.n_layers
     assert len(seen) == 2 * 2 * cfg.n_layers and all(seen)
     assert np.isfinite(res.final_loss) and res.checkpoint_commit
+
+
+# ---------------------------------------------------------------- sharded runs
+# A one-rank NCCL process group and a (1, 1) ("data", "model") mesh: the
+# DTensor and local_map path of a sharded run, through the kernels, against
+# the unsharded run. One card cannot hold two NCCL ranks; the multi-rank
+# checks run on the CPU with gloo (tests/test_torch_sharded_run.py).
+@pytest.fixture(scope="module")
+def mesh11(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the card with -m gpu")
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(0)
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_tokens(cfg, params, rules, batch, gen: int, cache_len: int):
+    """Greedy tokens and every step's logits of prefill + ``gen - 1`` decode
+    steps, and the kernels' launches over them."""
+    from repro_torch.train.steps import greedy_token, make_decode_step
+
+    counters = (flash_attention_fwd, rwkv6_fwd, mamba_scan_fwd)
+    before = [c.launches for c in counters]
+    pre = make_prefill_step(cfg, cache_len, rules=rules)
+    dec = make_decode_step(cfg, rules=rules)
+    caches, logits = pre(params, batch)
+    prompt = batch["tokens"].shape[1]
+    toks, lg = [greedy_token(cfg, logits)], [logits]
+    for i in range(gen - 1):
+        logits, caches = dec(params, caches, toks[-1], prompt + i)
+        toks.append(greedy_token(cfg, logits))
+        lg.append(logits)
+    torch.cuda.synchronize()
+
+    def full(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    return ([full(t) for t in toks], [full(t) for t in lg],
+            [c.launches - b for c, b in zip(counters, before)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3_0_6b", "rwkv6_1_6b", "jamba_1_5_large_398b"])
+def test_sharded_smoke_serving_on_a_one_rank_mesh_matches_unsharded(mesh11, arch):
+    """fp32 smoke serving (jamba with its experts), kernels on: prefill and 3
+    decode steps on the (1, 1) mesh give the unsharded run's tokens exactly,
+    its logits to 1e-5, and the same kernel launches."""
+    from repro_torch.distributed.sharding import rules_for
+
+    cfg = configs.get_smoke(arch).replace(use_pallas="on")
+    rules = rules_for(cfg, mesh11)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (8, 64))).cuda()}
+    plain = init_params(T.param_defs(cfg), seed=0, dtype=torch.float32, device="cuda")
+    placed = init_params(T.param_defs(cfg, rules), seed=0, dtype=torch.float32, device="cuda", rules=rules)
+    tok0, lg0, n0 = _sharded_tokens(cfg, plain, None, batch, 4, 72)
+    tok1, lg1, n1 = _sharded_tokens(cfg, placed, rules, batch, 4, 72)
+    assert n1 == n0 and sum(n0) > 0
+    for a, b in zip(tok1, tok0):
+        assert torch.equal(a, b)
+    for a, b in zip(lg1, lg0):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["flash", "rwkv6", "mamba"])
+def test_kernel_ops_under_local_map_equal_the_plain_tensor_call(mesh11, kernel):
+    """Each kernel through the model's local_map wiring, on DTensor inputs
+    on the (1, 1) mesh, equals the call on plain tensors bit for bit, one
+    launch each."""
+    from repro_torch.distributed.sharding import P, distribute_local, placements, rules_for
+
+    rules = rules_for(configs.get_smoke("qwen3_0_6b"), mesh11)
+    ctx = T.Ctx(mode="prefill", rules=rules)
+    op, args, _, _ = _grad_case(kernel, "cuda")
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    dargs = [distribute_local(a, mesh11, placements(P(), mesh11)) for a in tensors]
+    counter = {"flash": flash_attention_fwd, "rwkv6": rwkv6_fwd, "mamba": mamba_scan_fwd}[kernel]
+    wired = {"flash": lambda *a: T._attend(ctx, lambda q, k, v: ops.flash_attention(q, k, v, True, None), *a),
+             "rwkv6": lambda *a: T._on_heads_wkv(ctx, ops.rwkv6, *a),
+             "mamba": lambda *a: T._on_channels_scan(ctx, ops.mamba_scan, *a)}[kernel]
+    with torch.no_grad():
+        before = counter.launches
+        got = wired(*dargs)
+        assert counter.launches == before + 1
+        want = op(*args)
+    got, want = (got, want) if isinstance(want, tuple) else ((got,), (want,))
+    for g, w in zip(got, want):
+        assert type(g).__name__ == "DTensor"
+        assert torch.equal(g.full_tensor(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["flash", "rwkv6", "mamba"])
+def test_kernel_op_refuses_a_dtensor_outside_local_map(mesh11, kernel):
+    from repro_torch.distributed.sharding import P, distribute_local, placements
+
+    op, args, _, _ = _grad_case(kernel, "cuda")
+    counter = {"flash": flash_attention_fwd, "rwkv6": rwkv6_fwd, "mamba": mamba_scan_fwd}[kernel]
+    dargs = [distribute_local(a, mesh11, placements(P(), mesh11)) if isinstance(a, torch.Tensor) else a
+             for a in args]
+    before = counter.launches
+    with pytest.raises(TypeError, match="not DTensors"):
+        op(*dargs)
+    assert counter.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fsdp", [False, True])
+def test_sharded_smoke_train_step_on_a_one_rank_mesh_matches_unsharded(mesh11, fsdp):
+    """One fp32 smoke qwen3 train step, flash kernel on, on the (1, 1) mesh
+    (the backward runs on the card's autograd thread): loss and params after
+    the step equal the unsharded step's at the CPU test's step tolerance."""
+    from repro_torch.distributed.sharding import rules_for
+    from repro_torch.train.steps import make_train_step
+
+    cfg = configs.get_smoke("qwen3_0_6b").replace(use_pallas="on")
+    rules = rules_for(cfg, mesh11, fsdp=fsdp)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (8, 64))).cuda()}
+    out = []
+    for r in (None, rules):
+        params = init_params(T.param_defs(cfg, r), seed=0, dtype=torch.float32, device="cuda", rules=r)
+        opt = AdamW(lr=1e-3)
+        state = opt.init(params)
+        before = flash_attention_fwd.launches
+        params, state, metrics = make_train_step(cfg, opt, rules=r)(params, state, batch)
+        torch.cuda.synchronize()
+        assert flash_attention_fwd.launches - before == 2 * cfg.n_layers
+        out.append((params, metrics))
+    (p0, m0), (p1, m1) = out
+    loss1 = m1["loss"].full_tensor() if hasattr(m1["loss"], "full_tensor") else m1["loss"]
+    torch.testing.assert_close(loss1, m0["loss"], rtol=1e-4, atol=1e-5)
+    for a, b in zip(leaves(p1), leaves(p0)):
+        torch.testing.assert_close(a.full_tensor().detach(), b.detach(), rtol=1e-4, atol=1e-5)
