@@ -162,6 +162,22 @@ Phases; any failure exits non-zero before the result lines are printed.
                     with the annex keys of an unsharded save of the same tree.
                     One card holds one NCCL rank: the multi-rank checks run on
                     the CPU (tests/test_torch_sharded_run.py).
+ 27. dryrun       — the launch tools on the card's torch: the dry-run
+                    (``repro_torch.launch.dryrun.run_cell``, meta tensors on a
+                    fake process group of 256 or 512 ranks) of
+                    tests/test_dryrun_smoke.py's four cells, each of which must
+                    come back "ok", with its roofline row (model outputs from
+                    H100 data-sheet constants, no card time). The card's memory
+                    must equal launch/mesh.py's HBM_BYTES. Then the dry-run of
+                    phase 5's prefill and one decode step at position 512, and of
+                    phase 14's B=8 x 512 train step, unsharded and on a (1, 1)
+                    mesh, held against the same steps run once on the card from
+                    seed weights: predicted peak memory within 10% or 256 MiB of
+                    ``max_memory_allocated`` above the memory held before the
+                    step's arguments, FLOPs equal to ``FlopCounterMode``'s over
+                    the card's run, and the flash launches planned equal to the
+                    launches run (28, 0 and 56); prints the roofline bound beside
+                    phase 5's prefill, its decode p50 and phase 14's step p50.
 Phases 3, 4 and 9 also run one backward through each kernel op
 (``ops.flash_attention``, ``ops.rwkv6``, ``ops.mamba_scan``) at a small fp32
 shape and hold its gradients against the plain version's autograd.
@@ -242,6 +258,9 @@ RWKV_SHAPES = [RWKV_SERVE_SHAPE, (2, 64, 2, 32), (1, 128, 4, 64), (1, 32, 1, 128
 MAMBA_SERVE_SHAPE = (8, 512, 16384, 16)
 MAMBA_SHAPES = [MAMBA_SERVE_SHAPE, (2, 64, 64, 8), (1, 128, 256, 16), (2, 40, 96, 4), (1, 64, 200, 16)]
 SERVE = dict(batch=8, prompt_len=512, gen=32)
+DRYRUN_CELLS = [("qwen3_0_6b", "train_4k", False), ("qwen3_0_6b", "decode_32k", False),
+                ("rwkv6_1_6b", "long_500k", False), ("qwen3_0_6b", "train_4k", True)]  # tests/test_dryrun_smoke.py's
+DRYRUN_PEAK_TOL, DRYRUN_PEAK_SLACK = 0.10, 256 << 20  # phase 27: predicted peak within 10% or 256 MiB
 SHARDED_STEP_TOL = 2e-2  # phase 26: the FSDP step's loss and first moments against the unsharded one, relative
 JAMBA = "jamba_1_5_large_398b"
 JAMBA_CUTS = {"moe": None, "n_layers": 16}  # without experts, 16 of 72 layers fit the card
@@ -310,55 +329,53 @@ def bound(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
 
 def attention_flops(shape) -> int:
     """4 * Dh flops per unmasked (row, col) pair per head: q k^T and p v (the
-    exponentials are not counted)."""
-    import numpy as np
+    exponentials are not counted); ``kernels/costs.py``, the kernel op's
+    FLOP formula."""
+    from repro_torch.kernels import costs
 
     b, sq, sk, h, kv, d, causal, window = shape
-    rows = np.arange(sq)
-    hi = np.minimum(rows + 1, sk) if causal else np.full(sq, sk)
-    lo = np.maximum(rows - window + 1, 0) if (causal and window) else np.zeros(sq, np.int64)
-    return 4 * d * int(np.maximum(hi - lo, 0).sum()) * b * h
+    return costs.attention_flops(b, sq, sk, h, d, causal, window)
 
 
 def attention_bound_ms(shape, dtype_name: str, elem_bytes: int) -> tuple[float, str]:
     """Least time for causal GQA attention on an H100: each of q, k, v read
     once and o written once, against ``attention_flops``."""
-    b, sq, sk, h, kv, d = shape[:6]
-    nbytes = elem_bytes * (2 * b * sq * h * d + 2 * b * sk * kv * d)
-    return bound(nbytes, attention_flops(shape), dtype_name)
+    from repro_torch.kernels import costs
+
+    return bound(costs.attention_bytes(*shape[:6], elem_bytes), attention_flops(shape), dtype_name)
 
 
 def rwkv6_bound_ms(r, u, state0) -> tuple[float, str]:
     """Least time for the WKV recurrence on an H100: r, k, v, logw, u and
     state0 read once, out and the final state written once, against the TPU
-    kernel's four products, 4 (L Dh + Dh^2) flops per step per (b, h) with
-    L = 16 (at S = 512 the same count as the plain recurrence's 5 Dh^2 per
-    step). The products run on the tensor cores, so they count at the rate
-    of r's type there (bf16 989 TFLOP/s); fp32 has none but the CUDA cores'."""
-    b, s, h, d = r.shape
-    nbytes = 5 * r.numel() * r.element_size() + u.numel() * u.element_size() + 4 * b * h * d * d
-    if state0 is not None:
-        nbytes += state0.numel() * 4
-    return bound(nbytes, 4 * (16 * d + d * d) * b * h * s, str(r.dtype).removeprefix("torch."))
+    kernel's four products (``costs.rwkv6_flops``). The products run on the
+    tensor cores, so they count at the rate of r's type there (bf16 989
+    TFLOP/s); fp32 has none but the CUDA cores'."""
+    from repro_torch.kernels import costs
+
+    nbytes = costs.rwkv6_bytes(*r.shape, r.element_size(), u.element_size(), state0 is not None)
+    return bound(nbytes, costs.rwkv6_flops(*r.shape), str(r.dtype).removeprefix("torch."))
 
 
 def rwkv6_products_fp32_ms(r) -> float:
     """The TPU kernel's four products at the CUDA cores' fp32 rate (the bound
     this script used before the bf16 kernel moved them to the tensor cores)."""
-    b, s, h, d = r.shape
-    return 4 * (16 * d + d * d) * b * h * s / H100_FLOPS["float32"] * 1e3
+    from repro_torch.kernels import costs
+
+    return costs.rwkv6_flops(*r.shape) / H100_FLOPS["float32"] * 1e3
 
 
 def mamba_bound_ms(u, A, B_) -> tuple[float, str]:
     """Least time for the selective scan from a zero state on an H100: u,
     dt, B, C and A read once, y and the final h written once, against 6 fp32
-    operations per state update (dt A, its exponential, the decay, dt u B,
-    the add, h C) at the fp32 rate of the CUDA cores."""
+    operations per state update (``costs.mamba_flops``) at the fp32 rate of
+    the CUDA cores."""
+    from repro_torch.kernels import costs
+
     b, s, di = u.shape
     st = A.shape[1]
-    nbytes = 3 * u.numel() * u.element_size() + 2 * B_.numel() * B_.element_size()
-    nbytes += A.numel() * 4 + b * di * st * 4
-    return bound(nbytes, 6 * b * s * di * st, "float32")
+    return bound(costs.mamba_bytes(b, s, di, st, u.element_size(), False), costs.mamba_flops(b, s, di, st),
+                 "float32")
 
 
 def ptxas_report(log: str, dim: str) -> list[str]:
@@ -847,6 +864,128 @@ def sharded_phase(torch, np, configs, T, kernels: dict, dev, seed: int, qwen_res
         finally:
             dist.destroy_process_group()
     return launches, 2, train_launches
+
+
+def dryrun_phase(torch, np, configs, T, kernels: dict, dev, seed: int, qwen_res, train_p50_ms: float):
+    """Phase 27 (see the module docstring). Returns {name: (plan seconds,
+    flash launches planned, flash launches run)} of the held runs."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.distributed.sharding import rules_for
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch import specs
+    from repro_torch.launch.dryrun import kernel_calls, plan_step, run_cell
+    from repro_torch.launch.roofline import analyze, fmt_s
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.models.params import init_params
+    from repro_torch.train.steps import greedy_token, make_decode_step, make_prefill_step, make_train_step
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    if total != launch_mesh.HBM_BYTES:
+        fail(f"the card has {total} bytes of memory; launch/mesh.py's HBM_BYTES says {launch_mesh.HBM_BYTES}")
+    for arch, shape, multi in DRYRUN_CELLS:
+        t = time.perf_counter()
+        cell = run_cell(arch, shape, multi)
+        if cell["status"] != "ok":
+            fail(f"dry-run cell {arch} x {shape} x {cell['mesh']}: {cell['status']}")
+        r = analyze(cell)
+        print(f"dryrun {arch} x {shape} x {cell['mesh']} ({cell['chips']} ranks, torch {cell['torch']}, planned in "
+              f"{time.perf_counter() - t:.1f} s; model outputs, H100 data-sheet constants): compute "
+              f"{fmt_s(r['compute_s'])}, memory {fmt_s(r['memory_s'])}, collective {fmt_s(r['collective_s'])} "
+              f"({cell['collective_bytes_by_link']} bytes by link), dominant {r['dominant']}, MODEL/counted "
+              f"{r['useful_compute_ratio']:.2f}, peak {r['hbm_gib_per_device']:.2f} GiB/rank, fits 80 GB "
+              f"{r['fits_h100_80g']}; kernel calls {cell['kernel_calls']}")
+
+    cfg = configs.get("qwen3_0_6b")
+    b, s, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    cache_len = s + gen
+    shapes = {"prefill": configs.Shape("phase 5 prefill", "prefill", s, b),
+              "decode": configs.Shape("phase 5 decode", "decode", s, b),
+              "train": configs.Shape("phase 14 step", "train", TRAIN["seq_len"], TRAIN["batch"])}
+    measured_ms = {"prefill": qwen_res.prefill_ms, "decode": qwen_res.decode_p50_ms, "train": train_p50_ms}
+    flash = kernels["attn"]
+
+    def plan_all(rules) -> dict:
+        return {kind: plan_step(cfg, shape, rules, cache_len=cache_len, pos=s) for kind, shape in shapes.items()}
+
+    def run_all(rules) -> dict:
+        """Each step once on the card from seed weights: peak memory above
+        what was allocated before its arguments, FlopCounterMode's FLOPs and
+        the flash launches."""
+        out = {}
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        params = init_params(T.param_defs(cfg, rules), seed=seed, dtype=torch.bfloat16, device=dev, rules=rules)
+        batch = prompt_batch(cfg, b, s, seed, dev)
+
+        def measure(kind, fn):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            flash.launches = 0
+            with FlopCounterMode(display=False) as fc:
+                res = fn()
+            torch.cuda.synchronize()
+            out[kind] = {"peak": torch.cuda.max_memory_allocated(dev) - base, "flops": fc.get_total_flops(),
+                         "flash": flash.launches}
+            return res
+
+        caches, logits = measure("prefill", lambda: make_prefill_step(cfg, cache_len, rules=rules)(params, batch))
+        token = greedy_token(cfg, logits)
+        del logits
+        measure("decode", lambda: make_decode_step(cfg, rules=rules)(params, caches, token, s))
+        del caches, token
+        opt = specs.make_optimizer(cfg)
+        opt_state = opt.init(params)
+        measure("train", lambda: make_train_step(cfg, opt, rules=rules)(params, opt_state, batch))
+        del params, opt_state, batch
+        return out
+
+    held = {}
+    for placed in ("unsharded", "(1, 1) mesh"):
+        if placed == "unsharded":
+            plans, runs = plan_all(None), run_all(None)
+        else:
+            launch_mesh.start_fake_world(1)
+            try:
+                plans = plan_all(rules_for(cfg, init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))))
+            finally:
+                dist.destroy_process_group()
+            with tempfile.TemporaryDirectory() as pg_dir:
+                dist.init_process_group("nccl", init_method=f"file://{pg_dir}/store", rank=0, world_size=1)
+                try:
+                    runs = run_all(rules_for(cfg, init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))))
+                finally:
+                    dist.destroy_process_group()
+        for kind, plan in plans.items():
+            run = runs[kind]
+            cell = {"chips": 1, "kind": "train" if kind == "train" else kind, "flops_per_device": plan["flops"],
+                    "bytes_per_device": plan["bytes"], "collective_bytes_per_device": plan["collective_bytes"],
+                    "collective_bytes_by_link": plan["collective_by_link"], "memory": plan["memory"],
+                    "params_active": 0, "global_batch": b, "seq_len": s}
+            r = analyze(cell)
+            planned_flash = kernel_calls(plan["ops"]).get("flash_attention_fwd", 0)
+            pred, meas = plan["memory"]["peak_bytes"], run["peak"]
+            slack = max(DRYRUN_PEAK_TOL * meas, DRYRUN_PEAK_SLACK)
+            print(f"dryrun held qwen3_0_6b {shapes[kind].name} bf16 B={b} x {shapes[kind].seq_len}, {placed}: "
+                  f"peak predicted {pred} B ({pred / 2**30:.3f} GiB) measured {meas} B ({meas / 2**30:.3f} GiB), "
+                  f"diff {(pred - meas) / 2**20:.1f} MiB (bar {slack / 2**20:.0f} MiB); FLOPs planned {plan['flops']} "
+                  f"FlopCounterMode {run['flops']}; flash launches planned {planned_flash} run {run['flash']}; "
+                  f"bound {fmt_s(r['bound_step_s'])} ({r['dominant']}: compute {fmt_s(r['compute_s'])}, memory "
+                  f"{fmt_s(r['memory_s'])}) against the measured {measured_ms[kind]:.3f} ms (phase "
+                  f"{14 if kind == 'train' else 5}{', p50' if kind != 'prefill' else ''}): "
+                  f"{r['bound_step_s'] * 1e3 / measured_ms[kind]:.3f} of the bound; planned in {plan['plan_s']:.1f} s")
+            if abs(pred - meas) > slack:
+                fail(f"the dry-run's peak for {kind} ({placed}) is {pred} bytes, the card's {meas}")
+            if plan["flops"] != run["flops"]:
+                fail(f"the dry-run counted {plan['flops']} FLOPs for {kind} ({placed}), FlopCounterMode {run['flops']}")
+            if planned_flash != run["flash"]:
+                fail(f"the dry-run planned {planned_flash} flash launches for {kind} ({placed}), the card ran "
+                     f"{run['flash']}")
+            held[f"{kind}, {placed}"] = (plan["plan_s"], planned_flash, run["flash"])
+    return held
 
 
 def unflat(flat: dict, prefix: str) -> dict:
@@ -1348,6 +1487,7 @@ def main() -> None:
     flash_per_step = 2 * cfg.n_layers  # the forward, then remat's recompute in the backward
     timed = train_res.step_ms[1:]
     p50, p95 = float(np.percentile(timed, 50)), float(np.percentile(timed, 95))
+    train_p50 = p50
     tokens = b * s
     attn_shape = (b, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True, cfg.sliding_window)
     train_flops = 6 * n_params * tokens + 3 * cfg.n_layers * attention_flops(attn_shape)
@@ -1589,8 +1729,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     sharded_launches, sharded_prefills, sharded_train_launches = sharded_phase(
         torch, np, configs, T, all_kernels, dev, args.seed, qwen_res)
-    print(f"sharded qwen3 phase {time.perf_counter() - t0:.1f} s; all phases "
-          f"{time.perf_counter() - t_all:.1f} s")
+    print(f"sharded qwen3 phase {time.perf_counter() - t0:.1f} s")
+
+    # ----------------------------------------------------------- 27. dryrun
+    t0 = phase("dryrun")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_phase(torch, np, configs, T, all_kernels, dev, args.seed, qwen_res, train_p50)
+    print(f"dryrun phase {time.perf_counter() - t0:.1f} s; all phases {time.perf_counter() - t_all:.1f} s")
 
     runs = {"qwen3_0_6b": (qwen_launches, qwen_res.prefills, "prefill"),
             "rwkv6_1_6b": (rwkv_launches, rwkv_res.prefills, "prefill"),

@@ -2,8 +2,10 @@
 
   csrc/<name>.cu — the CUDA C++ kernel, built with nvcc on first use (build.py),
   <name>.py      — its ctypes wrapper (checks, launch, launch count),
-  ops.py         — model-layout wrappers: plain version on CPU, kernel on CUDA,
-  ref.py         — the plain versions the kernels are held against.
+  ops.py         — model-layout wrappers: plain version on CPU, kernel on CUDA
+                   (a custom op with a fake implementation for meta tensors),
+  ref.py         — the plain versions the kernels are held against,
+  costs.py       — their FLOP and byte counts (the ops' FLOP formulas, the bounds).
 """
 from . import ops, ref
 from .ops import flash_attention, mamba_scan, rwkv6

@@ -12,18 +12,79 @@ forward is the one launch.
 A wrapper refuses a DTensor (TypeError) rather than hand it to the plain
 version or to a kernel's raw pointers: a sharded run calls it inside
 ``local_map``, on each rank's local shard (``models/transformer.py``).
+
+Each kernel's forward is a ``torch.library.custom_op``
+(``repro_torch::flash_attention_fwd``, ``::rwkv6_fwd``, ``::mamba_scan_fwd``)
+that the ``autograd.Function`` calls. Its CUDA implementation is the kernel
+wrapper (one launch, or it raises); it has no CPU implementation. Its fake
+implementation returns empty outputs of the kernel's shapes and types, and
+is the path only a meta or fake tensor takes, as the dry-run's stand-ins
+do (``launch/dryrun.py``); its FLOP formula (``costs.py``) is registered
+with ``torch.utils.flop_counter``, so ``FlopCounterMode`` counts the op.
 """
 from __future__ import annotations
 
 import torch
 from torch.distributed.tensor import DTensor
+from torch.utils.flop_counter import register_flop_formula
 
-from . import ref
-from .flash_attention import flash_attention_fwd
-from .mamba import mamba_scan_fwd
-from .rwkv6 import rwkv6_fwd
+from . import costs, ref
+from .flash_attention import flash_attention_fwd as launch_flash_attention
+from .mamba import mamba_scan_fwd as launch_mamba_scan
+from .rwkv6 import rwkv6_fwd as launch_rwkv6
 
 BACKWARD_RANGE = "flash_attention backward (attention_ref)"
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(), device_types="cuda")
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                        window: int | None) -> torch.Tensor:
+    return launch_flash_attention(q, k, v, causal=causal, window=window)
+
+
+@flash_attention_fwd.register_fake
+def _(q, k, v, *, causal, window):
+    return q.new_empty(q.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _(q_shape, k_shape, v_shape, *, causal, window, out_shape=None, **kwargs) -> int:
+    b, sq, h, d = q_shape
+    return costs.attention_flops(b, sq, k_shape[1], h, d, causal, window)
+
+
+@torch.library.custom_op("repro_torch::rwkv6_fwd", mutates_args=(), device_types="cuda")
+def rwkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor, u: torch.Tensor,
+              state0: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+    return launch_rwkv6(r, k, v, logw, u, state0)
+
+
+@rwkv6_fwd.register_fake
+def _(r, k, v, logw, u, state0):
+    b, _, h, d = r.shape
+    return r.new_empty(r.shape), r.new_empty((b, h, d, d), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.rwkv6_fwd)
+def _(r_shape, *args, out_shape=None, **kwargs) -> int:
+    return costs.rwkv6_flops(*r_shape)
+
+
+@torch.library.custom_op("repro_torch::mamba_scan_fwd", mutates_args=(), device_types="cuda")
+def mamba_scan_fwd(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
+                   h0: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+    return launch_mamba_scan(u, dt, A, B_, C_, h0)
+
+
+@mamba_scan_fwd.register_fake
+def _(u, dt, A, B_, C_, h0):
+    b, _, di = u.shape
+    return u.new_empty(u.shape), u.new_empty((b, di, A.shape[1]), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.mamba_scan_fwd)
+def _(u_shape, dt_shape, A_shape, *args, out_shape=None, **kwargs) -> int:
+    return costs.mamba_flops(*u_shape, A_shape[1])
 
 
 def _recompute_vjp(ctx, plain, n_diff: int, grads_out):

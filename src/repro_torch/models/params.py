@@ -7,7 +7,8 @@ between the packages leaf by leaf (``convert.py``); with sharding rules
 each leaf is a DTensor placed by its spec. ``abstract_params`` gives the
 same tree (or each device's shard of it) on the ``meta`` device,
 allocating nothing, and ``param_shardings`` the ``(mesh, placements)`` of
-each leaf.
+each leaf. ``stand_ins`` gives the dry-run's inputs: meta tensors, or with
+rules DTensors on the rules' mesh whose local tensors are meta.
 
 Init: each leaf draws from its own ``torch.Generator`` on the target device,
 seeded by the same sha256 of ``f"{seed}:{path}"`` as the reference. The
@@ -21,7 +22,7 @@ import hashlib
 from dataclasses import dataclass
 
 import torch
-from torch.distributed.tensor import Shard
+from torch.distributed.tensor import DTensor, Shard
 
 from .. import resolve_device
 from ..distributed.sharding import P, distribute_local, placements
@@ -115,14 +116,40 @@ def abstract_params(defs: dict, dtype: torch.dtype, rules=None) -> dict:
     are in ``param_shardings(defs, rules)``."""
 
     def one(d: ParamDef) -> torch.Tensor:
-        shape = list(d.shape)
-        if rules is not None:
-            for i, p in enumerate(placements(d.spec, rules.mesh)):
-                if isinstance(p, Shard):
-                    shape[p.dim] = -(-shape[p.dim] // tuple(rules.mesh.shape)[i])
+        shape = d.shape if rules is None else local_shape(d.shape, d.spec, rules.mesh)
         return torch.empty(shape, dtype=dtype, device="meta")
 
     return _map_defs(defs, one)
+
+
+def local_shape(shape: tuple[int, ...], spec: P, mesh) -> tuple[int, ...]:
+    """The first rank's shard of a leaf of ``shape`` placed by ``spec`` on
+    ``mesh``: the largest any rank holds, split as ``torch.chunk`` splits."""
+    out = list(shape)
+    for i, p in enumerate(placements(spec, mesh)):
+        if isinstance(p, Shard):
+            out[p.dim] = -(-out[p.dim] // tuple(mesh.shape)[i])
+    return tuple(out)
+
+
+def stand_in(shape: tuple[int, ...], dtype: torch.dtype, spec: P = P(), rules=None) -> torch.Tensor:
+    """A tensor of ``shape`` and ``dtype`` on the ``meta`` device: shape,
+    type and strides, no storage. With ``rules``, a DTensor on
+    ``rules.mesh`` (a ``DeviceMesh``) placed by ``spec``, whose local tensor
+    is the first rank's shard on the meta device."""
+    if rules is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    local = torch.empty(local_shape(shape, spec, rules.mesh), dtype=dtype, device="meta")
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, rules.mesh, placements(spec, rules.mesh), run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def stand_ins(defs: dict, dtype: torch.dtype, rules=None) -> dict:
+    """``stand_in`` of every leaf of a def tree, in ``dtype``; a leaf marked
+    ``init="fp32"`` (an SSM state of ``cache_defs``) in float32."""
+    return _map_defs(defs, lambda d: stand_in(d.shape, torch.float32 if d.init == "fp32" else dtype,
+                                              d.spec, rules))
 
 
 def param_specs(defs: dict) -> dict:

@@ -91,17 +91,20 @@ from . import moe
 from .attention import NEG_INF, _grouped, attention, cache_insert, decode_attention
 from .layers import apply_mrope, apply_rope, rmsnorm, swiglu
 from ..distributed.sharding import P, axis_size, distribute_local, placements, sharded_region
-from .params import ParamDef
+from .params import ParamDef, stand_ins
 
 
 def _use_kernels(cfg: ModelConfig, x: torch.Tensor) -> bool:
     """'on' forces the kernels' wrappers (which take the plain versions on
-    CPU tensors); 'off' keeps the plain paths; 'auto' means on for CUDA."""
+    CPU tensors); 'off' keeps the plain paths; 'auto' means on for CUDA,
+    and for the meta tensors that stand in for CUDA tensors in the dry-run
+    (``launch/dryrun.py``), where the kernel ops take their fake
+    implementations."""
     if cfg.use_pallas == "on":
         return True
     if cfg.use_pallas == "off":
         return False
-    return x.is_cuda
+    return x.is_cuda or x.is_meta
 
 
 ENC_KIND = LayerKind("attn")  # every encoder layer: self-attention (non-causal) and SwiGLU
@@ -274,6 +277,14 @@ def cache_defs(cfg: ModelConfig, rules, batch: int, cache_len: int, enc_len: int
             d["conv"] = ParamDef((batch, K - 1, Di), spec=P(dp, None, r.tp) if rules is not None else P())
         out[f"p{i}"] = d
     return _stack(out, cfg.n_repeats)
+
+
+def abstract_cache(cfg: ModelConfig, rules, batch: int, cache_len: int, enc_len: int = 0,
+                   dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The decode state of ``cache_defs`` as stand-ins (``params.stand_in``):
+    meta tensors, or with ``rules`` DTensors placed by the cache specs. SSM
+    states are float32, the rest ``dtype``."""
+    return stand_ins(cache_defs(cfg, rules, batch, cache_len, enc_len), dtype, rules)
 
 
 # ================================================================== context

@@ -1,0 +1,207 @@
+"""The port's dry-run (``repro_torch.launch.dryrun``) end to end.
+
+The counterparts of tests/test_dryrun_smoke.py's four cells run, each in a
+subprocess of its own (the fake process group of 256 or 512 ranks belongs
+to the whole process), all four started together. A smoke config's step,
+unsharded and with the kernels off, counts exactly the FLOPs that
+``FlopCounterMode`` counts over the same step run on CPU tensors; on a (1, 1)
+mesh (a fake process group for the plan, a gloo one for the run, in a
+subprocess) too. The command line writes a cell and a failing cell, and
+importing the launch tools starts no process group.
+"""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.launch.dryrun import kernel_calls, plan_step  # noqa: E402
+from repro_torch.launch.serve import prompt_batch  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.params import init_params  # noqa: E402
+from repro_torch.launch import specs  # noqa: E402
+from repro_torch.train.steps import greedy_token, make_decode_step, make_prefill_step, make_train_step  # noqa: E402
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+CELLS = [("qwen3_0_6b", "train_4k", "single"), ("qwen3_0_6b", "decode_32k", "single"),
+         ("rwkv6_1_6b", "long_500k", "single"), ("qwen3_0_6b", "train_4k", "multi")]
+CELL_TIMEOUT = 240  # s; the slowest cell (train_4k on 512 ranks) plans in ~20 s alone
+_CELL = """
+import json, sys
+from repro_torch.launch.dryrun import run_cell
+cell = run_cell(sys.argv[1], sys.argv[2], multi_pod=(sys.argv[3] == "multi"))
+print("CELL=" + json.dumps(cell))
+"""
+_MESH = """
+import json, sys, tempfile
+import torch, torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+sys.path.insert(0, sys.argv[1])
+import test_torch_dryrun as t
+from repro_torch import configs
+from repro_torch.distributed.sharding import rules_for
+from repro_torch.launch.dryrun import plan_step
+from repro_torch.launch.mesh import start_fake_world
+torch.set_num_threads(1)
+cfg = configs.get_smoke("qwen3_0_6b").replace(use_pallas="off")
+mesh = lambda: init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+start_fake_world(1)
+plans = {k: plan_step(cfg, s, rules_for(cfg, mesh()))["flops"] for k, s in t.KINDS.items()}
+dist.destroy_process_group()
+with tempfile.TemporaryDirectory() as d:
+    dist.init_process_group("gloo", init_method=f"file://{d}/store", rank=0, world_size=1)
+    runs = {k: t._run_step(cfg, k, s, rules_for(cfg, mesh())) for k, s in t.KINDS.items()}
+    dist.destroy_process_group()
+print("FLOPS=" + json.dumps({"plan": plans, "run": runs}))
+"""
+
+
+def _env():
+    return {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1"}
+
+
+def _start(code: str, *args) -> subprocess.Popen:
+    return subprocess.Popen([sys.executable, "-c", code, *args], env=_env(), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _result(proc: subprocess.Popen, prefix: str):
+    """(exit code, the JSON the process printed after ``prefix``, its stderr's tail)."""
+    try:
+        stdout, stderr = proc.communicate(timeout=CELL_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        stdout, stderr = proc.communicate()
+    line = [x for x in stdout.splitlines() if x.startswith(prefix)]
+    return proc.returncode, json.loads(line[0][len(prefix):]) if line else None, stderr[-3000:]
+
+
+@pytest.fixture(scope="module")
+def planned():
+    """The four cells and the one-rank mesh's FLOPs, in five processes at once."""
+    procs = {c: _start(_CELL, *c) for c in CELLS}
+    procs["mesh"] = _start(_MESH, str(Path(__file__).parent))
+    return {c: _result(p, "FLOPS=" if c == "mesh" else "CELL=") for c, p in procs.items()}
+
+
+@pytest.mark.parametrize("arch,shape,mesh", CELLS)
+def test_dryrun_cell_plans(planned, arch, shape, mesh):
+    rc, cell, stderr = planned[(arch, shape, mesh)]
+    assert rc == 0 and cell is not None, stderr
+    assert cell["status"] == "ok"
+    assert cell["chips"] == (512 if mesh == "multi" else 256)
+    assert cell["flops_per_device"] > 0 and cell["bytes_per_device"] > 0
+    assert cell["memory"]["peak_bytes"] >= cell["memory"]["argument_bytes"] > 0
+    assert cell["collective_bytes_per_device"] == sum(cell["collective_by_type"].values()) > 0
+    assert cell["params_total"] == configs.get(arch).param_counts()["total"]
+    # the kernel ops ran on the stand-ins: every layer's flash attention, and remat's recompute
+    want = {"train_4k": 2 * 28, "decode_32k": 0, "long_500k": 0}[shape]
+    assert cell["kernel_calls"].get("flash_attention_fwd", 0) == want
+
+
+KINDS = {"train": configs.Shape("smoke_train", "train", 32, 4),
+         "prefill": configs.Shape("smoke_prefill", "prefill", 24, 4),
+         "decode": configs.Shape("smoke_decode", "decode", 24, 4)}
+
+
+def _run_step(cfg, kind, shape, rules=None, device="cpu"):
+    """The step of ``kind`` once on seed weights under FlopCounterMode (a
+    decode step after a prefill of the shape's length, at its last slot)."""
+    params = init_params(T.param_defs(cfg, rules), seed=0, dtype=torch.bfloat16, device=device, rules=rules)
+    batch = prompt_batch(cfg, shape.global_batch, shape.seq_len, 0, torch.device(device))
+    if kind == "decode":
+        caches, logits = make_prefill_step(cfg, shape.seq_len, rules=rules)(params, batch)
+        token = greedy_token(cfg, logits)
+        with FlopCounterMode(display=False) as fc:
+            make_decode_step(cfg, rules=rules)(params, caches, token, shape.seq_len - 1)
+        return fc.get_total_flops()
+    with FlopCounterMode(display=False) as fc:
+        if kind == "train":
+            opt = specs.make_optimizer(cfg)
+            make_train_step(cfg, opt, rules=rules)(params, opt.init(params), batch)
+        else:
+            make_prefill_step(cfg, shape.seq_len, rules=rules)(params, batch)
+    return fc.get_total_flops()
+
+
+# jamba's train step is left out: its Mamba layers' sequential plain scan
+# takes ~15 s here, run and plan; its prefill and decode are in
+SMOKE = [(a, k) for a in ("qwen3_0_6b", "rwkv6_1_6b", "seamless_m4t_large_v2") for k in sorted(KINDS)] + [
+    ("jamba_1_5_large_398b", "prefill"), ("jamba_1_5_large_398b", "decode")]
+
+
+@pytest.mark.parametrize("arch,kind", SMOKE)
+def test_smoke_plan_counts_the_flops_of_a_real_cpu_run(arch, kind):
+    cfg = configs.get_smoke(arch).replace(use_pallas="off")
+    plan = plan_step(cfg, KINDS[kind])
+    assert plan["flops"] == _run_step(cfg, kind, KINDS[kind]) > 0
+    assert kernel_calls(plan["ops"]) == {}
+    assert plan["memory"]["peak_bytes"] >= plan["memory"]["argument_bytes"] + plan["memory"]["output_bytes"]
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_plan_on_a_one_rank_mesh_counts_the_flops_of_a_real_run(planned, kind):
+    rc, flops, stderr = planned["mesh"]
+    assert rc == 0 and flops is not None, stderr
+    assert flops["plan"][kind] == flops["run"][kind] > 0
+
+
+_CLI = """
+import contextlib, io, json, sys
+from pathlib import Path
+import repro_torch.launch.dryrun as d
+from repro_torch.launch import roofline
+d.RESULTS_DIR = Path(sys.argv[1])
+codes = []
+for argv in (["--arch", "rwkv6_1_6b", "--shape", "long_500k"],
+             ["--arch", "qwen3_0_6b", "--shape", "decode_32k", "--tag", "bad", "--override", "n_kv_heads=3"]):
+    sys.argv = ["dryrun"] + argv
+    try:
+        d.main()
+    except SystemExit as e:
+        codes.append(e.code)
+table = io.StringIO()
+with contextlib.redirect_stdout(table):
+    for argv in (["--markdown"], ["--markdown", "--tag", "bad"]):
+        sys.argv = ["roofline"] + argv
+        roofline.main()
+print("CLI=" + json.dumps({"codes": codes, "table": table.getvalue()}))
+"""
+
+
+def test_command_line_writes_cells_and_fails_on_a_failing_one(tmp_path):
+    """``main`` writes the cell's JSON and exits 0; a cell that raises is
+    written with status FAILED, its error and the torch version, and the
+    run exits 1. The roofline's table holds the first and lists the second."""
+    proc = _start(_CLI, str(tmp_path))
+    rc, out, stderr = _result(proc, "CLI=")
+    assert rc == 0 and out is not None and out["codes"] == [0, 1], stderr
+    cell = json.loads((tmp_path / "rwkv6_1_6b.long_500k.pod16x16.json").read_text())
+    assert cell["status"] == "ok" and cell["torch"] == torch.__version__
+    failed = json.loads((tmp_path / "qwen3_0_6b.decode_32k.pod16x16.bad.json").read_text())
+    assert failed["status"] == "FAILED" and failed["error"] and failed["torch"] == torch.__version__
+    table = out["table"]
+    assert "| rwkv6_1_6b | long_500k | pod16x16 |" in table
+    assert "FAILED cells:" in table and f"torch {torch.__version__}" in table
+
+
+def test_importing_the_launch_tools_starts_no_process_group():
+    """The counterpart of test_default_process_sees_one_device: the fake
+    process group starts only when a production mesh is made."""
+    code = """
+import torch.distributed as dist
+import repro_torch.launch.dryrun, repro_torch.launch.roofline, repro_torch.launch.mesh
+import repro_torch.launch.specs, repro_torch.launch.op_stats
+print(dist.is_initialized())
+"""
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split() == ["False"]
+    assert not torch.distributed.is_initialized()
