@@ -80,9 +80,10 @@ Phases; any failure exits non-zero before the result lines are printed.
                     5 steps on one fixed batch, whose loss must drop; one fp32
                     step cut to 2 layers, loss and every gradient kernel on
                     against off (2e-3 of each leaf's largest gradient); and,
-                    with deterministic algorithms, 6 steps unbroken against 3,
-                    a new segment and 3 more: the step-6 checkpoints' annex
-                    keys (sha256 of each leaf's bytes) must be equal.
+                    with deterministic algorithms, cut to 2 layers, 6 steps
+                    unbroken against 3, a new segment and 3 more: the step-6
+                    checkpoints' annex keys (sha256 of each leaf's bytes) must
+                    be equal (phase 28 resumes the full depth).
  15. serve seamless — seamless-m4t-large-v2 at full width and depth (24
                     encoder and 24 decoder layers), phase 5's shape with the
                     stub speech frontend's 128 encoder frames a prompt; the
@@ -149,11 +150,12 @@ Phases; any failure exits non-zero before the result lines are printed.
                     ``param_defs(cfg, rules)``, phase 5's prompts, through
                     ``make_prefill_step``/``make_decode_step(..., rules=...)``
                     (the flash kernel on each rank's heads through
-                    ``local_map``): 28 flash launches a prefill and phase 5's
-                    greedy tokens exactly, with prefill and decode times beside
-                    phase 5's. Then one bf16 train step at phase 14's batch
-                    under FSDP rules against the unsharded step (deterministic
-                    algorithms for both, as phase 14's resume): where not bit
+                    ``local_map``): 28 flash launches a prefill and the first 8
+                    of phase 5's greedy tokens exactly (its cache of 544
+                    slots), with prefill and decode times beside phase 5's. Then one bf16 train step at phase 14's batch,
+                    cut to 2 layers, under FSDP rules against the unsharded
+                    step (deterministic algorithms for both, as phase 14's
+                    resume): where not bit
                     for bit, the loss and the first moments (the gradients,
                     as one vector) within 2e-2 relative, and every param
                     within a flipped first Adam step (2 lr) plus bf16 rounding;
@@ -178,6 +180,27 @@ Phases; any failure exits non-zero before the result lines are printed.
                     the card's run, and the flash launches planned equal to the
                     launches run (28, 0 and 56); prints the roofline bound beside
                     phase 5's prefill, its decode p50 and phase 14's step p50.
+                    Also the dry-run of arctic-480b's and qwen2-vl-7b's
+                    train_4k cells on the 16x16 mesh at full width with 1
+                    layer, whose query heads (56, 28) do not split over its 16
+                    tp ranks (ROADMAP §C4): each must come back "ok".
+ 28. campaign     — training on data pinned to commits through
+                    ``repro_torch.launch.campaign.run`` (the training half of
+                    examples/surrogate_campaign.py): qwen3-0.6B at full width and
+                    depth, phase 14's shapes (bf16 weights, fp32 moments, remat,
+                    B=8 x 512). Data commit 1 (4 simulation shards of 65,536
+                    tokens below 4096), 4 steps on a RepoTokenDataset pinned to
+                    it and a checkpoint; data commit 2 (4 more shards), a new
+                    train_segment that resumes at step 4 and checkpoints at 8;
+                    then ``serve.run(..., repo=, commit=)`` from the step-8
+                    checkpoint. Every batch must equal one recomputed from the
+                    shards' recipe with numpy alone; the step-8 manifest must
+                    hold step 8 and data_step 8; ``Repository.log`` from it must
+                    list data commit 2, the step-4 checkpoint and data commit 1,
+                    in that order; the flash kernel must launch 56 times a step
+                    and 28 times a prefill, and the served tokens must be finite
+                    and in the vocabulary. Prints step p50/p95, tokens/s, peak
+                    memory and each save's seconds beside phase 14's p50.
 Phases 3, 4 and 9 also run one backward through each kernel op
 (``ops.flash_attention``, ``ops.rwkv6``, ``ops.mamba_scan``) at a small fp32
 shape and hold its gradients against the plain version's autograd.
@@ -260,6 +283,10 @@ MAMBA_SHAPES = [MAMBA_SERVE_SHAPE, (2, 64, 64, 8), (1, 128, 256, 16), (2, 40, 96
 SERVE = dict(batch=8, prompt_len=512, gen=32)
 DRYRUN_CELLS = [("qwen3_0_6b", "train_4k", False), ("qwen3_0_6b", "decode_32k", False),
                 ("rwkv6_1_6b", "long_500k", False), ("qwen3_0_6b", "train_4k", True)]  # tests/test_dryrun_smoke.py's
+# phase 27: train steps whose query heads do not split over the mesh's 16 tp ranks (ROADMAP §C4),
+# planned at full width with 1 layer, as tests/test_torch_dryrun.py plans them
+DRYRUN_C4_CELLS = [("arctic_480b", "train_4k", False), ("qwen2_vl_7b", "train_4k", False)]
+DRYRUN_C4_CUTS = {"n_layers": 1}
 DRYRUN_PEAK_TOL, DRYRUN_PEAK_SLACK = 0.10, 256 << 20  # phase 27: predicted peak within 10% or 256 MiB
 SHARDED_STEP_TOL = 2e-2  # phase 26: the FSDP step's loss and first moments against the unsharded one, relative
 JAMBA = "jamba_1_5_large_398b"
@@ -269,9 +296,14 @@ CHUNKED_LEAF_BYTES = 64 << 20  # phase 13: one bf16 leaf
 CHUNK_THRESHOLD = 1 << 20
 CHANGED_SHARE = 0.03  # of the leaf's bytes, one contiguous run, between the two saves
 TRAIN = dict(steps=8, batch=8, seq_len=512)  # phase 14's timed run (launch.train.run)
+CAMPAIGN = dict(sim_jobs=4, steps=8)  # phase 28: shards committed in each phase; phase 1 trains to 4, phase 2 to 8
 TRAIN_LR = 1e-3  # the fixed-batch check: constant rate, AdamW's other defaults
 TRAIN_PARITY_LAYERS = 2  # the kernel on/off train step: 2 of qwen3's 28 layers, full width
 PREEMPT = (6, 3)  # the unbroken run's steps, and the step the other is cut at
+# phase 14's resume check and phase 26's FSDP step and its checkpoint: 2 of qwen3's 28 layers
+# at full width (phase 28 resumes the full depth from its checkpoint)
+CUT_TRAIN_LAYERS = 2
+SHARDED_GEN = 8  # phase 26: the first 8 of phase 5's 32 tokens, decoded into its 544-slot cache
 SEAMLESS, QWEN2_VL = "seamless_m4t_large_v2", "qwen2_vl_7b"
 QWEN2_VL_PARITY_LAYERS = 4  # phase 18: fp32 at full depth would be 30.5 GB of weights
 VISION_GRID = 8  # phase 18: the 64 vision positions as an 8 x 8 grid
@@ -645,9 +677,11 @@ def check_bit_equal(torch, name: str, got: dict, want: dict, dev) -> None:
 
 
 def serve_phase(torch, serve, configs, arch: str, kernels: dict, dev, seed: int,
-                overrides: dict | None = None, repo: str | None = None, shape: dict = SERVE):
-    """Serve at full width (with the config ``overrides``; from the newest
-    checkpoint in ``repo`` if given) at ``shape`` (batch, prompt_len, gen)
+                overrides: dict | None = None, repo: str | None = None, shape: dict = SERVE,
+                commit: str | None = None):
+    """Serve at full width (with the config ``overrides``; from the
+    checkpoint ``commit``, default the newest, in ``repo`` if given) at
+    ``shape`` (batch, prompt_len, gen)
     with every kernel's count set to 0 just
     before and read just after. ``kernels`` maps a mixer kind to the wrapper
     of its kernel; fails unless each launched once per layer of its kind per
@@ -658,7 +692,7 @@ def serve_phase(torch, serve, configs, arch: str, kernels: dict, dev, seed: int,
     for counter in kernels.values():
         counter.launches = 0
     res = serve.run(arch, full=True, device=dev, dtype="bfloat16", seed=seed,
-                    overrides=overrides, repo=repo, **shape)
+                    overrides=overrides, repo=repo, commit=commit, **shape)
     launches = {counter.__name__: counter.launches for counter in kernels.values()}
 
     def show(v):
@@ -736,7 +770,7 @@ def sharded_phase(torch, np, configs, T, kernels: dict, dev, seed: int, qwen_res
             kv = caches["p0"]["k"]
             tok = greedy_token(cfg, logits)
             toks, lat = [full(tok)], []
-            for i in range(gen - 1):
+            for i in range(SHARDED_GEN - 1):
                 torch.cuda.synchronize()
                 t = time.perf_counter()
                 logits, caches = decode(params, caches, tok, s + i)
@@ -747,7 +781,8 @@ def sharded_phase(torch, np, configs, T, kernels: dict, dev, seed: int, qwen_res
             launches = counts()
             tokens = torch.cat(toks, dim=1).cpu()
             p50, p95 = float(np.percentile(lat, 50)), float(np.percentile(lat, 95))
-            print(f"sharded serve qwen3_0_6b bf16 B={b} prompt={s} gen={gen} on the (1, 1) mesh: prefill "
+            print(f"sharded serve qwen3_0_6b bf16 B={b} prompt={s} gen={SHARDED_GEN} of {gen} on the (1, 1) mesh: "
+                  f"prefill "
                   f"{prefill_ms:.2f} ms (phase 5: {qwen_res.prefill_ms:.2f} ms), decode p50 {p50:.3f} ms p95 "
                   f"{p95:.3f} ms (phase 5: {qwen_res.decode_p50_ms:.3f} / {qwen_res.decode_p95_ms:.3f} ms); "
                   f"k cache {type(kv).__name__} {tuple(kv.shape)} placed {tuple(kv.placements)}; launches over 2 "
@@ -758,16 +793,18 @@ def sharded_phase(torch, np, configs, T, kernels: dict, dev, seed: int, qwen_res
                      "per prefill and nothing else")
             if type(kv).__name__ != "DTensor" or type(logits).__name__ != "DTensor":
                 fail("sharded serving returned plain tensors")
-            if not torch.equal(tokens, qwen_res.tokens):
-                fail(f"sharded greedy tokens differ from phase 5's in {int((tokens != qwen_res.tokens).sum())} "
+            want = qwen_res.tokens[:, :SHARDED_GEN]
+            if not torch.equal(tokens, want):
+                fail(f"sharded greedy tokens differ from phase 5's in {int((tokens != want).sum())} "
                      f"of {tokens.numel()} places")
-            print(f"sharded greedy tokens equal phase 5's ({tuple(tokens.shape)})")
+            print(f"sharded greedy tokens equal phase 5's first {SHARDED_GEN} ({tuple(tokens.shape)})")
             del params, caches, logits, kv, tok
             gc.collect()
             torch.cuda.empty_cache()
 
             # one bf16 train step under FSDP rules against the unsharded step
-            frules = rules_for(cfg, mesh, fsdp=True)
+            tcfg = cfg.replace(n_layers=CUT_TRAIN_LAYERS)
+            frules = rules_for(tcfg, mesh, fsdp=True)
             ds = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq_len"],
                                  global_batch=TRAIN["batch"], seed=seed)
             tbatch = {"tokens": torch.from_numpy(ds.global_batch_at(0)).to(dev)}
@@ -778,19 +815,19 @@ def sharded_phase(torch, np, configs, T, kernels: dict, dev, seed: int, qwen_res
             torch.use_deterministic_algorithms(True)
             try:
                 for name, r in (("unsharded", None), ("sharded", frules)):
-                    p = init_params(T.param_defs(cfg, r), seed=seed, device=dev, rules=r)
+                    p = init_params(T.param_defs(tcfg, r), seed=seed, device=dev, rules=r)
                     st = opt.init(p)
                     for c in kernels.values():
                         c.launches = 0
                     torch.cuda.synchronize()
                     t = time.perf_counter()
-                    p, st, metrics = make_train_step(cfg, opt, rules=r)(p, st, tbatch)
+                    p, st, metrics = make_train_step(tcfg, opt, rules=r)(p, st, tbatch)
                     torch.cuda.synchronize()
                     stepped[name] = (p, st, float(full(metrics["loss"])), (time.perf_counter() - t) * 1e3)
                     train_launches = counts()
-                    if train_launches["flash_attention_fwd"] != 2 * cfg.n_layers:
+                    if train_launches["flash_attention_fwd"] != 2 * tcfg.n_layers:
                         fail(f"the {name} train step launched {train_launches}, expected flash_attention_fwd "
-                             f"{2 * cfg.n_layers} times")
+                             f"{2 * tcfg.n_layers} times")
             finally:
                 torch.use_deterministic_algorithms(False)
             (p0, st0, loss0, ms0), (p1, st1, loss1, ms1) = stepped["unsharded"], stepped["sharded"]
@@ -814,7 +851,8 @@ def sharded_phase(torch, np, configs, T, kernels: dict, dev, seed: int, qwen_res
             worst_m = max(m_rel, key=m_rel.get)
             worst_p = max(p_abs, key=lambda k: p_abs[k] / p_bound[k])
             n_diff = sum(int((flat1[k] != w.detach()).sum()) for k, w in flat0.items())
-            print(f"sharded train step qwen3_0_6b bf16, FSDP rules, deterministic algorithms, "
+            print(f"sharded train step qwen3_0_6b, {tcfg.n_layers} of {cfg.n_layers} layers, bf16, FSDP rules, "
+                  f"deterministic algorithms, "
                   f"B={TRAIN['batch']} x {TRAIN['seq_len']}: "
                   f"loss {loss1!r} (unsharded {loss0!r}); {len(flat0)} params bit for bit {bitwise} ({n_diff} of "
                   f"{sum(w.numel() for w in flat0.values())} elements differ); first moments: "
@@ -837,7 +875,7 @@ def sharded_phase(torch, np, configs, T, kernels: dict, dev, seed: int, qwen_res
                 t = time.perf_counter()
                 oid = ckpt.save(1, p1, st1)
                 save_s = time.perf_counter() - t
-                placed = param_shardings(T.param_defs(cfg, frules), frules)
+                placed = param_shardings(T.param_defs(tcfg, frules), frules)
                 t = time.perf_counter()
                 onto_mesh, manifest = ckpt.restore(oid, device=dev, shardings={
                     "params": placed, "opt_state": {"m": placed, "v": placed}})
@@ -853,8 +891,8 @@ def sharded_phase(torch, np, configs, T, kernels: dict, dev, seed: int, qwen_res
                 check_bit_equal(torch, "state restored onto the card", dict(leaves(onto_card)), saved, dev)
                 del onto_card
                 plain = CheckpointManager(Repository.init(f"{repo_dir}/unsharded"))
-                plain.save(1, unflat(saved, "params/"), unflat(saved, "opt_state/"))
-                _, plain_manifest = plain.restore(device="cpu")
+                plain_oid = plain.save(1, unflat(saved, "params/"), unflat(saved, "opt_state/"))
+                plain_manifest = json.loads(plain._tree_bytes(plain_oid, "checkpoints/step_00000001/manifest.json"))
                 keys = {k: m["key"] for k, m in manifest["leaves"].items()}
                 if keys != {k: m["key"] for k, m in plain_manifest["leaves"].items()}:
                     fail("the sharded save's annex keys differ from an unsharded save of the same tree")
@@ -885,13 +923,15 @@ def dryrun_phase(torch, np, configs, T, kernels: dict, dev, seed: int, qwen_res,
     total = torch.cuda.get_device_properties(dev).total_memory
     if total != launch_mesh.HBM_BYTES:
         fail(f"the card has {total} bytes of memory; launch/mesh.py's HBM_BYTES says {launch_mesh.HBM_BYTES}")
-    for arch, shape, multi in DRYRUN_CELLS:
+    for arch, shape, multi, cuts in ([c + (None,) for c in DRYRUN_CELLS]
+                                     + [c + (DRYRUN_C4_CUTS,) for c in DRYRUN_C4_CELLS]):
         t = time.perf_counter()
-        cell = run_cell(arch, shape, multi)
+        cell = run_cell(arch, shape, multi, overrides=cuts)
         if cell["status"] != "ok":
             fail(f"dry-run cell {arch} x {shape} x {cell['mesh']}: {cell['status']}")
         r = analyze(cell)
-        print(f"dryrun {arch} x {shape} x {cell['mesh']} ({cell['chips']} ranks, torch {cell['torch']}, planned in "
+        print(f"dryrun {arch}{f', {cuts}' if cuts else ''} x {shape} x {cell['mesh']} ({cell['chips']} ranks, "
+              f"torch {cell['torch']}, planned in "
               f"{time.perf_counter() - t:.1f} s; model outputs, H100 data-sheet constants): compute "
               f"{fmt_s(r['compute_s'])}, memory {fmt_s(r['memory_s'])}, collective {fmt_s(r['collective_s'])} "
               f"({cell['collective_bytes_by_link']} bytes by link), dominant {r['dominant']}, MODEL/counted "
@@ -986,6 +1026,105 @@ def dryrun_phase(torch, np, configs, T, kernels: dict, dev, seed: int, qwen_res,
                      f"{run['flash']}")
             held[f"{kind}, {placed}"] = (plan["plan_s"], planned_flash, run["flash"])
     return held
+
+
+def campaign_phase(torch, np, configs, serve, kernels: dict, dev, seed: int, train_p50_ms: float):
+    """Phase 28 (see the module docstring). Returns (training launches by
+    wrapper, steps trained, serving launches by wrapper, prefills served)."""
+    from repro_torch.core.repo import Repository
+    from repro_torch.launch import campaign
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    cfg = configs.get("qwen3_0_6b")
+    b, s = TRAIN["batch"], TRAIN["seq_len"]
+    jobs, end2 = CAMPAIGN["sim_jobs"], CAMPAIGN["steps"]
+    end1 = end2 // 2
+    handed = []  # (data commit, step, batch, host ms) as the datasets hand them to train_segment
+    plain_dataset = campaign.RepoTokenDataset
+
+    class Recording(plain_dataset):
+        def global_batch_at(self, step):
+            t = time.perf_counter()
+            out = super().global_batch_at(step)
+            handed.append((self.commit, step, out.copy(), (time.perf_counter() - t) * 1e3))
+            return out
+
+    for counter in kernels.values():
+        counter.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    campaign.RepoTokenDataset = Recording
+    try:
+        with tempfile.TemporaryDirectory() as repo_dir:
+            t = time.perf_counter()
+            res = campaign.run("qwen3_0_6b", repo=repo_dir, full=True, seq_len=s, batch=b, seed=seed, device=dev,
+                               **CAMPAIGN)
+            wall = time.perf_counter() - t
+            train_launches = {counter.__name__: counter.launches for counter in kernels.values()}
+            peak = torch.cuda.max_memory_allocated(dev)
+            last = res.segments[-1].checkpoint_commit
+            manifest = json.loads(CheckpointManager(Repository(repo_dir))._tree_bytes(
+                last, f"checkpoints/step_{end2:08d}/manifest.json"))
+            # the shards' recipe with numpy alone; the committed files must hold these tokens
+            shards = [np.random.Generator(np.random.Philox(key=base + t)).integers(0, 4096, size=65_536,
+                                                                                  dtype=np.int32)
+                      for base in (0, 100) for t in range(jobs)]
+            on_disk = [np.load(Path(repo_dir) / f"campaign/batch_{base}/{t}/shard.npy")
+                       for base in (0, 100) for t in range(jobs)]
+            if not all(np.array_equal(a, w) for a, w in zip(on_disk, shards)):
+                fail("the committed shards differ from the simulation recipe's tokens")
+            gc.collect()
+            torch.cuda.empty_cache()
+            _, serve_res, serve_launches = serve_phase(torch, serve, configs, "qwen3_0_6b", kernels, dev, seed,
+                                                       repo=repo_dir, commit=last)
+    finally:
+        campaign.RepoTokenDataset = plain_dataset
+
+    def expected(n_shards: int, step: int):
+        toks = np.concatenate(shards[:n_shards])
+        n_seq = len(toks) // s
+        rows = np.random.Generator(np.random.Philox(key=seed, counter=[0, 0, 0, step])).integers(0, n_seq, size=b)
+        return toks[: n_seq * s].reshape(n_seq, s)[rows]
+
+    c1, c2 = res.data_commits
+    seg1, seg2 = res.segments
+    want_steps = [(c1, k, jobs) for k in range(end1)] + [(c2, k, 2 * jobs) for k in range(end1, end2)]
+    if [(c, k) for c, k, _, _ in handed] != [(c, k) for c, k, _ in want_steps]:
+        fail(f"the datasets handed batches of (commit, step) {[(c[:12], k) for c, k, _, _ in handed]}")
+    bad = [k for (_, k, got, _), (_, _, n) in zip(handed, want_steps) if not np.array_equal(got, expected(n, k))]
+    if bad:
+        fail(f"the batches of steps {bad} differ from the ones recomputed from the shards with numpy")
+    if (seg1.start_step, seg1.end_step, seg2.start_step, seg2.end_step) != (0, end1, end1, end2):
+        fail(f"segments ran {seg1.start_step}->{seg1.end_step} and {seg2.start_step}->{seg2.end_step}")
+    if (manifest["step"], manifest["data_step"]) != (end2, end2):
+        fail(f"the last checkpoint's manifest holds step {manifest['step']}, data_step {manifest['data_step']}")
+    lineage = [oid for oid, _ in res.lineage]
+    if lineage != [last, c2, seg1.checkpoint_commit, c1]:
+        fail(f"Repository.log from the step-{end2} checkpoint: {res.lineage}")
+    flash_per_step = 2 * cfg.n_layers
+    if train_launches["flash_attention_fwd"] != flash_per_step * end2 or any(
+            n for name, n in train_launches.items() if name != "flash_attention_fwd"):
+        fail(f"the campaign's training launched {train_launches}, expected flash_attention_fwd {flash_per_step} "
+             f"times a step and nothing else")
+    losses = seg1.losses + seg2.losses
+    if len(losses) != end2 or not all(math.isfinite(x) for x in losses):
+        fail(f"campaign losses {losses}")
+    if serve_res.checkpoint_step != end2:
+        fail(f"served checkpoint step {serve_res.checkpoint_step}, expected {end2}")
+    timed = seg1.step_ms[1:] + seg2.step_ms[1:]  # each segment's first step allocates anew
+    p50, p95 = float(np.percentile(timed, 50)), float(np.percentile(timed, 95))
+    print(f"campaign qwen3_0_6b bf16 weights, fp32 moments, remat, B={b} x {s} (launch.campaign.run): data "
+          f"commit 1 {c1[:12]} ({jobs} shards of 65536 tokens), steps 0->{end1}, checkpoint "
+          f"{seg1.checkpoint_commit[:12]}; data commit 2 {c2[:12]} ({2 * jobs} shards), resumed "
+          f"{seg2.start_step}->{seg2.end_step}, checkpoint {last[:12]} (manifest step {manifest['step']}, "
+          f"data_step {manifest['data_step']}); step p50 {p50:.3f} ms p95 {p95:.3f} ms over each segment's steps "
+          f"but its first (all: {[round(x, 3) for x in seg1.step_ms + seg2.step_ms]} ms) against phase 14's "
+          f"p50 {train_p50_ms:.3f} ms; {b * s / (float(np.mean(timed)) / 1e3):.1f} tokens/s; peak memory "
+          f"{peak / 2**30:.3f} GiB; saves {[round(x, 3) for x in seg1.save_s + seg2.save_s]} s; losses "
+          f"{[round(x, 5) for x in losses]}; dataset host ms per batch {[round(x, 3) for *_, x in handed]} (the "
+          f"first of each dataset loads its shards); {len(handed)} batches equal to numpy's; whole run {wall:.3f} s; "
+          f"launches {train_launches}")
+    print("campaign lineage from the last checkpoint: " + "; ".join(f"{o[:12]} {t}" for o, t in res.lineage))
+    return train_launches, end2, serve_launches, serve_res.prefills
 
 
 def unflat(flat: dict, prefix: str) -> dict:
@@ -1556,6 +1695,7 @@ def main() -> None:
 
     # preemption and resume, bit for bit
     n_all, n_cut = PREEMPT
+    rcfg = cfg.replace(n_layers=CUT_TRAIN_LAYERS)
     keys, det = [], {}
     torch.use_deterministic_algorithms(True)
     try:
@@ -1564,7 +1704,7 @@ def main() -> None:
                 repo = Repository.init(repo_dir)
                 for n, every in segments:
                     t = time.perf_counter()
-                    r = train_segment(repo, cfg, ds, n_steps=n, ckpt_every=every, seed=args.seed, device=dev)
+                    r = train_segment(repo, rcfg, ds, n_steps=n, ckpt_every=every, seed=args.seed, device=dev)
                     det[f"{name} to {n}"] = (time.perf_counter() - t, r)
                 ckpt = CheckpointManager(repo)
                 oid, saved_step = ckpt.latest()
@@ -1580,7 +1720,8 @@ def main() -> None:
               f"{[round(x, 3) for x in r.step_ms]} ms, saves {[round(x, 3) for x in r.save_s]} s, losses "
               f"{[round(x, 5) for x in r.losses]}")
     resumed_wall, resumed = det[f"preempted to {n_all}"]
-    print(f"train resume qwen3_0_6b: {n_all} steps unbroken against {n_cut}, a new train_segment, {n_all - n_cut} "
+    print(f"train resume qwen3_0_6b, {rcfg.n_layers} of {cfg.n_layers} layers: {n_all} steps unbroken against "
+          f"{n_cut}, a new train_segment, {n_all - n_cut} "
           f"more (deterministic algorithms): {len(keys[0]) - len(unequal)} of {len(keys[0])} leaf annex keys of "
           f"step {n_all} equal; the resumed segment's restore and set-up "
           f"{resumed_wall - sum(resumed.step_ms) / 1e3 - sum(resumed.save_s):.3f} s")
@@ -1736,7 +1877,15 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     dryrun_phase(torch, np, configs, T, all_kernels, dev, args.seed, qwen_res, train_p50)
-    print(f"dryrun phase {time.perf_counter() - t0:.1f} s; all phases {time.perf_counter() - t_all:.1f} s")
+    print(f"dryrun phase {time.perf_counter() - t0:.1f} s")
+
+    # --------------------------------------------------------- 28. campaign
+    t0 = phase("campaign")
+    gc.collect()
+    torch.cuda.empty_cache()
+    campaign_train_launches, campaign_steps, campaign_serve_launches, campaign_prefills = campaign_phase(
+        torch, np, configs, serve, all_kernels, dev, args.seed, train_p50)
+    print(f"campaign phase {time.perf_counter() - t0:.1f} s; all phases {time.perf_counter() - t_all:.1f} s")
 
     runs = {"qwen3_0_6b": (qwen_launches, qwen_res.prefills, "prefill"),
             "rwkv6_1_6b": (rwkv_launches, rwkv_res.prefills, "prefill"),
@@ -1750,7 +1899,10 @@ def main() -> None:
             ARCTIC: (arctic_launches, arctic_res.prefills, "prefill"),
             f"{JAMBA} with experts": (jamba_moe_launches, jamba_moe_res.prefills, "prefill"),
             "qwen3_0_6b sharded, (1, 1) mesh": (sharded_launches, sharded_prefills, "prefill"),
-            "qwen3_0_6b sharded train, (1, 1) mesh, FSDP": (sharded_train_launches, 1, "step")}
+            "qwen3_0_6b sharded train, (1, 1) mesh, FSDP": (sharded_train_launches, 1, "step"),
+            "qwen3_0_6b campaign train": (campaign_train_launches, campaign_steps, "step"),
+            "qwen3_0_6b campaign, served from its checkpoint": (campaign_serve_launches, campaign_prefills,
+                                                               "prefill")}
 
     def launch_counts(name: str) -> dict:
         """The kernel's launches over the main-path runs, by path, and per

@@ -9,8 +9,10 @@ commits incrementally: only the dirty spine of the tree is rebuilt, and
 unchanged subtrees keep their oid. Both packages give the same tree oids
 for the same content.
 
-Not ported (ROADMAP.md §A item 2): remote annex tiers, clone, checkout,
-merges, pack writing, gc, the filesystem cost model and crash points.
+``tree_of`` flattens a commit's tree and ``log`` walks the commit DAG, as
+the reference's do. Not ported (ROADMAP.md §A item 2): remote annex tiers,
+clone, checkout, merges, pack writing, gc, the filesystem cost model and
+crash points.
 """
 from __future__ import annotations
 
@@ -131,6 +133,23 @@ class Repository:
         if commit_oid is None:
             return None
         return self.objects.get_commit(commit_oid)["tree"] or None
+
+    def tree_of(self, commit_oid: str) -> dict[str, dict]:
+        """Flat {relpath: entry} map of a commit's tree (entries: blob|annex)."""
+        commit = self.objects.get_commit(commit_oid)
+        flat: dict[str, dict] = {}
+
+        def walk(tree_oid: str, prefix: str) -> None:
+            for name, entry in self.objects.get_tree(tree_oid).items():
+                p = f"{prefix}{name}"
+                if entry["t"] == "tree":
+                    walk(entry["oid"], p + "/")
+                else:
+                    flat[p] = entry
+
+        if commit["tree"]:
+            walk(commit["tree"], "")
+        return flat
 
     def entry_at(self, commit_oid: str, path: str) -> dict | None:
         """One path's tree entry in a commit, looked up along its spine."""
@@ -293,6 +312,27 @@ class Repository:
             if oid != base:
                 self.set_branch(branch, oid)
             return oid
+
+    # -- history ---------------------------------------------------------
+    def log(self, start: str | None = None):
+        """Yield (oid, commit) from ``start`` (default HEAD) over all parents,
+        newest first by timestamp."""
+        start = start or self.head_commit()
+        if start is None:
+            return
+        seen: set[str] = set()
+        frontier = [self.resolve(start)]
+        commits = []
+        while frontier:
+            oid = frontier.pop()
+            if oid in seen:
+                continue
+            seen.add(oid)
+            c = self.objects.get_commit(oid)
+            commits.append((oid, c))
+            frontier.extend(c["parents"])
+        commits.sort(key=lambda oc: -oc[1]["timestamp"])
+        yield from commits
 
     # -- annex -----------------------------------------------------------
     def annex_fetch_key(self, key: str) -> AnnexStore:

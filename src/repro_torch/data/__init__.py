@@ -1,3 +1,3 @@
-from .tokens import SyntheticTokens
+from .tokens import RepoTokenDataset, SyntheticTokens
 
-__all__ = ["SyntheticTokens"]
+__all__ = ["RepoTokenDataset", "SyntheticTokens"]

@@ -529,6 +529,21 @@ def _heads(ctx: Ctx | None, y: torch.Tensor, n: int) -> torch.Tensor:
     return y.reshape(b, s, n, f // n)
 
 
+def _merge_heads(ctx: Ctx, out: torch.Tensor) -> torch.Tensor:
+    """An attention output [B, S, H, Dh] as [B, S, H * Dh], the input of its
+    output projection. Sharded, where the H heads do not split over tp (so
+    the output is whole over tp), the flattened output is redistributed to
+    its own placements as a step of its own, a no-op forward as in ``_add``:
+    its backward hands the reshape a gradient whole over tp. The matmul with
+    the tp-sharded ``wo`` gives one sharded over the fused dim, which DTensor
+    cannot view back to [B, S, H, Dh] (arctic's 56 heads over 16 ranks)."""
+    b, s, h, dh = out.shape
+    out = out.reshape(b, s, h * dh)
+    if ctx.rules is not None and _tp_axis(ctx, h) is None:
+        out = out.redistribute(out.device_mesh, out.placements)
+    return out
+
+
 def _project_qkv(cfg: ModelConfig, p_attn: dict, h: torch.Tensor, ctx: Ctx | None = None):
     H, KV = cfg.n_heads, cfg.n_kv_heads
     q = _heads(ctx, h @ p_attn["wq"], H)
@@ -580,9 +595,7 @@ def _self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, ctx: Ctx, cache)
                                                          q_chunk=cfg.attn_q_chunk), q, k, v)
         if ctx.mode == "prefill":
             new_cache = _prefill_kv_cache(cfg, ctx, k, v)
-    B, S = x.shape[:2]
-    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["attn"]["wo"]
-    return out, new_cache
+    return _merge_heads(ctx, out) @ p["attn"]["wo"], new_cache
 
 
 def _prefill_kv_cache(cfg: ModelConfig, ctx: Ctx, k: torch.Tensor, v: torch.Tensor) -> dict:
@@ -612,8 +625,7 @@ def _cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, ctx: Ctx, cache
     and returns the cache's own tensors, so the decode loop copies nothing.
     Returns (mixer_out, new_cache_entries)."""
     h = _seq_whole(ctx, rmsnorm(x, p["ln_x"], cfg.norm_eps))
-    B, S, _ = h.shape
-    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
     px = p["xattn"]
     q = _heads(ctx, h @ px["wq"], H)
     new_cache = {}
@@ -631,7 +643,7 @@ def _cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, ctx: Ctx, cache
                 spec = ctx.rules.kv_cache(ctx.batch_shardable)
                 xk, xv = ctx.rules.constrain(xk, spec), ctx.rules.constrain(xv, spec)
             new_cache = {"xk": xk, "xv": xv}
-    return out.reshape(B, S, H * Dh) @ px["wo"], new_cache
+    return _merge_heads(ctx, out) @ px["wo"], new_cache
 
 
 def _shift(x: torch.Tensor, prev: torch.Tensor | None) -> torch.Tensor:

@@ -32,11 +32,15 @@ from repro_torch.train.steps import greedy_token, make_decode_step, make_prefill
 SRC = Path(__file__).resolve().parents[1] / "src"
 CELLS = [("qwen3_0_6b", "train_4k", "single"), ("qwen3_0_6b", "decode_32k", "single"),
          ("rwkv6_1_6b", "long_500k", "single"), ("qwen3_0_6b", "train_4k", "multi")]
+# ROADMAP §C4: train steps whose query heads (56, 28) do not split over the 16 tp
+# ranks, planned at full width with 1 layer (argv's fourth entry)
+C4_CELLS = [("arctic_480b", "train_4k", "single"), ("qwen2_vl_7b", "train_4k", "single")]
 CELL_TIMEOUT = 240  # s; the slowest cell (train_4k on 512 ranks) plans in ~20 s alone
 _CELL = """
 import json, sys
 from repro_torch.launch.dryrun import run_cell
-cell = run_cell(sys.argv[1], sys.argv[2], multi_pod=(sys.argv[3] == "multi"))
+overrides = {"n_layers": int(sys.argv[4])} if len(sys.argv) > 4 else None
+cell = run_cell(sys.argv[1], sys.argv[2], multi_pod=(sys.argv[3] == "multi"), overrides=overrides)
 print("CELL=" + json.dumps(cell))
 """
 _MESH = """
@@ -85,8 +89,10 @@ def _result(proc: subprocess.Popen, prefix: str):
 
 @pytest.fixture(scope="module")
 def planned():
-    """The four cells and the one-rank mesh's FLOPs, in five processes at once."""
+    """The four cells, the two §C4 cells and the one-rank mesh's FLOPs, in
+    seven processes at once."""
     procs = {c: _start(_CELL, *c) for c in CELLS}
+    procs.update({c: _start(_CELL, *c, "1") for c in C4_CELLS})
     procs["mesh"] = _start(_MESH, str(Path(__file__).parent))
     return {c: _result(p, "FLOPS=" if c == "mesh" else "CELL=") for c, p in procs.items()}
 
@@ -104,6 +110,18 @@ def test_dryrun_cell_plans(planned, arch, shape, mesh):
     # the kernel ops ran on the stand-ins: every layer's flash attention, and remat's recompute
     want = {"train_4k": 2 * 28, "decode_32k": 0, "long_500k": 0}[shape]
     assert cell["kernel_calls"].get("flash_attention_fwd", 0) == want
+
+
+@pytest.mark.parametrize("arch,shape,mesh", C4_CELLS)
+def test_dryrun_plans_a_train_step_whose_heads_do_not_split_over_tp(planned, arch, shape, mesh):
+    """The backward of the attention output's reshape, which DTensor refused
+    for these cells before ``transformer._merge_heads`` (ROADMAP §C4)."""
+    rc, cell, stderr = planned[(arch, shape, mesh)]
+    assert rc == 0 and cell is not None, stderr
+    assert cell["status"] == "ok" and cell["overrides"] == {"n_layers": 1}
+    assert configs.get(arch).n_heads % 16 != 0 and cell["chips"] == 256
+    assert cell["flops_per_device"] > 0 and cell["memory"]["peak_bytes"] >= cell["memory"]["argument_bytes"] > 0
+    assert cell["kernel_calls"] == {"flash_attention_fwd": 2}  # the forward and remat's recompute
 
 
 KINDS = {"train": configs.Shape("smoke_train", "train", 32, 4),

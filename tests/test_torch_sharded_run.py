@@ -31,6 +31,12 @@ parametrised test asserts one case, so each case counts.
   within rtol 1e-4 / atol 1e-5 of the unsharded port's
   (``test_torch_train_steps.py``'s tolerances and rules); the AdamW moments
   placed as their params.
+- Training where the query heads do not split over tp (ROADMAP §C4): one
+  fp32 step of arctic's smoke config with 6 query heads and 2 KV heads on the
+  (2, 4) mesh, whose attention output's backward DTensor could not view
+  back to heads; the first moment and the loss held against the unsharded
+  port as above and against the JAX package's step (the first moment within
+  rtol 1e-4 / atol 1e-6, the loss within 1e-5).
 - Elastic restore (the port of tests/test_elastic.py): the state after that
   qwen3 step, saved as step 7 from the (4, 2) mesh, restored under (2, 4):
   bitwise, every leaf on the new mesh, the manifest's step, annex keys
@@ -68,6 +74,9 @@ SERVE_TP4 = ("qwen3_0_6b", 8)
 TRAIN = [(a, f, False) for a in ("qwen3_0_6b", "mixtral_8x22b") for f in (False, True)] + [
     ("rwkv6_1_6b", False, False), ("jamba_1_5_large_398b", False, False), ("qwen3_0_6b", False, True)]
 PARAMS_HELD = {"qwen3_0_6b", "mixtral_8x22b"}
+# on the (2, 4) mesh: 6 query heads (and 2 KV heads) do not split over 4 tp ranks
+TRAIN_UNEVEN = ("arctic_480b", {"n_heads": 6, "n_kv_heads": 2})
+UNEVEN = "arctic_480b-h6"
 
 
 def _train_id(arch: str, fsdp: bool, compress: bool) -> str:
@@ -202,7 +211,11 @@ def _code_close(got, want, code_step) -> bool:
         else not bool(off.any())
 
 
-def _train_case(mesh, data, arch, fsdp, compress, res, state_out):
+def _train_case(mesh, data, arch, fsdp, compress, res, state_out, change=None, key=None, arrays=None):
+    """One train step sharded and unsharded. ``change`` replaces fields of
+    the smoke config, whose weights and tokens are then under ``key`` in
+    ``data``; with ``arrays``, the sharded step's loss and first moments go
+    there for the parent's JAX comparison."""
     from repro_torch import configs
     from repro_torch.convert import params_from_numpy
     from repro_torch.distributed.sharding import rules_for
@@ -210,10 +223,11 @@ def _train_case(mesh, data, arch, fsdp, compress, res, state_out):
     from repro_torch.tree import leaves
     from repro_torch.train.steps import make_train_step
 
-    cfg = configs.get_smoke(arch).replace(use_pallas="on")
+    cfg = configs.get_smoke(arch).replace(use_pallas="on", **(change or {}))
     rules = rules_for(cfg, mesh, fsdp=fsdp)
-    tree = _nest({p[len(arch) + 1:]: data[p] for p in data.files if p.startswith(arch + "/")})
-    batch = {"tokens": torch.from_numpy(data[f"train/{arch}/tokens"])}
+    key = key or arch
+    tree = _nest({p[len(key) + 1:]: data[p] for p in data.files if p.startswith(key + "/")})
+    batch = {"tokens": torch.from_numpy(data[f"train/{key}/tokens"])}
     opt = AdamW(lr=1e-3)
     out = {}
     for name, r in (("port", None), ("sharded", rules)):
@@ -237,7 +251,10 @@ def _train_case(mesh, data, arch, fsdp, compress, res, state_out):
                   for m, v, p in zip(leaves(s1["m"]), leaves(s1["v"]), leaves(p1)))
     loss = (float(m1["loss"].full_tensor() if hasattr(m1["loss"], "full_tensor") else m1["loss"]),
             float(m0["loss"]))
-    res[_train_id(arch, fsdp, compress)] = {"params_close": ok, "params_max_abs_err": worst, "m_close": m_ok, "bad": bad[:5],
+    if arrays is not None:
+        arrays[f"train/{key}/loss"] = np.float32(loss[0])
+        arrays.update({f"train/{key}/m/{p}": v.full_tensor().detach().numpy() for p, v in _flat(s1["m"]).items()})
+    res[key if change else _train_id(arch, fsdp, compress)] = {"params_close": ok, "params_max_abs_err": worst, "m_close": m_ok, "bad": bad[:5],
                                       "moments_placed": moments, "loss": loss}
     if arch == "qwen3_0_6b" and not fsdp and not compress:
         state_out.update(params=p1, opt_state=s1, cfg=cfg)
@@ -337,6 +354,10 @@ def _rank_main(rank: int, workdir: str) -> None:
             t = time.perf_counter()
             _train_case(mesh, data, *case, res["train"], state)
             times[f"train {_train_id(*case)}"] = time.perf_counter() - t
+        t = time.perf_counter()
+        _train_case(mesh_b, data, TRAIN_UNEVEN[0], False, False, res["train"], state, change=TRAIN_UNEVEN[1],
+                    key=UNEVEN, arrays=arrays)
+        times[f"train {UNEVEN}"] = time.perf_counter() - t
         _loss_comms(mesh, res)
         t = time.perf_counter()
         _elastic(mesh_b, state, work, res, arrays)
@@ -373,6 +394,26 @@ def _jax_reference(jconfigs, data) -> dict:
     return out
 
 
+def _jax_train_uneven(data) -> dict:
+    """The JAX package's fp32 train step of ``TRAIN_UNEVEN``: its loss and
+    first moments."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import configs as jconfigs
+    from repro.optim.adamw import AdamW as JAdamW
+    from repro.train.steps import make_train_step
+
+    jcfg = jconfigs.get_smoke(TRAIN_UNEVEN[0]).replace(**TRAIN_UNEVEN[1])
+    params = _nest({p[len(UNEVEN) + 1:]: jnp.asarray(data[p]) for p in data.files if p.startswith(UNEVEN + "/")})
+    opt = JAdamW(lr=1e-3)
+    batch = {"tokens": jnp.asarray(data[f"train/{UNEVEN}/tokens"])}
+    _, state, metrics = jax.jit(make_train_step(jcfg, None, opt))(params, opt.init(params), batch)
+    out = {f"train/{UNEVEN}/loss": np.asarray(metrics["loss"])}
+    out.update({f"train/{UNEVEN}/m/{p}": np.asarray(v) for p, v in _flat(state["m"]).items()})
+    return out
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     jax = pytest.importorskip("jax")
@@ -393,6 +434,10 @@ def run(tmp_path_factory):
             arrays[f"in/{_case(arch, b)}/{k}"] = v
     for arch, _, _ in TRAIN:
         arrays[f"train/{arch}/tokens"] = _inputs(jconfigs.get_smoke(arch), 8, seed=1)["tokens"]
+    jcfg = jconfigs.get_smoke(TRAIN_UNEVEN[0]).replace(**TRAIN_UNEVEN[1])
+    params = jax_init_params(JT.param_defs(jcfg), seed=0, dtype=jnp.float32)
+    arrays.update({f"{UNEVEN}/{p}": np.asarray(v) for p, v in _flat(jax.tree.map(np.asarray, params)).items()})
+    arrays[f"train/{UNEVEN}/tokens"] = _inputs(jcfg, 8, seed=1)["tokens"]
     np.savez(work / "inputs.npz", **arrays)
 
     env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(ROOT / "src"), str(ROOT / "tests")]),
@@ -404,6 +449,7 @@ def run(tmp_path_factory):
              for r in range(WORLD)]
     try:
         want = _jax_reference(jconfigs, np.load(work / "inputs.npz"))
+        want.update(_jax_train_uneven(np.load(work / "inputs.npz")))
         outs = [p.communicate(timeout=RANK_TIMEOUT) for p in procs]
     finally:
         for p in procs:
@@ -441,6 +487,23 @@ def test_sharded_train_step_matches_unsharded_port(run, arch, fsdp, compress):
     assert r["params_close"] or arch not in PARAMS_HELD or compress, r
     assert r["moments_placed"], r
     assert abs(r["loss"][0] - r["loss"][1]) <= STEP_TOL["atol"] + STEP_TOL["rtol"] * abs(r["loss"][1]), r
+
+
+def test_sharded_train_step_where_heads_do_not_split_over_tp(run):
+    """ROADMAP §C4: 6 query heads over 4 tp ranks. The gradient of the
+    flattened attention output comes back from the tp-sharded ``wo`` sharded
+    over the fused H * Dh dim, which DTensor cannot view back to heads unless
+    the output is first placed whole over tp (``transformer._merge_heads``).
+    The step against the unsharded port and the JAX package's."""
+    res, got, want = run
+    r = res["train"][UNEVEN]
+    assert r["m_close"] and r["moments_placed"], r
+    assert abs(r["loss"][0] - r["loss"][1]) <= STEP_TOL["atol"] + STEP_TOL["rtol"] * abs(r["loss"][1]), r
+    np.testing.assert_allclose(got[f"train/{UNEVEN}/loss"], want[f"train/{UNEVEN}/loss"], rtol=0, atol=1e-5)
+    moments = sorted(k for k in want if k.startswith(f"train/{UNEVEN}/m/"))
+    assert moments and moments == sorted(k for k in got if k.startswith(f"train/{UNEVEN}/m/"))
+    for k in moments:
+        np.testing.assert_allclose(got[k], want[k], err_msg=k, **MOMENT_TOL)
 
 
 def test_sharded_loss_gathers_no_logits(run):
