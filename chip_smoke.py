@@ -30,7 +30,7 @@ Phases; any failure exits non-zero before the result lines are printed.
                     (no single PyTorch call computes the recurrence), with the
                     bf16 instance's ptxas line.
   5. serve qwen3  — full-width qwen3-0.6B serving (bf16, B=8, 512-token prompts,
-                    32 generated tokens) through ``repro_torch.launch.serve.run``;
+                    16 generated tokens) through ``repro_torch.launch.serve.run``;
                     the flash kernel must have launched once per layer per prefill.
   6. parity qwen3 — full-width fp32 prefill, kernel on against kernel off; then
                     bf16 on the same weights cast: kernel on against off must
@@ -83,7 +83,7 @@ Phases; any failure exits non-zero before the result lines are printed.
                     with deterministic algorithms, cut to 2 layers, 6 steps
                     unbroken against 3, a new segment and 3 more: the step-6
                     checkpoints' annex keys (sha256 of each leaf's bytes) must
-                    be equal (phase 28 resumes the full depth).
+                    be equal.
  15. serve seamless — seamless-m4t-large-v2 at full width and depth (24
                     encoder and 24 decoder layers), phase 5's shape with the
                     stub speech frontend's 128 encoder frames a prompt; the
@@ -151,7 +151,7 @@ Phases; any failure exits non-zero before the result lines are printed.
                     ``make_prefill_step``/``make_decode_step(..., rules=...)``
                     (the flash kernel on each rank's heads through
                     ``local_map``): 28 flash launches a prefill and the first 8
-                    of phase 5's greedy tokens exactly (its cache of 544
+                    of phase 5's greedy tokens exactly (its cache of 528
                     slots), with prefill and decode times beside phase 5's. Then one bf16 train step at phase 14's batch,
                     cut to 2 layers, under FSDP rules against the unsharded
                     step (deterministic algorithms for both, as phase 14's
@@ -167,28 +167,29 @@ Phases; any failure exits non-zero before the result lines are printed.
  27. dryrun       — the launch tools on the card's torch: the dry-run
                     (``repro_torch.launch.dryrun.run_cell``, meta tensors on a
                     fake process group of 256 or 512 ranks) of
-                    tests/test_dryrun_smoke.py's four cells, each of which must
+                    tests/test_dryrun_smoke.py's four cells (the two train_4k
+                    cells cut to 2 of 28 layers), each of which must
                     come back "ok", with its roofline row (model outputs from
                     H100 data-sheet constants, no card time). The card's memory
                     must equal launch/mesh.py's HBM_BYTES. Then the dry-run of
                     phase 5's prefill and one decode step at position 512, and of
-                    phase 14's B=8 x 512 train step, unsharded and on a (1, 1)
-                    mesh, held against the same steps run once on the card from
-                    seed weights: predicted peak memory within 10% or 256 MiB of
-                    ``max_memory_allocated`` above the memory held before the
-                    step's arguments, FLOPs equal to ``FlopCounterMode``'s over
-                    the card's run, and the flash launches planned equal to the
-                    launches run (28, 0 and 56); prints the roofline bound beside
-                    phase 5's prefill, its decode p50 and phase 14's step p50.
+                    phase 14's B=8 x 512 train step, cut to 2 of 28 layers,
+                    unsharded and on a (1, 1) mesh, held against the same steps
+                    run once on the card from seed weights: predicted peak
+                    memory within 10% or 256 MiB of ``max_memory_allocated``
+                    above the memory held before the step's arguments, FLOPs
+                    equal to ``FlopCounterMode``'s over the card's run, and the
+                    flash launches planned equal to the launches run (2, 0 and
+                    4); prints each plan's roofline bound.
                     Also the dry-run of arctic-480b's and qwen2-vl-7b's
                     train_4k cells on the 16x16 mesh at full width with 1
                     layer, whose query heads (56, 28) do not split over its 16
                     tp ranks (ROADMAP §C4): each must come back "ok".
  28. campaign     — training on data pinned to commits through
                     ``repro_torch.launch.campaign.run`` (the training half of
-                    examples/surrogate_campaign.py): qwen3-0.6B at full width and
-                    depth, phase 14's shapes (bf16 weights, fp32 moments, remat,
-                    B=8 x 512). Data commit 1 (4 simulation shards of 65,536
+                    examples/surrogate_campaign.py): qwen3-0.6B at full width,
+                    cut to 2 of its 28 layers, phase 14's shapes (bf16 weights,
+                    fp32 moments, remat, B=8 x 512). Data commit 1 (4 simulation shards of 65,536
                     tokens below 4096), 4 steps on a RepoTokenDataset pinned to
                     it and a checkpoint; data commit 2 (4 more shards), a new
                     train_segment that resumes at step 4 and checkpoints at 8;
@@ -197,10 +198,40 @@ Phases; any failure exits non-zero before the result lines are printed.
                     shards' recipe with numpy alone; the step-8 manifest must
                     hold step 8 and data_step 8; ``Repository.log`` from it must
                     list data commit 2, the step-4 checkpoint and data commit 1,
-                    in that order; the flash kernel must launch 56 times a step
-                    and 28 times a prefill, and the served tokens must be finite
+                    in that order; the flash kernel must launch 4 times a step
+                    and 2 times a prefill, and the served tokens must be finite
                     and in the vocabulary. Prints step p50/p95, tokens/s, peak
-                    memory and each save's seconds beside phase 14's p50.
+                    memory and each save's seconds.
+ 29. train rwkv6  — first the WKV op's backward (through ``rwkv6_ref``) at the
+                    train shape (8, 512, 32, 64) in fp32 against the plain
+                    version's autograd (GRAD_TOL), and, printed as a finding,
+                    the time and gradient error of the chunked form's backward
+                    there. Then rwkv6-1.6B at full width and depth (bf16
+                    weights, fp32 moments, remat), B=8 x 512, 3 steps of
+                    ``make_train_step`` on one batch: step 1 warms up, p50
+                    over steps 2-3, the loss must drop, the WKV kernel must
+                    launch 48 times a step (24 forward, 24 in remat's
+                    recompute) and nothing else; peak memory, train_mfu. Then
+                    one fp32 step cut to 2 layers, kernel on against off, as
+                    phase 14's.
+ 30. train jamba  — the Mamba op's backward (through ``mamba_ref``) at (1, 512,
+                    16384, 16) fp32 against the plain version's autograd
+                    (GRAD_TOL), and, printed as a finding, the time and
+                    gradient error there of ``ssm.mamba_scan_chunked``'s
+                    backward (two 256-step chunks). Then
+                    jamba-1.5-large without experts, one 8-layer repeat at full
+                    width (9.116 B parameters, bf16 weights and moments,
+                    remat), B=4 x 512, the largest batch whose planned peak
+                    leaves 4 GiB of the card free: one bf16 gradient step
+                    kernels on against off (loss within BF16_TOL), then 3
+                    steps of ``make_train_step`` with finite losses, 14 Mamba
+                    and 2 flash launches a step and nothing else, and the
+                    measured peak within 10% or 256 MiB of the dry-run's plan
+                    of the same step (``launch/dryrun.py --one-card``, run
+                    under the card's torch in a process of its own beside
+                    phases 3-29). Phases 29 and 30 print the card's name and
+                    power limit beside their numbers; neither saves (phases 14
+                    and 28 drive the save path).
 Phases 3, 4 and 9 also run one backward through each kernel op
 (``ops.flash_attention``, ``ops.rwkv6``, ``ops.mamba_scan``) at a small fp32
 shape and hold its gradients against the plain version's autograd.
@@ -212,12 +243,14 @@ limit, and the final line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import gc
 import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -280,13 +313,17 @@ RWKV_SHAPES = [RWKV_SERVE_SHAPE, (2, 64, 2, 32), (1, 128, 4, 64), (1, 32, 1, 128
 # Di=200, no multiple of the 128-channel block.
 MAMBA_SERVE_SHAPE = (8, 512, 16384, 16)
 MAMBA_SHAPES = [MAMBA_SERVE_SHAPE, (2, 64, 64, 8), (1, 128, 256, 16), (2, 40, 96, 4), (1, 64, 200, 16)]
-SERVE = dict(batch=8, prompt_len=512, gen=32)
-DRYRUN_CELLS = [("qwen3_0_6b", "train_4k", False), ("qwen3_0_6b", "decode_32k", False),
-                ("rwkv6_1_6b", "long_500k", False), ("qwen3_0_6b", "train_4k", True)]  # tests/test_dryrun_smoke.py's
+SERVE = dict(batch=8, prompt_len=512, gen=16)  # every serve phase (32 generated tokens before PR 25)
+# phase 27: tests/test_dryrun_smoke.py's four cells, the two train_4k cells cut to 2 of qwen3's 28
+# layers (tests/test_torch_dryrun.py plans all four at full depth)
+DRYRUN_TRAIN_CUTS = {"n_layers": 2}
+DRYRUN_CELLS = [("qwen3_0_6b", "train_4k", False, DRYRUN_TRAIN_CUTS), ("qwen3_0_6b", "decode_32k", False, None),
+                ("rwkv6_1_6b", "long_500k", False, None), ("qwen3_0_6b", "train_4k", True, DRYRUN_TRAIN_CUTS)]
 # phase 27: train steps whose query heads do not split over the mesh's 16 tp ranks (ROADMAP §C4),
 # planned at full width with 1 layer, as tests/test_torch_dryrun.py plans them
 DRYRUN_C4_CELLS = [("arctic_480b", "train_4k", False), ("qwen2_vl_7b", "train_4k", False)]
 DRYRUN_C4_CUTS = {"n_layers": 1}
+DRYRUN_HELD_CUTS = {"n_layers": 2}  # phase 27's plans held against runs: 2 of qwen3's 28 layers, for time
 DRYRUN_PEAK_TOL, DRYRUN_PEAK_SLACK = 0.10, 256 << 20  # phase 27: predicted peak within 10% or 256 MiB
 SHARDED_STEP_TOL = 2e-2  # phase 26: the FSDP step's loss and first moments against the unsharded one, relative
 JAMBA = "jamba_1_5_large_398b"
@@ -297,13 +334,15 @@ CHUNK_THRESHOLD = 1 << 20
 CHANGED_SHARE = 0.03  # of the leaf's bytes, one contiguous run, between the two saves
 TRAIN = dict(steps=8, batch=8, seq_len=512)  # phase 14's timed run (launch.train.run)
 CAMPAIGN = dict(sim_jobs=4, steps=8)  # phase 28: shards committed in each phase; phase 1 trains to 4, phase 2 to 8
+# phase 28 at full width, cut to 2 of qwen3's 28 layers (phase 14 trains and saves the full depth)
+CAMPAIGN_CUTS = {"n_layers": 2}
 TRAIN_LR = 1e-3  # the fixed-batch check: constant rate, AdamW's other defaults
 TRAIN_PARITY_LAYERS = 2  # the kernel on/off train step: 2 of qwen3's 28 layers, full width
 PREEMPT = (6, 3)  # the unbroken run's steps, and the step the other is cut at
 # phase 14's resume check and phase 26's FSDP step and its checkpoint: 2 of qwen3's 28 layers
-# at full width (phase 28 resumes the full depth from its checkpoint)
+# at full width (phase 14's timed run trains and saves the full depth)
 CUT_TRAIN_LAYERS = 2
-SHARDED_GEN = 8  # phase 26: the first 8 of phase 5's 32 tokens, decoded into its 544-slot cache
+SHARDED_GEN = 8  # phase 26: the first 8 of phase 5's 16 tokens, decoded into its 528-slot cache
 SEAMLESS, QWEN2_VL = "seamless_m4t_large_v2", "qwen2_vl_7b"
 QWEN2_VL_PARITY_LAYERS = 4  # phase 18: fp32 at full depth would be 30.5 GB of weights
 VISION_GRID = 8  # phase 18: the 64 vision positions as an 8 x 8 grid
@@ -321,6 +360,13 @@ ARCTIC_CUTS = {"n_layers": 1}  # 1 of 35 layers: 28.1 GB of bf16 weights, 56.3 G
 JAMBA_MOE_LAYERS = 8  # phases 24-25: one repeat of jamba's 8-layer pattern
 JAMBA_MOE_EXPERTS = 8  # phase 24: 8 of 16 experts, 52.1 GB of bf16 weights; 16 are 90.7 GB
 JAMBA_MOE_PARITY_EXPERTS = 4  # phase 25: 65.4 GB of fp32 weights
+RECURRENT_TRAIN_STEPS = 3  # phases 29-30: step 1 warms up, p50 over steps 2-3
+RWKV_TRAIN = dict(batch=8, seq_len=512)  # phase 29: rwkv6-1.6B at full width and depth
+# phase 30: one 8-layer repeat of jamba without experts (9.116 B parameters, bf16 moments): the
+# largest batch whose planned peak leaves 4 GiB of the card free (launch/dryrun.py --one-card)
+JAMBA_TRAIN_CUTS = {"moe": None, "n_layers": 8}
+JAMBA_TRAIN = dict(batch=4, seq_len=512)
+JAMBA_GRAD_SHAPE = (1, 512, 16384, 16)  # phase 30: the Mamba op's chunked backward at jamba's width
 
 
 def fail(msg: str) -> None:
@@ -653,6 +699,61 @@ def grad_check(torch, name: str, op, plain, args: list, n_diff: int) -> float:
     return err
 
 
+@contextmanager
+def deterministic(torch):
+    """PyTorch's deterministic algorithms on, then off again."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def train_parity(torch, make_grad_fn, name: str, cfg32, params: dict, batch: dict, launches: dict) -> None:
+    """One fp32 gradient step of ``cfg32`` on ``params``, kernels off against
+    on: the loss and each gradient leaf (max |on - off| / max |off|) within
+    PARITY_TOL; the kernel-on step must launch each wrapper of ``launches``
+    as often as it says, the kernel-off step none."""
+    grads_by = {}
+    for use_pallas in ("off", "on"):
+        for counter in launches:
+            counter.launches = 0
+        grads_by[use_pallas] = make_grad_fn(cfg32.replace(use_pallas=use_pallas))(params, batch)
+        torch.cuda.synchronize()
+        got = {c.__name__: c.launches for c in launches}
+        want = {c.__name__: n if use_pallas == "on" else 0 for c, n in launches.items()}
+        if got != want:
+            fail(f"the fp32 {name} train step with use_pallas={use_pallas} launched {got}, expected {want}")
+    (loss_off, _, g_off), (loss_on, _, g_on) = grads_by["off"], grads_by["on"]
+    loss_err = abs(loss_on.item() - loss_off.item()) / abs(loss_off.item())
+    grad_err = {p: ((g_on_p.float() - g).abs().max() / g.abs().max()).item()
+                for (p, g), (_, g_on_p) in zip(leaves(g_off), leaves(g_on))}
+    worst = max(grad_err, key=grad_err.get)
+    b, s = batch["tokens"].shape
+    print(f"train parity {name} fp32, {cfg32.n_layers} layers, B={b} x {s}: loss kernel on vs off relative "
+          f"{loss_err:.3g}; gradients max |on - off| / max |off| per leaf {grad_err[worst]:.3g} ({worst}) over "
+          f"{len(grad_err)} leaves (tol {PARITY_TOL})")
+    if not loss_err <= PARITY_TOL or not grad_err[worst] <= PARITY_TOL:
+        fail(f"the kernel-on {name} train step disagrees with kernel-off")
+
+
+def timed_steps(torch, step_fn, params, opt_state, batch, dev, kernels: dict, n: int):
+    """``n`` steps of ``step_fn`` on one batch, each on the host clock ending
+    in a synchronise, every kernel's count set to 0 just before. Returns
+    (params, opt_state, losses, step ms, launches by wrapper)."""
+    for counter in kernels.values():
+        counter.launches = 0
+    losses, step_ms = [], []
+    for _ in range(n):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize(dev)
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(metrics["loss"]))
+    return params, opt_state, losses, step_ms, {c.__name__: c.launches for c in kernels.values()}
+
+
 def leaves(tree: dict, prefix: str = ""):
     """(path, tensor) of every leaf of a nested dict."""
     for k, v in tree.items():
@@ -904,7 +1005,7 @@ def sharded_phase(torch, np, configs, T, kernels: dict, dev, seed: int, qwen_res
     return launches, 2, train_launches
 
 
-def dryrun_phase(torch, np, configs, T, kernels: dict, dev, seed: int, qwen_res, train_p50_ms: float):
+def dryrun_phase(torch, np, configs, T, kernels: dict, dev, seed: int):
     """Phase 27 (see the module docstring). Returns {name: (plan seconds,
     flash launches planned, flash launches run)} of the held runs."""
     import torch.distributed as dist
@@ -923,8 +1024,7 @@ def dryrun_phase(torch, np, configs, T, kernels: dict, dev, seed: int, qwen_res,
     total = torch.cuda.get_device_properties(dev).total_memory
     if total != launch_mesh.HBM_BYTES:
         fail(f"the card has {total} bytes of memory; launch/mesh.py's HBM_BYTES says {launch_mesh.HBM_BYTES}")
-    for arch, shape, multi, cuts in ([c + (None,) for c in DRYRUN_CELLS]
-                                     + [c + (DRYRUN_C4_CUTS,) for c in DRYRUN_C4_CELLS]):
+    for arch, shape, multi, cuts in DRYRUN_CELLS + [c + (DRYRUN_C4_CUTS,) for c in DRYRUN_C4_CELLS]:
         t = time.perf_counter()
         cell = run_cell(arch, shape, multi, overrides=cuts)
         if cell["status"] != "ok":
@@ -938,13 +1038,12 @@ def dryrun_phase(torch, np, configs, T, kernels: dict, dev, seed: int, qwen_res,
               f"{r['useful_compute_ratio']:.2f}, peak {r['hbm_gib_per_device']:.2f} GiB/rank, fits 80 GB "
               f"{r['fits_h100_80g']}; kernel calls {cell['kernel_calls']}")
 
-    cfg = configs.get("qwen3_0_6b")
+    cfg = configs.get("qwen3_0_6b").replace(**DRYRUN_HELD_CUTS)
     b, s, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
     cache_len = s + gen
     shapes = {"prefill": configs.Shape("phase 5 prefill", "prefill", s, b),
               "decode": configs.Shape("phase 5 decode", "decode", s, b),
               "train": configs.Shape("phase 14 step", "train", TRAIN["seq_len"], TRAIN["batch"])}
-    measured_ms = {"prefill": qwen_res.prefill_ms, "decode": qwen_res.decode_p50_ms, "train": train_p50_ms}
     flash = kernels["attn"]
 
     def plan_all(rules) -> dict:
@@ -1009,14 +1108,13 @@ def dryrun_phase(torch, np, configs, T, kernels: dict, dev, seed: int, qwen_res,
             planned_flash = kernel_calls(plan["ops"]).get("flash_attention_fwd", 0)
             pred, meas = plan["memory"]["peak_bytes"], run["peak"]
             slack = max(DRYRUN_PEAK_TOL * meas, DRYRUN_PEAK_SLACK)
-            print(f"dryrun held qwen3_0_6b {shapes[kind].name} bf16 B={b} x {shapes[kind].seq_len}, {placed}: "
+            print(f"dryrun held qwen3_0_6b, {cfg.n_layers} layers, {shapes[kind].name} bf16 B={b} x "
+                  f"{shapes[kind].seq_len}, {placed}: "
                   f"peak predicted {pred} B ({pred / 2**30:.3f} GiB) measured {meas} B ({meas / 2**30:.3f} GiB), "
                   f"diff {(pred - meas) / 2**20:.1f} MiB (bar {slack / 2**20:.0f} MiB); FLOPs planned {plan['flops']} "
                   f"FlopCounterMode {run['flops']}; flash launches planned {planned_flash} run {run['flash']}; "
                   f"bound {fmt_s(r['bound_step_s'])} ({r['dominant']}: compute {fmt_s(r['compute_s'])}, memory "
-                  f"{fmt_s(r['memory_s'])}) against the measured {measured_ms[kind]:.3f} ms (phase "
-                  f"{14 if kind == 'train' else 5}{', p50' if kind != 'prefill' else ''}): "
-                  f"{r['bound_step_s'] * 1e3 / measured_ms[kind]:.3f} of the bound; planned in {plan['plan_s']:.1f} s")
+                  f"{fmt_s(r['memory_s'])}); planned in {plan['plan_s']:.1f} s")
             if abs(pred - meas) > slack:
                 fail(f"the dry-run's peak for {kind} ({placed}) is {pred} bytes, the card's {meas}")
             if plan["flops"] != run["flops"]:
@@ -1028,14 +1126,14 @@ def dryrun_phase(torch, np, configs, T, kernels: dict, dev, seed: int, qwen_res,
     return held
 
 
-def campaign_phase(torch, np, configs, serve, kernels: dict, dev, seed: int, train_p50_ms: float):
+def campaign_phase(torch, np, configs, serve, kernels: dict, dev, seed: int):
     """Phase 28 (see the module docstring). Returns (training launches by
     wrapper, steps trained, serving launches by wrapper, prefills served)."""
     from repro_torch.core.repo import Repository
     from repro_torch.launch import campaign
     from repro_torch.train.checkpoint import CheckpointManager
 
-    cfg = configs.get("qwen3_0_6b")
+    cfg = configs.get("qwen3_0_6b").replace(**CAMPAIGN_CUTS)
     b, s = TRAIN["batch"], TRAIN["seq_len"]
     jobs, end2 = CAMPAIGN["sim_jobs"], CAMPAIGN["steps"]
     end1 = end2 // 2
@@ -1057,7 +1155,7 @@ def campaign_phase(torch, np, configs, serve, kernels: dict, dev, seed: int, tra
         with tempfile.TemporaryDirectory() as repo_dir:
             t = time.perf_counter()
             res = campaign.run("qwen3_0_6b", repo=repo_dir, full=True, seq_len=s, batch=b, seed=seed, device=dev,
-                               **CAMPAIGN)
+                               overrides=CAMPAIGN_CUTS, **CAMPAIGN)
             wall = time.perf_counter() - t
             train_launches = {counter.__name__: counter.launches for counter in kernels.values()}
             peak = torch.cuda.max_memory_allocated(dev)
@@ -1075,7 +1173,7 @@ def campaign_phase(torch, np, configs, serve, kernels: dict, dev, seed: int, tra
             gc.collect()
             torch.cuda.empty_cache()
             _, serve_res, serve_launches = serve_phase(torch, serve, configs, "qwen3_0_6b", kernels, dev, seed,
-                                                       repo=repo_dir, commit=last)
+                                                       overrides=CAMPAIGN_CUTS, repo=repo_dir, commit=last)
     finally:
         campaign.RepoTokenDataset = plain_dataset
 
@@ -1112,19 +1210,208 @@ def campaign_phase(torch, np, configs, serve, kernels: dict, dev, seed: int, tra
         fail(f"served checkpoint step {serve_res.checkpoint_step}, expected {end2}")
     timed = seg1.step_ms[1:] + seg2.step_ms[1:]  # each segment's first step allocates anew
     p50, p95 = float(np.percentile(timed, 50)), float(np.percentile(timed, 95))
-    print(f"campaign qwen3_0_6b bf16 weights, fp32 moments, remat, B={b} x {s} (launch.campaign.run): data "
+    print(f"campaign qwen3_0_6b, {cfg.n_layers} of {configs.get('qwen3_0_6b').n_layers} layers, bf16 weights, fp32 "
+          f"moments, remat, B={b} x {s} (launch.campaign.run): data "
           f"commit 1 {c1[:12]} ({jobs} shards of 65536 tokens), steps 0->{end1}, checkpoint "
           f"{seg1.checkpoint_commit[:12]}; data commit 2 {c2[:12]} ({2 * jobs} shards), resumed "
           f"{seg2.start_step}->{seg2.end_step}, checkpoint {last[:12]} (manifest step {manifest['step']}, "
           f"data_step {manifest['data_step']}); step p50 {p50:.3f} ms p95 {p95:.3f} ms over each segment's steps "
-          f"but its first (all: {[round(x, 3) for x in seg1.step_ms + seg2.step_ms]} ms) against phase 14's "
-          f"p50 {train_p50_ms:.3f} ms; {b * s / (float(np.mean(timed)) / 1e3):.1f} tokens/s; peak memory "
+          f"but its first (all: {[round(x, 3) for x in seg1.step_ms + seg2.step_ms]} ms); "
+          f"{b * s / (float(np.mean(timed)) / 1e3):.1f} tokens/s; peak memory "
           f"{peak / 2**30:.3f} GiB; saves {[round(x, 3) for x in seg1.save_s + seg2.save_s]} s; losses "
           f"{[round(x, 5) for x in losses]}; dataset host ms per batch {[round(x, 3) for *_, x in handed]} (the "
           f"first of each dataset loads its shards); {len(handed)} batches equal to numpy's; whole run {wall:.3f} s; "
           f"launches {train_launches}")
     print("campaign lineage from the last checkpoint: " + "; ".join(f"{o[:12]} {t}" for o, t in res.lineage))
     return train_launches, end2, serve_launches, serve_res.prefills
+
+
+def train_mfu(flops: float, p50_ms: float) -> float:
+    return flops / (p50_ms / 1e3) / H100_FLOPS["bfloat16"]
+
+
+def chunked_finding(torch, name: str, loop, chunked, args: list, dev) -> None:
+    """Prints, as a finding and not a check, the time of one forward and
+    backward through the chunked form ``chunked`` against the plain loop
+    ``loop`` (the route the op's backward takes) on ``args``, and the chunked
+    gradients' worst element in units of the GRAD_TOL bar."""
+    def fwd_bwd(fn):
+        inputs = [a.detach().clone().requires_grad_() for a in args]
+        outs = fn(*inputs)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        sum((o * torch.randn(o.shape, generator=gen, device=dev)).sum() for o in outs).backward()
+        return [x.grad for x in inputs]
+
+    fwd_bwd(chunked)  # warm-up: the loop is warm from grad_check
+    got = {}
+    for fn in (loop, chunked):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        grads = fwd_bwd(fn)
+        torch.cuda.synchronize(dev)
+        got[fn] = ((time.perf_counter() - t) * 1e3, grads)
+    units = [((g - w).abs() / (GRAD_TOL + GRAD_TOL * w.abs())).max().item() for g, w in zip(got[chunked][1],
+                                                                                          got[loop][1])]
+    rel = max(((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got[chunked][1], got[loop][1]))
+    print(f"  finding, not a check: forward and backward at {tuple(args[0].shape)} fp32 through {loop.__name__} (the "
+          f"{name} op's backward route) {got[loop][0]:.3f} ms, through ssm.{chunked.__name__} {got[chunked][0]:.3f} "
+          f"ms; the chunked gradients' worst element per input {[round(u, 3) for u in units]} units of the "
+          f"{GRAD_TOL} bar (tol + tol |loop|), max |chunked - loop| / max |loop| over the inputs {rel:.3g}")
+
+
+def train_rwkv6_phase(torch, configs, T, kernels: dict, dev, seed: int, smi: str):
+    """Phase 29 (see the module docstring). Returns (launches by wrapper
+    over the timed steps, steps)."""
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.kernels import costs, ops, ref
+    from repro_torch.models import ssm
+    from repro_torch.models.params import init_params, tree_paths
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.steps import make_grad_fn, make_train_step
+
+    # the WKV op's gradients at the train shape, fp32
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    b, s, h, d = RWKV_SERVE_SHAPE
+    r, k, v, lw = (torch.randn((b, s, h, d), generator=gen, device=dev) for _ in range(4))
+    args = [r, k, v, -lw.abs() - 0.05, torch.randn((h, d), generator=gen, device=dev),
+            0.3 * torch.randn((b, h, d, d), generator=gen, device=dev)]
+    grad_check(torch, "ops.rwkv6", ops.rwkv6, ref.rwkv6_ref, args, 6)
+    chunked_finding(torch, "WKV", ref.rwkv6_ref, ssm.rwkv6_chunked, args, dev)
+    del r, k, v, lw, args
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = configs.get("rwkv6_1_6b")
+    b, s = RWKV_TRAIN["batch"], RWKV_TRAIN["seq_len"]
+    n_params = sum(math.prod(dd.shape) for _, dd in tree_paths(T.param_defs(cfg)))
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(T.param_defs(cfg), seed=seed, device=dev)
+    opt = AdamW(lr=TRAIN_LR, moment_dtype=cfg.opt_moment_dtype)
+    ds = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b, seed=seed)
+    batch = {"tokens": torch.from_numpy(ds.global_batch_at(0)).to(dev)}
+    params, _, losses, step_ms, launches = timed_steps(
+        torch, make_train_step(cfg, opt), params, opt.init(params), batch, dev, kernels, RECURRENT_TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated(dev)
+    p50 = statistics.median(step_ms[1:])
+    flops = 6 * n_params * b * s + 3 * cfg.n_layers * costs.rwkv6_flops(b, s, cfg.n_heads, cfg.head_dim)
+    print(f"train rwkv6_1_6b full width and depth ({cfg.n_layers} layers, {n_params} parameters), bf16 weights, "
+          f"{cfg.opt_moment_dtype} moments, remat, B={b} x {s}, {RECURRENT_TRAIN_STEPS} steps on one batch from seed "
+          f"{seed} (make_train_step, lr {TRAIN_LR}): step ms {[round(x, 3) for x in step_ms]}, p50 {p50:.3f} ms over "
+          f"steps 2-{RECURRENT_TRAIN_STEPS}; {b * s / (p50 / 1e3):.1f} tokens/s; train_mfu {train_mfu(flops, p50):.4f} "
+          f"({flops / 1e12:.3f} TFLOP a step: 6 x parameters x tokens + 3 x {cfg.n_layers} x the WKV products); peak "
+          f"memory {peak / 2**30:.3f} GiB; losses {[round(x, 5) for x in losses]}; launches {launches} ({smi})")
+    if launches != {c.__name__: 2 * cfg.n_layers * RECURRENT_TRAIN_STEPS if c is kernels["rwkv6"] else 0
+                    for c in kernels.values()}:
+        fail(f"rwkv6 training launched {launches}, expected rwkv6_fwd {2 * cfg.n_layers} times a step "
+             f"({cfg.n_layers} forward, {cfg.n_layers} in remat's recompute) and nothing else")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"the rwkv6 loss on a repeated batch did not drop: {losses}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg2 = cfg.replace(n_layers=TRAIN_PARITY_LAYERS)
+    params = init_params(T.param_defs(cfg2), seed=seed, dtype=torch.float32, device=dev)
+    train_parity(torch, make_grad_fn, "rwkv6", cfg2, params, batch,
+                 {kernels["rwkv6"]: 2 * TRAIN_PARITY_LAYERS, kernels["attn"]: 0, kernels["mamba"]: 0})
+    del params
+    return launches, RECURRENT_TRAIN_STEPS
+
+
+def train_jamba_phase(torch, configs, T, kernels: dict, dev, seed: int, smi: str, plan):
+    """Phase 30 (see the module docstring); ``plan`` is the dry-run's
+    process planning the step, started at the device phase. Returns
+    (launches by wrapper over the timed steps, steps)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import ssm
+
+    # the Mamba op's gradients at jamba's width, fp32
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    b, s, di, st = JAMBA_GRAD_SHAPE
+    u, dt, B_, C_ = (torch.randn(shape, generator=gen, device=dev) for shape in ((b, s, di), (b, s, di),
+                                                                                 (b, s, st), (b, s, st)))
+    args = [u, 0.1 * dt.abs(), -torch.randn((di, st), generator=gen, device=dev).abs(), B_, C_,
+            0.3 * torch.randn((b, di, st), generator=gen, device=dev)]
+    grad_check(torch, "ops.mamba_scan", ops.mamba_scan, ref.mamba_ref, args, 6)
+    chunked_finding(torch, "Mamba", ref.mamba_ref, ssm.mamba_scan_chunked, args, dev)
+    del u, dt, B_, C_, args
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with deterministic(torch):  # as launch/train.py's command line runs the step
+        return jamba_steps(torch, configs, T, kernels, dev, seed, smi, plan)
+
+
+def jamba_steps(torch, configs, T, kernels: dict, dev, seed: int, smi: str, plan):
+    """Phase 30's model work: the kernel on/off gradient step, then the
+    timed steps and their peak against the plan."""
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.kernels import costs
+    from repro_torch.models.params import init_params, tree_paths
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.steps import make_grad_fn, make_train_step
+
+    cfg = configs.get(JAMBA).replace(**JAMBA_TRAIN_CUTS)
+    mixers = [kind.mixer for kind in cfg.pattern] * cfg.n_repeats
+    per_step = {kernels["mamba"]: 2 * mixers.count("mamba"), kernels["attn"]: 2 * mixers.count("attn"),
+                kernels["rwkv6"]: 0}
+    n_params = sum(math.prod(dd.shape) for _, dd in tree_paths(T.param_defs(cfg)))
+    b, s = JAMBA_TRAIN["batch"], JAMBA_TRAIN["seq_len"]
+    base = torch.cuda.memory_allocated(dev)
+    params = init_params(T.param_defs(cfg), seed=seed, device=dev)
+    ds = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b, seed=seed)
+    batch = {"tokens": torch.from_numpy(ds.global_batch_at(0)).to(dev)}
+    loss_by = {}
+    for use_pallas in ("off", "on"):  # one bf16 gradient step, kernels off against on
+        for counter in kernels.values():
+            counter.launches = 0
+        loss, _, grads = make_grad_fn(cfg.replace(use_pallas=use_pallas))(params, batch)
+        loss_by[use_pallas] = loss.item()
+        del grads
+        got = {c.__name__: c.launches for c in kernels.values()}
+        if got != {c.__name__: n if use_pallas == "on" else 0 for c, n in per_step.items()}:
+            fail(f"the bf16 jamba gradient step with use_pallas={use_pallas} launched {got}")
+    loss_err = abs(loss_by["on"] - loss_by["off"]) / abs(loss_by["off"])
+    print(f"train parity jamba bf16, {cfg.n_layers} layers, B={b} x {s}: loss kernel on {loss_by['on']:.6f} off "
+          f"{loss_by['off']:.6f}, relative {loss_err:.3g} (tol {BF16_TOL})")
+    if not loss_err <= BF16_TOL:
+        fail("the kernel-on jamba gradient step's loss disagrees with kernel-off")
+
+    out, _ = plan.communicate(timeout=1200)
+    cells = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    if plan.returncode != 0 or len(cells) != 1:
+        fail(f"the dry-run of jamba's train step failed: {out[-2000:]}")
+    planned = cells[0]["memory"]["peak_bytes"]
+    opt = AdamW(lr=TRAIN_LR, moment_dtype=cfg.opt_moment_dtype)
+    opt_state = opt.init(params)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, opt_state, losses, step_ms, launches = timed_steps(
+        torch, make_train_step(cfg, opt), params, opt_state, batch, dev, kernels, RECURRENT_TRAIN_STEPS)
+    measured = torch.cuda.max_memory_allocated(dev) - base
+    total = torch.cuda.get_device_properties(dev).total_memory
+    p50 = statistics.median(step_ms[1:])
+    attn = (b, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True, cfg.sliding_window)
+    flops = 6 * n_params * b * s + 3 * (mixers.count("attn") * attention_flops(attn) + mixers.count("mamba")
+                                        * costs.mamba_flops(b, s, cfg.mamba_d_inner, cfg.mamba.d_state))
+    slack = max(DRYRUN_PEAK_TOL * measured, DRYRUN_PEAK_SLACK)
+    print(f"train {JAMBA} without experts, {cfg.n_layers} of {configs.get(JAMBA).n_layers} layers ({n_params} "
+          f"parameters), bf16 weights, {cfg.opt_moment_dtype} moments, remat, B={b} x {s}, {RECURRENT_TRAIN_STEPS} "
+          f"steps on one batch (make_train_step, lr {TRAIN_LR}): step ms {[round(x, 3) for x in step_ms]}, p50 "
+          f"{p50:.3f} ms over steps 2-{RECURRENT_TRAIN_STEPS}; {b * s / (p50 / 1e3):.1f} tokens/s; train_mfu "
+          f"{train_mfu(flops, p50):.4f} ({flops / 1e12:.3f} TFLOP a step); peak memory measured {measured} B "
+          f"({measured / 2**30:.3f} GiB, {(total - measured) / 2**30:.3f} GiB of the card free), planned {planned} B "
+          f"({planned / 2**30:.3f} GiB; launch/dryrun.py --one-card under this torch, {cells[0]['plan_s']} s), diff "
+          f"{(planned - measured) / 2**20:.1f} MiB (bar {slack / 2**20:.0f} MiB); losses "
+          f"{[round(x, 5) for x in losses]}; launches {launches} ({smi})")
+    if launches != {c.__name__: n * RECURRENT_TRAIN_STEPS for c, n in per_step.items()}:
+        fail(f"jamba training launched {launches}, expected {per_step} a step")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"jamba training losses {losses}")
+    if abs(planned - measured) > slack:
+        fail(f"the dry-run's peak for jamba's train step is {planned} bytes, the card's {measured}")
+    del params, opt_state
+    return launches, RECURRENT_TRAIN_STEPS
 
 
 def unflat(flat: dict, prefix: str) -> dict:
@@ -1166,6 +1453,14 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    # phase 30's plan of jamba's train step: meta tensors on the host, one thread, beside phases 3-29
+    jamba_plan = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", JAMBA, "--shape", "train_4k", "--one-card",
+         "--batch", str(JAMBA_TRAIN["batch"]), "--seq-len", str(JAMBA_TRAIN["seq_len"])]
+        + [a for k, v in JAMBA_TRAIN_CUTS.items() for a in ("--override", f"{k}={v}")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""})
+    atexit.register(jamba_plan.kill)  # also on a failed phase's exit
     torch.cuda.set_device(dev)
 
     from repro_torch import configs
@@ -1626,15 +1921,13 @@ def main() -> None:
     flash_per_step = 2 * cfg.n_layers  # the forward, then remat's recompute in the backward
     timed = train_res.step_ms[1:]
     p50, p95 = float(np.percentile(timed, 50)), float(np.percentile(timed, 95))
-    train_p50 = p50
     tokens = b * s
     attn_shape = (b, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True, cfg.sliding_window)
     train_flops = 6 * n_params * tokens + 3 * cfg.n_layers * attention_flops(attn_shape)
-    train_mfu = train_flops / (p50 / 1e3) / H100_FLOPS["bfloat16"]
     print(f"train qwen3_0_6b bf16 weights, fp32 moments, remat, B={b} x {s}, {steps} steps from seed 0 "
           f"(launch.train.run, cosine lr): step p50 {p50:.3f} ms p95 {p95:.3f} ms over steps 2-{steps} "
           f"(step 1 {train_res.step_ms[0]:.3f} ms); {tokens / (float(np.mean(timed)) / 1e3):.1f} tokens/s; "
-          f"train_mfu {train_mfu:.4f} at p50 ({train_flops / 1e12:.3f} TFLOP a step: 6 x {n_params} x {tokens} "
+          f"train_mfu {train_mfu(train_flops, p50):.4f} at p50 ({train_flops / 1e12:.3f} TFLOP a step: 6 x {n_params} x {tokens} "
           f"+ 3 x {cfg.n_layers} x {attention_flops(attn_shape) / 1e9:.3f} GFLOP causal attention; dense bf16 "
           f"peak {H100_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s); peak memory {train_peak / 2**30:.3f} GiB; "
           f"losses {[round(x, 5) for x in train_res.losses]}; save of the train state ({state_total} bytes: "
@@ -1670,26 +1963,9 @@ def main() -> None:
     # one fp32 step at full width, 2 layers: kernel on against off
     cfg2 = cfg.replace(n_layers=TRAIN_PARITY_LAYERS)
     params = init_params(T.param_defs(cfg2), seed=args.seed, dtype=torch.float32, device=dev)
-    grads_by = {}
-    for use_pallas in ("off", "on"):
-        flash_attention_fwd.launches = 0
-        grads_by[use_pallas] = make_grad_fn(cfg2.replace(use_pallas=use_pallas))(params, batch)
-        torch.cuda.synchronize()
-        want = 2 * TRAIN_PARITY_LAYERS if use_pallas == "on" else 0
-        if flash_attention_fwd.launches != want:
-            fail(f"the fp32 train step with use_pallas={use_pallas} launched flash_attention_fwd "
-                 f"{flash_attention_fwd.launches} times, expected {want}")
-    (loss_off, _, g_off), (loss_on, _, g_on) = grads_by["off"], grads_by["on"]
-    loss_err = abs(loss_on.item() - loss_off.item()) / abs(loss_off.item())
-    grad_err = {p: ((g_on_p.float() - g).abs().max() / g.abs().max()).item()
-                for (p, g), (_, g_on_p) in zip(leaves(g_off), leaves(g_on))}
-    worst = max(grad_err, key=grad_err.get)
-    print(f"train parity qwen3 fp32, {TRAIN_PARITY_LAYERS} of {cfg.n_layers} layers, B={b} x {s}: loss kernel on "
-          f"vs off relative {loss_err:.3g}; gradients max |on - off| / max |off| per leaf {grad_err[worst]:.3g} "
-          f"({worst}) over {len(grad_err)} leaves (tol {PARITY_TOL})")
-    if not loss_err <= PARITY_TOL or not grad_err[worst] <= PARITY_TOL:
-        fail("the kernel-on train step disagrees with kernel-off")
-    del params, grads_by, g_off, g_on
+    train_parity(torch, make_grad_fn, "qwen3", cfg2, params, batch,
+                 {flash_attention_fwd: 2 * TRAIN_PARITY_LAYERS, rwkv6_fwd: 0, mamba_scan_fwd: 0})
+    del params
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1697,8 +1973,7 @@ def main() -> None:
     n_all, n_cut = PREEMPT
     rcfg = cfg.replace(n_layers=CUT_TRAIN_LAYERS)
     keys, det = [], {}
-    torch.use_deterministic_algorithms(True)
-    try:
+    with deterministic(torch):
         for name, segments in (("unbroken", [(n_all, n_all)]), ("preempted", [(n_cut, n_cut), (n_all, n_cut)])):
             with tempfile.TemporaryDirectory() as repo_dir:
                 repo = Repository.init(repo_dir)
@@ -1712,8 +1987,6 @@ def main() -> None:
                 keys.append({p: m["key"] for p, m in manifest["leaves"].items()})
                 if saved_step != n_all:
                     fail(f"the {name} run's newest checkpoint is step {saved_step}")
-    finally:
-        torch.use_deterministic_algorithms(False)
     unequal = sorted(p for p in keys[0] if keys[1].get(p) != keys[0][p])
     for run, (wall, r) in det.items():
         print(f"  deterministic {run}: {wall:.3f} s; steps {r.start_step}->{r.end_step} "
@@ -1876,7 +2149,7 @@ def main() -> None:
     t0 = phase("dryrun")
     gc.collect()
     torch.cuda.empty_cache()
-    dryrun_phase(torch, np, configs, T, all_kernels, dev, args.seed, qwen_res, train_p50)
+    dryrun_phase(torch, np, configs, T, all_kernels, dev, args.seed)
     print(f"dryrun phase {time.perf_counter() - t0:.1f} s")
 
     # --------------------------------------------------------- 28. campaign
@@ -1884,8 +2157,23 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     campaign_train_launches, campaign_steps, campaign_serve_launches, campaign_prefills = campaign_phase(
-        torch, np, configs, serve, all_kernels, dev, args.seed, train_p50)
-    print(f"campaign phase {time.perf_counter() - t0:.1f} s; all phases {time.perf_counter() - t_all:.1f} s")
+        torch, np, configs, serve, all_kernels, dev, args.seed)
+    print(f"campaign phase {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------------ 29. train rwkv6
+    t0 = phase("train rwkv6")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rwkv_train_launches, rwkv_train_steps = train_rwkv6_phase(torch, configs, T, all_kernels, dev, args.seed, smi)
+    print(f"train rwkv6 phase {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------------ 30. train jamba
+    t0 = phase("train jamba")
+    gc.collect()
+    torch.cuda.empty_cache()
+    jamba_train_launches, jamba_train_steps = train_jamba_phase(torch, configs, T, all_kernels, dev, args.seed, smi,
+                                                                jamba_plan)
+    print(f"train jamba phase {time.perf_counter() - t0:.1f} s; all phases {time.perf_counter() - t_all:.1f} s")
 
     runs = {"qwen3_0_6b": (qwen_launches, qwen_res.prefills, "prefill"),
             "rwkv6_1_6b": (rwkv_launches, rwkv_res.prefills, "prefill"),
@@ -1902,7 +2190,9 @@ def main() -> None:
             "qwen3_0_6b sharded train, (1, 1) mesh, FSDP": (sharded_train_launches, 1, "step"),
             "qwen3_0_6b campaign train": (campaign_train_launches, campaign_steps, "step"),
             "qwen3_0_6b campaign, served from its checkpoint": (campaign_serve_launches, campaign_prefills,
-                                                               "prefill")}
+                                                               "prefill"),
+            "rwkv6_1_6b train": (rwkv_train_launches, rwkv_train_steps, "step"),
+            f"{JAMBA} train, 8 layers, no experts": (jamba_train_launches, jamba_train_steps, "step")}
 
     def launch_counts(name: str) -> dict:
         """The kernel's launches over the main-path runs, by path, and per

@@ -6,6 +6,7 @@ launches the kernel, once, or raises: a CUDA tensor never falls back to the
 plain version. Its backward recomputes through the plain version and
 returns that version's vector-Jacobian product, as the reference's
 ``custom_vjp``s do (``repro/kernels/ops.py``); there is no backward kernel.
+Each backward runs inside a profiler range (``BACKWARD_RANGES``).
 Under ``torch.inference_mode()`` or ``no_grad`` nothing is recorded, and the
 forward is the one launch.
 
@@ -34,6 +35,9 @@ from .mamba import mamba_scan_fwd as launch_mamba_scan
 from .rwkv6 import rwkv6_fwd as launch_rwkv6
 
 BACKWARD_RANGE = "flash_attention backward (attention_ref)"
+RWKV6_BACKWARD_RANGE = "rwkv6 backward (rwkv6_ref)"
+MAMBA_BACKWARD_RANGE = "mamba_scan backward (mamba_ref)"
+BACKWARD_RANGES = (BACKWARD_RANGE, RWKV6_BACKWARD_RANGE, MAMBA_BACKWARD_RANGE)
 
 
 @torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(), device_types="cuda")
@@ -138,11 +142,16 @@ class RWKV6(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out, g_state):
-        return _recompute_vjp(ctx, ref.rwkv6_ref, 6, (g_out, g_state))
+        with torch.profiler.record_function(RWKV6_BACKWARD_RANGE):
+            return _recompute_vjp(ctx, ref.rwkv6_ref, 6, (g_out, g_state))
 
 
 class MambaScan(torch.autograd.Function):
-    """``mamba_scan_fwd`` forward; backward through ``ref.mamba_ref``."""
+    """``mamba_scan_fwd`` forward; backward through ``ref.mamba_ref``. (Through
+    ``models.ssm.mamba_scan_chunked``, whose remat would keep one 256-step
+    chunk of residuals, A's gradient sums over the chunks in another order:
+    on the card at jamba's width that is outside the 1e-5 the ops are held
+    to, PERF.md §6.)"""
 
     @staticmethod
     def forward(ctx, u, dt, A, B_, C_, h0):
@@ -152,7 +161,8 @@ class MambaScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_y, g_h):
-        return _recompute_vjp(ctx, ref.mamba_ref, 6, (g_y, g_h))
+        with torch.profiler.record_function(MAMBA_BACKWARD_RANGE):
+            return _recompute_vjp(ctx, ref.mamba_ref, 6, (g_y, g_h))
 
 
 def flash_attention(

@@ -102,18 +102,19 @@ class CampaignResult:
 
 def run(arch: str | None = None, *, repo: str = "", full: bool = False, sim_jobs: int = 4, steps: int = 60,
         seq_len: int = 256, batch: int = 4, model_dim: int = 256, layers: int = 4, seed: int = 0,
-        device: str | torch.device = "cuda") -> CampaignResult:
+        device: str | torch.device = "cuda", overrides: dict | None = None) -> CampaignResult:
     """The example's two phases: ``sim_jobs`` shards as simulation batch 0
     and training to step ``steps // 2`` on that data commit; ``sim_jobs``
     more as batch 100 and training resumed to step ``steps``. The repository
-    ``repo`` is created if it holds none (default ``./campaign_repo``).
-    Raises ValueError for a config whose vocabulary is smaller than the
-    shards'."""
+    ``repo`` is created if it holds none (default ``./campaign_repo``);
+    ``overrides`` replaces fields of a catalogue config, as in
+    ``launch.train.run``. Raises ValueError for a config whose vocabulary is
+    smaller than the shards'."""
     dev = resolve_device(device)
     if arch is None:
         cfg = surrogate_config(model_dim, layers)
     else:
-        cfg = configs.get(arch) if full else configs.get_smoke(arch)
+        cfg = (configs.get(arch) if full else configs.get_smoke(arch)).replace(**(overrides or {}))
     check_token_only(cfg)
     if cfg.vocab_size < SIM_VOCAB:
         raise ValueError(f"{cfg.name} has {cfg.vocab_size} tokens, the shards' tokens lie below {SIM_VOCAB}")

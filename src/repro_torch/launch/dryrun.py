@@ -23,11 +23,18 @@ counts once, and so extrapolates from 1 and 2 repeats (``_extrapolate``)
 and adds the recurrences' FLOPs by hand (``_recurrence_correction``); here
 neither is needed, and the kernel ops' formulas count the recurrences.
 
+``--one-card`` plans a cell's kind of step unsharded, on one card, at
+each ``--batch`` x ``--seq-len`` (model state, batch and every temporary on
+one device): rank 0's peak against ``mesh.HBM_BYTES``, and the largest
+batch whose peak leaves ``FREE_GIB`` of the card free (``plan_one_card``).
+
 Usage:
     python -m repro_torch.launch.dryrun --arch internlm2_20b --shape train_4k
     python -m repro_torch.launch.dryrun --all [--mesh single|multi|both]
     python -m repro_torch.launch.dryrun --arch X --shape Y --tag blah \\
         --override seq_shard_residual=False
+    python -m repro_torch.launch.dryrun --arch jamba_1_5_large_398b --shape train_4k \\
+        --one-card --batch 8 4 2 1 --seq-len 512 --override moe=None --override n_layers=8
 """
 from __future__ import annotations
 
@@ -45,10 +52,11 @@ from .. import configs
 from ..distributed.sharding import rules_for
 from ..train.steps import make_decode_step, make_prefill_step, make_train_step
 from . import specs
-from .mesh import make_production_mesh, start_fake_world
+from .mesh import HBM_BYTES, make_production_mesh, start_fake_world
 from .op_stats import OpStats, op_histogram
 
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "results_dryrun_torch"
+FREE_GIB = 4  # --one-card: the card's memory a fit leaves for the plan's error and the allocator's slack
 
 
 def _parse_override(s: str):
@@ -60,6 +68,8 @@ def _parse_override(s: str):
             pass
     if val in ("True", "False"):
         return key, val == "True"
+    if val == "None":
+        return key, None
     return key, val
 
 
@@ -164,6 +174,37 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, overrides: dict | None
     return cell
 
 
+def plan_one_card(arch: str, shape_name: str, batch: int, seq_len: int, overrides: dict | None = None) -> dict:
+    """``shape_name``'s kind of step of the full config (with ``overrides``)
+    at ``batch`` x ``seq_len``, unsharded, as one card would run it:
+    rank 0's counts from ``plan_step`` (no process group, no mesh) and the
+    card's memory left free at the planned peak."""
+    kind = configs.SHAPES[shape_name].kind
+    cfg = configs.get(arch).replace(**(overrides or {}))
+    st = plan_step(cfg, configs.Shape(f"{kind}_{seq_len}x{batch}", kind, seq_len, batch))
+    return {"arch": arch, "kind": kind, "global_batch": batch, "seq_len": seq_len, "overrides": overrides or {},
+            "chips": 1, "status": "ok", "plan_s": round(st["plan_s"], 2), "flops_per_device": st["flops"],
+            "bytes_per_device": st["bytes"], "memory": st["memory"],
+            "free_bytes": HBM_BYTES - st["memory"]["peak_bytes"], "kernel_calls": kernel_calls(st["ops"]),
+            "torch": torch.__version__}
+
+
+def one_card_main(args, overrides: dict | None) -> None:
+    """``--one-card``: plan each batch, print its peak and the card's memory
+    left free, then the largest batch that leaves ``FREE_GIB`` GiB."""
+    fits = []
+    for b in args.batch:
+        cell = plan_one_card(args.arch, args.shape, b, args.seq_len, overrides)
+        peak, free = cell["memory"]["peak_bytes"], cell["free_bytes"]
+        if free >= FREE_GIB * 2**30:
+            fits.append(b)
+        print(json.dumps(cell, sort_keys=True))
+        print(f"{args.arch} {cell['kind']} B={b} x {args.seq_len} {overrides or {}} on one card: planned peak "
+              f"{peak} B ({peak / 2**30:.3f} GiB) of {HBM_BYTES / 2**30:.3f} GiB, {free / 2**30:.3f} GiB free; "
+              f"kernel calls {cell['kernel_calls']}; planned in {cell['plan_s']} s", flush=True)
+    print(f"largest batch leaving {FREE_GIB} GiB free: {max(fits) if fits else None}")
+
+
 def cell_path(arch, shape_name, mesh_name, tag="") -> Path:
     suffix = f".{tag}" if tag else ""
     return RESULTS_DIR / f"{arch}.{shape_name}.{mesh_name}{suffix}.json"
@@ -179,10 +220,17 @@ def main() -> None:
     ap.add_argument("--override", action="append", default=[],
                     help="cfg field overrides, e.g. seq_shard_residual=False")
     ap.add_argument("--force", action="store_true", help="recompute cached cells")
+    ap.add_argument("--one-card", action="store_true", help="plan unsharded on one card at --batch x --seq-len")
+    ap.add_argument("--batch", type=int, nargs="+", default=[8])
+    ap.add_argument("--seq-len", type=int, default=512)
     args = ap.parse_args()
 
-    RESULTS_DIR.mkdir(parents=True, exist_ok=True)
     overrides = dict(_parse_override(s) for s in args.override) or None
+    if args.one_card:
+        if not (args.arch and args.shape):
+            ap.error("--one-card needs --arch and --shape")
+        return one_card_main(args, overrides)
+    RESULTS_DIR.mkdir(parents=True, exist_ok=True)
     archs = configs.ARCH_IDS if (args.all or not args.arch) else [args.arch]
     shapes = list(configs.SHAPES) if (args.all or not args.shape) else [args.shape]
     meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.mesh]

@@ -5,17 +5,23 @@ host clock (each piece ends in a synchronise), then a whole step under
 kind of kernel.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train --full \\
-        [--arch qwen3_0_6b] [--batch 8 --seq-len 512]
+        [--arch qwen3_0_6b] [--batch 8 --seq-len 512] \\
+        [--n-layers N] [--n-experts N | --no-moe]
 
 Needs a CUDA device. Busy time is the sum of the device-side events' time
 (one stream, so they do not overlap); idle share is 1 - busy / wall. The
-backward includes remat's recompute of every repeat's forward and the flash
-op's backward through ``attention_ref``; the latter's device time comes
-from its profiler range, ``ops.BACKWARD_RANGE``.
+backward includes remat's recompute of every repeat's forward and the
+kernel ops' backwards, each through its plain version (flash through
+``attention_ref``, WKV through ``rwkv6_ref``, Mamba through
+``ssm.mamba_scan_chunked``); their device and host times come from their
+profiler ranges, ``ops.BACKWARD_RANGES``. ``--n-layers``, ``--n-experts``
+and ``--no-moe`` cut the config as in ``launch.serve``. It runs with
+PyTorch's deterministic algorithms, as ``launch.train``'s command line does.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
@@ -24,17 +30,20 @@ from torch.profiler import ProfilerActivity, profile
 
 from .. import configs, resolve_device
 from ..data.tokens import SyntheticTokens
-from ..kernels.ops import BACKWARD_RANGE
+from ..kernels.ops import BACKWARD_RANGES
 from ..models import transformer as T
 from ..models.params import init_params
 from ..optim.adamw import AdamW
 from ..train.loop import check_token_only
 from ..train.steps import make_train_step, masked_loss
 from ..tree import leaves, unflatten
+from .serve import add_override_args, overrides_from_args
 
 # kernel-name fragments of each kind, checked in order; the rest is "elementwise and other".
 # fp32 GEMMs come from attention_ref's products (TF32 off); the bf16 ones from the model's.
 KINDS = [("flash kernel", ("flash_fwd",)),
+         ("WKV kernel", ("rwkv6_",)),
+         ("Mamba kernel", ("mamba_scan_",)),
          ("fp32 GEMM", ("sgemm", "f32f32")),
          ("bf16 GEMM", ("gemm", "nvjet", "cutlass", "xmma", "splitkreduce"))]
 
@@ -66,10 +75,14 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--reps", type=int, default=3, help="steps timed per piece")
     ap.add_argument("--top", type=int, default=12)
+    add_override_args(ap)
     args = ap.parse_args(argv)
 
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")  # read when cuBLAS starts
+    torch.use_deterministic_algorithms(True)
     dev = resolve_device("cuda")
     cfg = configs.get(args.arch) if args.full else configs.get_smoke(args.arch)
+    cfg = cfg.replace(**overrides_from_args(args))
     check_token_only(cfg)
     params = init_params(T.param_defs(cfg), seed=0, device=dev)
     opt = AdamW(lr=1e-3, moment_dtype=cfg.opt_moment_dtype)
@@ -93,13 +106,13 @@ def main(argv: list[str] | None = None) -> dict:
         ms, grads = _timed(dev, lambda: torch.autograd.grad(loss, flat))
         times["backward"].append(ms)
         times["optimizer"].append(_timed(dev, lambda: opt.update(unflatten(params, grads), state, params))[0])
+        del loss, grads  # a model that fills the card holds one set of gradients at a time
         times["step"].append(_timed(dev, lambda: step(params, state, batch))[0])
-        del loss, grads
     mean = {k: sum(v) / len(v) for k, v in times.items()}
     shape = f"{args.arch} B={args.batch} S={args.seq_len}"
     print(f"train step {shape} (bf16 weights, {cfg.opt_moment_dtype} moments, remat {cfg.remat}): "
           f"step {mean['step']:.3f} ms; forward {mean['forward']:.3f} ms, backward {mean['backward']:.3f} ms "
-          f"(remat recompute and the attention_ref backward included), optimizer {mean['optimizer']:.3f} ms "
+          f"(remat recompute and the kernel ops' backwards included), optimizer {mean['optimizer']:.3f} ms "
           f"(host clock, mean of {args.reps})")
 
     torch.cuda.synchronize(dev)
@@ -109,23 +122,24 @@ def main(argv: list[str] | None = None) -> dict:
         torch.cuda.synchronize(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
     averages = prof.key_averages()
-    # device-side rows only, less the range's own device span, which covers kernels counted already
-    rows = [e for e in averages if e.device_type == DeviceType.CUDA and e.key != BACKWARD_RANGE]
+    # device-side rows only, less the ranges' own device spans, which cover kernels counted already
+    rows = [e for e in averages if e.device_type == DeviceType.CUDA and e.key not in BACKWARD_RANGES]
     if not rows:
         raise RuntimeError("the profiler recorded no device time")
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     kinds = by_kind(rows)
-    ref_bwd = [e for e in averages if e.key == BACKWARD_RANGE and e.device_type == DeviceType.CPU]
-    ref_bwd_ms = ref_bwd[0].device_time_total / 1e3 if ref_bwd else float("nan")
+    # each kernel op's backward: device time, host time and calls of its range
+    ranges = {e.key: {"device_ms": e.device_time_total / 1e3, "host_ms": e.cpu_time_total / 1e3, "calls": e.count}
+              for e in averages if e.key in BACKWARD_RANGES and e.device_type == DeviceType.CPU}
     print(f"profiled step: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f}, {sum(e.count for e in rows)} device ops; by kind: "
           + ", ".join(f"{k} {v:.3f} ms ({v / busy_ms:.1%})" for k, v in kinds.items())
-          + f"; flash op backward through attention_ref {ref_bwd_ms:.3f} ms device time over "
-          f"{ref_bwd[0].count if ref_bwd else 0} calls")
+          + "; " + ", ".join(f"{k}: {r['device_ms']:.3f} ms device time, {r['host_ms']:.3f} ms host time over "
+                             f"{r['calls']} calls" for k, r in ranges.items()))
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[: args.top]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:100]}")
     return {**{f"{k}_ms": v for k, v in mean.items()}, "wall_ms": wall_ms, "busy_ms": busy_ms,
-            "kinds_ms": kinds, "attention_ref_backward_ms": ref_bwd_ms}
+            "kinds_ms": kinds, "backward_ranges": ranges}
 
 
 if __name__ == "__main__":

@@ -9,7 +9,8 @@ Runs on CUDA unless ``--device cpu`` is given. ``--full`` selects the
 full-size config (qwen3-0.6B at B=8 x 512 fits one H100: bf16 weights,
 fp32 moments, remat), the default the smoke config. The run checkpoints
 into the repository with machine-actionable records and resumes when the
-same command is given again. On CUDA the command line turns on PyTorch's
+same command is given again, and prints each step's loss and time, each
+save's time and, on CUDA, the peak memory. On CUDA the command line turns on PyTorch's
 deterministic algorithms, so that a resumed run reaches the bits of an
 unbroken one; ``run`` leaves that choice to its caller. ``--n-layers``,
 ``--n-experts`` and ``--no-moe`` cut the config as in ``launch.serve``.
@@ -79,6 +80,9 @@ def main(argv: list[str] | None = None) -> SegmentResult:
               seq_len=args.seq_len, batch=args.batch, lr=args.lr, full=args.full,
               async_ckpt=args.async_ckpt, device=args.device, overrides=overrides_from_args(args))
     print(f"steps {res.start_step} -> {res.end_step}  loss {res.final_loss:.4f}")
+    print(f"losses {[round(x, 5) for x in res.losses]}; step ms {[round(x, 3) for x in res.step_ms]}; "
+          f"save s {[round(x, 3) for x in res.save_s]}"
+          + (f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB" if args.device != "cpu" else ""))
     print(f"checkpoint commit: {res.checkpoint_commit}")
     return res
 

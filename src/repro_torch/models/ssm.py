@@ -18,10 +18,18 @@ And for the Mamba selective scan:
                             by chunk (falls back to naive unless S is a
                             multiple of the chunk above one chunk);
   - ``mamba_step``        : the single-token decode update.
+
+While autograd records, both chunked forms run each chunk under
+``torch.utils.checkpoint``, as the reference wraps its chunk body in
+``jax.checkpoint``: the forward keeps each chunk's inputs and the carried
+state, and the backward recomputes one chunk at a time, so the residuals
+held are one chunk's, not the whole sequence's. Values and gradients are
+those of the same loop without it, bit for bit.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ref import mamba_ref as mamba_scan_naive
 from ..kernels.ref import rwkv6_ref as rwkv6_naive
@@ -34,6 +42,31 @@ MAMBA_CHUNK = 256
 def rwkv6_decay(w_raw: torch.Tensor) -> torch.Tensor:
     """Raw decay projection -> log decay in [-MAX_DECAY, 0), in fp32."""
     return -torch.exp(w_raw.float()).clamp(max=MAX_DECAY)
+
+
+def _remat(fn, *args):
+    """``fn(*args)``, under ``checkpoint`` while autograd records (the chunk
+    draws no random numbers, so no RNG state is kept)."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
+def _wkv_chunk(r_c, k_c, v_c, lw_c, u32, state, tri, eye):
+    """One chunk of :func:`rwkv6_chunked`: inputs [B, L, H, Dh] fp32, state
+    [B, H, Dh, Dh] fp32. Returns (out [B, L, H, Dh] fp32, state)."""
+    la = torch.cumsum(lw_c, dim=1)  # inclusive log-decay products
+    q_ = r_c * torch.exp(la - lw_c)  # r_t * A_{t-1}
+    k_ = k_c * torch.exp(-la)  # k_s / A_s
+    scores = torch.einsum("blhd,bmhd->bhlm", q_, k_) * tri
+    diag = torch.einsum("blhd,hd,blhd->bhl", r_c, u32, k_c)
+    scores = scores + torch.einsum("bhl,lm->bhlm", diag, eye)
+    intra = torch.einsum("bhlm,bmhd->blhd", scores, v_c)
+    cross = torch.einsum("blhd,bhde->blhe", q_, state)
+    la_last = la[:, -1]  # [B, H, Dh]
+    kd = k_c * torch.exp(la_last[:, None] - la)
+    state = state * torch.exp(la_last)[..., None] + torch.einsum("blhd,blhe->bhde", kd, v_c)
+    return intra + cross, state
 
 
 def rwkv6_chunked(
@@ -54,19 +87,8 @@ def rwkv6_chunked(
     eye = torch.eye(chunk, device=r.device)
     outs = []
     for c in range(n):
-        r_c, k_c, v_c, lw_c = rs[:, c], ks[:, c], vs[:, c], lws[:, c]  # [B, L, H, Dh]
-        la = torch.cumsum(lw_c, dim=1)  # inclusive log-decay products
-        q_ = r_c * torch.exp(la - lw_c)  # r_t * A_{t-1}
-        k_ = k_c * torch.exp(-la)  # k_s / A_s
-        scores = torch.einsum("blhd,bmhd->bhlm", q_, k_) * tri
-        diag = torch.einsum("blhd,hd,blhd->bhl", r_c, u32, k_c)
-        scores = scores + torch.einsum("bhl,lm->bhlm", diag, eye)
-        intra = torch.einsum("bhlm,bmhd->blhd", scores, v_c)
-        cross = torch.einsum("blhd,bhde->blhe", q_, state)
-        outs.append(intra + cross)
-        la_last = la[:, -1]  # [B, H, Dh]
-        kd = k_c * torch.exp(la_last[:, None] - la)
-        state = state * torch.exp(la_last)[..., None] + torch.einsum("blhd,blhe->bhde", kd, v_c)
+        out, state = _remat(_wkv_chunk, rs[:, c], ks[:, c], vs[:, c], lws[:, c], u32, state, tri, eye)
+        outs.append(out)
     out = torch.stack(outs, dim=1).reshape(b, s, h, dh)
     return out.to(r.dtype), state
 
@@ -106,17 +128,19 @@ def mamba_scan_chunked(
     u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
     h0: torch.Tensor | None = None, chunk: int = MAMBA_CHUNK,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The reference's chunked scan, forward only: a loop over chunks, each
-    a sequential scan from the carried state. (The reference rematerialises
-    each chunk to keep backward residuals at O(S/chunk · state); forward
-    only, the same steps run in the same order.)"""
+    """The reference's chunked scan: a loop over chunks, each a sequential
+    scan from the carried state, the same steps in the same order as
+    :func:`mamba_scan_naive`. Under autograd each chunk is rematerialised,
+    which keeps the backward's residuals at one chunk's steps (the
+    reference's O(S/chunk · state)); only A's gradient, summed per chunk,
+    may differ from the naive scan's in rounding."""
     s = u.shape[1]
     if s % chunk != 0 or s <= chunk:
         return mamba_scan_naive(u, dt, A, B_, C_, h0)
     h, ys = h0, []
     for c0 in range(0, s, chunk):
         sl = slice(c0, c0 + chunk)
-        y, h = mamba_scan_naive(u[:, sl], dt[:, sl], A, B_[:, sl], C_[:, sl], h)
+        y, h = _remat(mamba_scan_naive, u[:, sl], dt[:, sl], A, B_[:, sl], C_[:, sl], h)
         ys.append(y)
     return torch.cat(ys, dim=1), h
 

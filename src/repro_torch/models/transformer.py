@@ -80,6 +80,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+# torch.utils.checkpoint imports torch._dynamo on its first call. Made there, inside the first
+# train step, that import keeps the step's frames, and so its gradients and activations, alive
+# until a full garbage collection; made here, it holds nothing.
+import torch._dynamo  # noqa: F401
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint

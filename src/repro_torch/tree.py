@@ -14,12 +14,13 @@ def leaves(tree) -> list:
 
 def unflatten(like, values: Iterable):
     """A tree of ``like``'s structure holding ``values`` in leaf order."""
-    it = iter(values)
+    return _build(like, iter(values))
 
-    def build(node):
-        return {k: build(node[k]) for k in sorted(node)} if isinstance(node, dict) else next(it)
 
-    return build(like)
+def _build(node, it):
+    # a module function, not a closure over ``it``: a recursive closure is a reference
+    # cycle, which would keep ``values`` (a step's gradients) alive until the cyclic gc runs
+    return {k: _build(node[k], it) for k in sorted(node)} if isinstance(node, dict) else next(it)
 
 
 def tree_map(fn: Callable, tree, *rest):

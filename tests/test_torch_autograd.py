@@ -19,6 +19,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jax_ops  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -54,9 +55,11 @@ def _arrays(rng, shapes: dict, **special) -> dict:
 
 
 def _grads_port(function, arrays: dict, names_diff, static, weights):
+    """Gradients through ``function``: an ``autograd.Function`` (its
+    ``apply``) or a plain callable."""
     leaves = {n: (None if a is None else torch.from_numpy(a.copy()).requires_grad_(n in names_diff))
               for n, a in arrays.items()}
-    outs = function.apply(*leaves.values(), *static)
+    outs = getattr(function, "apply", function)(*leaves.values(), *static)
     outs = outs if isinstance(outs, tuple) else (outs,)
     assert all(o.grad_fn is not None for o in outs)
     loss = sum((o * torch.from_numpy(w)).sum() for o, w in zip(outs, weights))
@@ -129,6 +132,36 @@ def test_mamba_scan_gradients_match_jax(counted, with_state):
     assert counted["mamba"] == 1
     for n in names:
         np.testing.assert_allclose(got[n], want[n], **TOL)
+
+
+@pytest.mark.parametrize("with_state", [True, False])
+def test_mamba_scan_backward_at_512_steps_is_the_loops(counted, with_state):
+    """At S=512, where ``ssm.mamba_scan_chunked`` cuts two 256-step chunks,
+    the op's backward recomputes through the plain loop ``ref.mamba_ref``:
+    its gradients are the loop's autograd, bit for bit. The chunked form's
+    are too, but for A's, which sum over the chunks in another order: within
+    1e-5 here, outside it on the card at jamba's width (chip_smoke.py phase
+    30), which is why the op keeps the loop."""
+    b, s, di, st = 2, 512, 16, 4
+    rng = np.random.default_rng(7)
+    arrays = _arrays(rng, {"u": (b, s, di), "dt": (b, s, di), "A": (di, st), "B_": (b, s, st),
+                           "C_": (b, s, st), "h0": (b, di, st)},
+                     dt=lambda x: 0.1 * np.abs(x), A=lambda x: -np.abs(x), h0=lambda x: 0.3 * x)
+    weights = [rng.normal(0, 1, (b, s, di)).astype(np.float32),
+               rng.normal(0, 1, (b, di, st)).astype(np.float32)]
+    names = ("u", "dt", "A", "B_", "C_") + (("h0",) if with_state else ())
+    if not with_state:
+        arrays["h0"] = None
+    loop = _grads_port(ref.mamba_ref, arrays, names, (), weights)
+    got = _grads_port(ops.MambaScan, arrays, names, (), weights)
+    chunked = _grads_port(ssm.mamba_scan_chunked, arrays, names, (), weights)
+    assert counted["mamba"] == 1
+    for n in names:
+        np.testing.assert_array_equal(got[n], loop[n])
+        if n == "A":
+            np.testing.assert_allclose(chunked[n], loop[n], **TOL)
+        else:
+            np.testing.assert_array_equal(chunked[n], loop[n])
 
 
 def test_only_the_inputs_that_need_a_gradient_get_one(counted):

@@ -537,19 +537,22 @@ def _grad_case(kernel, cuda):
         logw = -t((b, s, h, dh)).abs() - 0.05
         return ops.rwkv6, [t((b, s, h, dh)), t((b, s, h, dh)), t((b, s, h, dh)), logw, t((h, dh)),
                            t((b, h, dh, dh), 0.3)], ref.rwkv6_ref, 6
-    b, s, di, st = 2, 64, 64, 8
+    # S=512: a length that ssm.mamba_scan_chunked would cut in two; the op's backward keeps the loop
+    b, s, di, st = (2, 512, 128, 16) if kernel == "mamba_512" else (2, 64, 64, 8)
     return ops.mamba_scan, [t((b, s, di)), 0.1 * t((b, s, di)).abs(), -t((di, st)).abs(), t((b, s, st)),
                             t((b, s, st)), t((b, di, st), 0.3)], ref.mamba_ref, 6
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["flash", "rwkv6", "mamba"])
+@pytest.mark.parametrize("kernel", ["flash", "rwkv6", "mamba", "mamba_512"])
 def test_kernel_ops_keep_their_gradients(cuda, kernel):
     """On the card each op's outputs carry a grad_fn, and the gradients of a
     random weighting of them equal the plain version's autograd (the
-    backward recomputes through it; fp32 1e-5)."""
+    backward recomputes through it; Mamba also at S=512, jamba's train
+    length; fp32 1e-5)."""
     op, args, plain, n_diff = _grad_case(kernel, cuda)
-    counters = {"flash": flash_attention_fwd, "rwkv6": rwkv6_fwd, "mamba": mamba_scan_fwd}
+    counters = {"flash": flash_attention_fwd, "rwkv6": rwkv6_fwd, "mamba": mamba_scan_fwd,
+                "mamba_512": mamba_scan_fwd}
     grads = []
     for fn in (op, plain):
         leaves = [a.clone().requires_grad_() for a in args[:n_diff]]
@@ -627,19 +630,25 @@ def test_adamw_on_cuda_matches_the_cpu(cuda, schedule):
 
 
 @pytest.mark.gpu
-def test_smoke_train_step_kernel_on_matches_off(cuda):
-    """qwen3 smoke, fp32, remat on: the loss and every gradient with the
-    flash kernel against without (2e-3); the kernel runs twice per layer
-    (the forward and remat's recompute)."""
-    cfg = configs.get_smoke("qwen3_0_6b")
-    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 64))).to(cuda)
+@pytest.mark.parametrize("arch,seq", [("qwen3_0_6b", 64), ("rwkv6_1_6b", 64), ("jamba_1_5_large_398b", 512)])
+def test_smoke_train_step_kernel_on_matches_off(cuda, arch, seq):
+    """qwen3, rwkv6 and jamba (no experts; at S=512, jamba's train length)
+    smoke, fp32, remat on: the loss and
+    every gradient with the kernels against without (2e-3); each kernel
+    runs twice per layer of its kind (the forward and remat's recompute)."""
+    cfg = configs.get_smoke(arch).replace(moe=None)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, seq))).to(cuda)
+    mixers = [kind.mixer for kind in cfg.pattern] * cfg.n_repeats
+    want = {kernel: 2 * mixers.count(mixer) for kernel, mixer in
+            ((flash_attention_fwd, "attn"), (rwkv6_fwd, "rwkv6"), (mamba_scan_fwd, "mamba"))}
     results = {}
     for use_pallas in ("off", "on"):
         params = init_params(T.param_defs(cfg), seed=0, dtype=torch.float32, device=cuda)
-        before = flash_attention_fwd.launches
+        before = {k: k.launches for k in want}
         results[use_pallas] = make_grad_fn(cfg.replace(use_pallas=use_pallas))(params, {"tokens": tokens})
         torch.cuda.synchronize()
-        assert flash_attention_fwd.launches - before == (2 * cfg.n_layers if use_pallas == "on" else 0)
+        assert {k: k.launches - before[k] for k in want} == {k: n if use_pallas == "on" else 0
+                                                               for k, n in want.items()}
     (l_off, _, g_off), (l_on, _, g_on) = results["off"], results["on"]
     torch.testing.assert_close(l_on, l_off, rtol=2e-3, atol=2e-3)
     for a, b in zip(leaves(g_on), leaves(g_off)):
