@@ -13,13 +13,15 @@ Phases; any failure exits non-zero before the result lines are printed.
                     jamba's, seamless-m4t's (encoder: non-causal, Sq=Sk=128;
                     decoder), qwen2-vl's (GQA group 7), mixtral's (GQA
                     group 6, window 4096: B=8 x 512, where it does not bind,
-                    and B=1 x 8192, where it does) and arctic's (56/8 heads,
-                    GQA group 7) serving shapes, the six
+                    and B=1 x 8192, where it does), arctic's (56/8 heads,
+                    GQA group 7), phi3-mini's (32/32 heads, Dh 96: three
+                    32-column TMA boxes a row), granite's (32/8, Dh 64) and
+                    internlm2's (48/8, Dh 128) serving shapes, the six
                     shapes of the kernel tests, ragged lengths, Dh=64 at the
                     serving length and a strided q, fp32 and bf16; times the
                     kernel, the plain version and PyTorch's SDPA (with the
                     window's boolean mask where there is a window) at the
-                    eight serving shapes, bf16, and prints the kernel over
+                    eleven serving shapes, bf16, and prints the kernel over
                     SDPA and the bound over the kernel beside the bf16
                     kernel's ptxas line.
   4. kernel rwkv6 — holds the RWKV6 WKV kernel (bf16: chunked form on the
@@ -152,7 +154,13 @@ Phases; any failure exits non-zero before the result lines are printed.
                     (the flash kernel on each rank's heads through
                     ``local_map``): 28 flash launches a prefill and the first 8
                     of phase 5's greedy tokens exactly (its cache of 528
-                    slots), with prefill and decode times beside phase 5's. Then one bf16 train step at phase 14's batch,
+                    slots), with prefill and decode times beside phase 5's.
+                    Then the same prompts again with the KV cache's slots
+                    over tp (``decode_kv_shard="seq"``: each rank's part of
+                    the decode softmax, combined by three all-reduces; the
+                    owner of the new token's slot writes it): 28 flash
+                    launches in its prefill and the same 8 tokens, its decode
+                    p50/p95 beside the head_dim run's. Then one bf16 train step at phase 14's batch,
                     cut to 2 layers, under FSDP rules against the unsharded
                     step (deterministic algorithms for both, as phase 14's
                     resume): where not bit
@@ -232,6 +240,20 @@ Phases; any failure exits non-zero before the result lines are printed.
                     phases 3-29). Phases 29 and 30 print the card's name and
                     power limit beside their numbers; neither saves (phases 14
                     and 28 drive the save path).
+ 31. serve phi3   — phi3-mini-3.8B at full width and depth (32 layers, 32/32
+                    heads of Dh 96), phase 5's shape; the flash kernel must
+                    launch 32 times per prefill.
+ 32. serve granite — granite-3-2B at full width and depth (40 layers, 32/8
+                    heads of Dh 64, tied embeddings over a vocabulary of
+                    49155 padded to 49408), phase 5's shape; 40 launches per
+                    prefill.
+ 33. serve internlm2 — internlm2-20B at full width and depth (48 layers,
+                    48/8 heads of Dh 128, 19.86 B parameters, 39.7 GB of
+                    bf16 weights), phase 5's shape; 48 launches per prefill.
+ 34. parity dense — phi3, granite and internlm2 at full width cut to 2
+                    layers each: fp32 prefill, B=2 x 512, kernel on against
+                    off (last logits and every k/v), then the bf16 check of
+                    phase 6.
 Phases 3, 4 and 9 also run one backward through each kernel op
 (``ops.flash_attention``, ``ops.rwkv6``, ``ops.mamba_scan``) at a small fp32
 shape and hold its gradients against the plain version's autograd.
@@ -282,12 +304,18 @@ QWEN2_VL_SHAPE = (8, 512, 512, 28, 4, 128, True, None)  # qwen2-vl-7b: GQA group
 MIXTRAL_SHAPE = (8, 512, 512, 48, 8, 128, True, 4096)  # mixtral-8x22b: GQA group 6, window 4096
 MIXTRAL_LONG_SHAPE = (1, 8192, 8192, 48, 8, 128, True, 4096)  # its long prompt: the window binds
 ARCTIC_SHAPE = (8, 512, 512, 56, 8, 128, True, None)  # arctic-480b: 56 heads, GQA group 7
+PHI3_SHAPE = (8, 512, 512, 32, 32, 96, True, None)  # phi3-mini-3.8B: MHA, Dh 96
+GRANITE_SHAPE = (8, 512, 512, 32, 8, 64, True, None)  # granite-3-2B: GQA group 4, Dh 64
+INTERNLM2_SHAPE = (8, 512, 512, 48, 8, 128, True, None)  # internlm2-20B: GQA group 6, no window
 NEW_SERVE_SHAPES = {"at_seamless_encoder_shape": SEAMLESS_ENC_SHAPE,
                     "at_seamless_decoder_shape": SEAMLESS_DEC_SHAPE,
                     "at_qwen2_vl_shape": QWEN2_VL_SHAPE,
                     "at_mixtral_shape": MIXTRAL_SHAPE,
                     "at_mixtral_long_shape": MIXTRAL_LONG_SHAPE,
-                    "at_arctic_shape": ARCTIC_SHAPE}
+                    "at_arctic_shape": ARCTIC_SHAPE,
+                    "at_phi3_shape": PHI3_SHAPE,
+                    "at_granite_shape": GRANITE_SHAPE,
+                    "at_internlm2_shape": INTERNLM2_SHAPE}
 TEST_SHAPES = [
     (2, 128, 128, 4, 4, 64, True, None),
     (1, 256, 256, 8, 2, 64, True, None),
@@ -367,6 +395,8 @@ RWKV_TRAIN = dict(batch=8, seq_len=512)  # phase 29: rwkv6-1.6B at full width an
 JAMBA_TRAIN_CUTS = {"moe": None, "n_layers": 8}
 JAMBA_TRAIN = dict(batch=4, seq_len=512)
 JAMBA_GRAD_SHAPE = (1, 512, 16384, 16)  # phase 30: the Mamba op's chunked backward at jamba's width
+DENSE = ["phi3_mini_3_8b", "granite_3_2b", "internlm2_20b"]  # phases 31-33, full width and depth
+DENSE_PARITY_LAYERS = 2  # phase 34: each of the three at full width, 2 layers
 
 
 def fail(msg: str) -> None:
@@ -826,13 +856,14 @@ def serve_phase(torch, serve, configs, arch: str, kernels: dict, dev, seed: int,
 
 def sharded_phase(torch, np, configs, T, kernels: dict, dev, seed: int, qwen_res):
     """Phase 26 (see the module docstring). Returns (serving launches by
-    wrapper, prefills run, train-step launches by wrapper)."""
+    wrapper, prefills run, train-step launches by wrapper, the seq-placed
+    cache's serving launches, over one prefill)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.core.repo import Repository
     from repro_torch.data.tokens import SyntheticTokens
-    from repro_torch.distributed.sharding import rules_for
+    from repro_torch.distributed.sharding import P, placements, rules_for
     from repro_torch.launch.serve import prompt_batch
     from repro_torch.models.params import init_params, param_shardings
     from repro_torch.optim.adamw import AdamW
@@ -899,6 +930,47 @@ def sharded_phase(torch, np, configs, T, kernels: dict, dev, seed: int, qwen_res
                 fail(f"sharded greedy tokens differ from phase 5's in {int((tokens != want).sum())} "
                      f"of {tokens.numel()} places")
             print(f"sharded greedy tokens equal phase 5's first {SHARDED_GEN} ({tuple(tokens.shape)})")
+
+            # the same prompts from a KV cache placed with its slots over tp
+            del caches, logits, kv
+            seq_cfg = cfg.replace(decode_kv_shard="seq")
+            seq_rules = rules_for(seq_cfg, mesh)
+            seq_decode = make_decode_step(seq_cfg, rules=seq_rules)
+            for c in kernels.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            caches, logits = make_prefill_step(seq_cfg, s + gen, rules=seq_rules)(params, batch)
+            torch.cuda.synchronize()
+            seq_prefill_ms = (time.perf_counter() - t) * 1e3
+            kv = caches["p0"]["k"]
+            tok = greedy_token(cfg, logits)
+            toks, seq_lat = [full(tok)], []
+            for i in range(SHARDED_GEN - 1):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                logits, caches = seq_decode(params, caches, tok, s + i)
+                torch.cuda.synchronize()
+                seq_lat.append((time.perf_counter() - t) * 1e3)
+                tok = greedy_token(cfg, logits)
+                toks.append(full(tok))
+            seq_launches = counts()
+            seq_tokens = torch.cat(toks, dim=1).cpu()
+            print(f"sharded serve qwen3_0_6b, KV cache slots over tp (kv_shard={seq_rules.kv_shard}), bf16 B={b} "
+                  f"prompt={s} gen={SHARDED_GEN} on the (1, 1) mesh: prefill {seq_prefill_ms:.2f} ms (no warm-up), "
+                  f"decode p50 {float(np.percentile(seq_lat, 50)):.3f} ms p95 {float(np.percentile(seq_lat, 95)):.3f} "
+                  f"ms (no warm-up; head_dim over tp: {p50:.3f} / {p95:.3f} ms); k cache "
+                  f"{tuple(kv.shape)} placed {tuple(kv.placements)}; launches over 1 prefill: {seq_launches}")
+            if seq_launches["flash_attention_fwd"] != cfg.n_layers or any(
+                    n for name, n in seq_launches.items() if name != "flash_attention_fwd"):
+                fail(f"the seq-placed serving launched {seq_launches}, expected flash_attention_fwd {cfg.n_layers} "
+                     "times and nothing else")
+            if tuple(kv.placements) != tuple(placements(P(None, *seq_rules.kv_cache(True)), mesh)):
+                fail(f"the seq-placed k cache is placed {tuple(kv.placements)}")
+            if not torch.equal(seq_tokens, want):
+                fail(f"greedy tokens decoded from the seq-placed cache differ from phase 5's in "
+                     f"{int((seq_tokens != want).sum())} of {seq_tokens.numel()} places")
+            print(f"greedy tokens from the seq-placed cache equal phase 5's first {SHARDED_GEN}")
             del params, caches, logits, kv, tok
             gc.collect()
             torch.cuda.empty_cache()
@@ -1002,7 +1074,7 @@ def sharded_phase(torch, np, configs, T, kernels: dict, dev, seed: int, qwen_res
                   f"unsharded save's")
         finally:
             dist.destroy_process_group()
-    return launches, 2, train_launches
+    return launches, 2, train_launches, seq_launches
 
 
 def dryrun_phase(torch, np, configs, T, kernels: dict, dev, seed: int):
@@ -2141,7 +2213,7 @@ def main() -> None:
     t0 = phase("sharded qwen3")
     gc.collect()
     torch.cuda.empty_cache()
-    sharded_launches, sharded_prefills, sharded_train_launches = sharded_phase(
+    sharded_launches, sharded_prefills, sharded_train_launches, seq_launches = sharded_phase(
         torch, np, configs, T, all_kernels, dev, args.seed, qwen_res)
     print(f"sharded qwen3 phase {time.perf_counter() - t0:.1f} s")
 
@@ -2173,7 +2245,33 @@ def main() -> None:
     torch.cuda.empty_cache()
     jamba_train_launches, jamba_train_steps = train_jamba_phase(torch, configs, T, all_kernels, dev, args.seed, smi,
                                                                 jamba_plan)
-    print(f"train jamba phase {time.perf_counter() - t0:.1f} s; all phases {time.perf_counter() - t_all:.1f} s")
+    print(f"train jamba phase {time.perf_counter() - t0:.1f} s")
+
+    # ---------------------------------------- 31-33. serve phi3, granite, internlm2
+    dense = {}
+    for arch, label in zip(DENSE, ("phi3", "granite", "internlm2")):
+        t0 = phase(f"serve {label}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg, res, launches = serve_phase(torch, serve, configs, arch, all_kernels, dev, args.seed)
+        dense[arch] = (launches, res.prefills, "prefill")
+        del res
+        print(f"serve {label} phase {time.perf_counter() - t0:.1f} s")
+
+    # ---------------------------------------------------- 34. parity dense
+    t0 = phase("parity dense")
+    for arch in DENSE:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg32 = configs.get(arch).replace(use_pallas="off", n_layers=DENSE_PARITY_LAYERS)
+        params = init_params(T.param_defs(cfg32), seed=args.seed, dtype=torch.float32, device=dev)
+        batch = {"tokens": torch.randint(0, cfg32.vocab_size, (2, 512), generator=gen, device=dev)}
+        l_off = prefill_parity(torch, make_prefill_step, arch, cfg32, cache_len, params, batch,
+                               flash_attention_fwd, cfg32.n_layers)
+        bf16_check(torch, make_prefill_step, f"{arch} {cfg32.n_layers} layers", cfg32, cache_len, params, batch,
+                   l_off, {flash_attention_fwd: cfg32.n_layers})
+        del params, batch, l_off
+    print(f"parity dense phase {time.perf_counter() - t0:.1f} s; all phases {time.perf_counter() - t_all:.1f} s")
 
     runs = {"qwen3_0_6b": (qwen_launches, qwen_res.prefills, "prefill"),
             "rwkv6_1_6b": (rwkv_launches, rwkv_res.prefills, "prefill"),
@@ -2187,12 +2285,14 @@ def main() -> None:
             ARCTIC: (arctic_launches, arctic_res.prefills, "prefill"),
             f"{JAMBA} with experts": (jamba_moe_launches, jamba_moe_res.prefills, "prefill"),
             "qwen3_0_6b sharded, (1, 1) mesh": (sharded_launches, sharded_prefills, "prefill"),
+            "qwen3_0_6b sharded, seq-placed KV cache, (1, 1) mesh": (seq_launches, 1, "prefill"),
             "qwen3_0_6b sharded train, (1, 1) mesh, FSDP": (sharded_train_launches, 1, "step"),
             "qwen3_0_6b campaign train": (campaign_train_launches, campaign_steps, "step"),
             "qwen3_0_6b campaign, served from its checkpoint": (campaign_serve_launches, campaign_prefills,
                                                                "prefill"),
             "rwkv6_1_6b train": (rwkv_train_launches, rwkv_train_steps, "step"),
-            f"{JAMBA} train, 8 layers, no experts": (jamba_train_launches, jamba_train_steps, "step")}
+            f"{JAMBA} train, 8 layers, no experts": (jamba_train_launches, jamba_train_steps, "step"),
+            **dense}
 
     def launch_counts(name: str) -> dict:
         """The kernel's launches over the main-path runs, by path, and per

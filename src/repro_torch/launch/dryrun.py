@@ -108,6 +108,7 @@ def plan_step(cfg, shape: configs.Shape, rules=None, *, cache_len: int | None = 
         "collective_by_type": dict(stats.collective_by_type),
         "collective_by_link": dict(stats.collective_by_link),
         "collective_count": stats.collective_count,
+        "collectives": stats.collectives,
         "ops": dict(stats.ops),
         "memory": {
             "peak_bytes": stats.peak,

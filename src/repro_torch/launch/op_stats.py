@@ -23,7 +23,8 @@ the program's and are not counted.
     "bytes accessed" modelled the reference.
   - Collectives: the operand bytes of each functional or c10d collective
     (``hlo_stats.collective_stats`` counts operand bytes too), by type and by
-    the link its group crosses (``mesh.link_of``), and their count.
+    the link its group crosses (``mesh.link_of``), and their count; each one
+    also in ``collectives``, in the order run.
   - Memory: live bytes are the sum of the live storages rank 0 holds, each
     rounded up to 512 bytes as the CUDA caching allocator rounds a block,
     and freed when its last reference dies; the peak is their largest sum.
@@ -109,6 +110,7 @@ class OpStats(TorchDispatchMode):
         self.collective_by_type: dict[str, int] = defaultdict(int)
         self.collective_by_link: dict[str, int] = defaultdict(int)
         self.collective_count = 0
+        self.collectives: list[tuple[str, int, str]] = []  # (type, operand bytes, link), in the order run
         self.ops: Counter = Counter()
         self.live = 0
         self.peak = 0
@@ -164,9 +166,11 @@ class OpStats(TorchDispatchMode):
         if name in COLLECTIVES:
             kind, operand = COLLECTIVES[name]
             nbytes = sum(_nbytes(t) for t in _tensors(args[operand]))
+            link = link_of(_group_ranks(func, args, kwargs))
             self.collective_by_type[kind] += nbytes
-            self.collective_by_link[link_of(_group_ranks(func, args, kwargs))] += nbytes
+            self.collective_by_link[link] += nbytes
             self.collective_count += 1
+            self.collectives.append((kind, nbytes, link))
         self.track(outs)
         return out
 

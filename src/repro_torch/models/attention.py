@@ -1,6 +1,8 @@
 """Attention in plain PyTorch (port of ``repro.models.attention``): blockwise
 GQA with causal / sliding-window masking, and one-token decode attention
-against a KV cache.
+against a KV cache, whole or, for a cache split along its slots, one slice
+at a time (``decode_attention_part``, whose parts ``combine_decode_parts``
+merges).
 
 GQA is computed in grouped form [B, KV, G, ...], so repeated K/V heads are
 never materialised. Scores are fp32; probabilities are cast to v's dtype
@@ -87,6 +89,70 @@ def decode_attention(
     probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v_cache)
     return out.reshape(b, 1, h, d)
+
+
+def decode_attention_part(
+    q: torch.Tensor,  # [B, 1, H, Dh]
+    k_part: torch.Tensor,  # [B, S_part, KV, Dh]: slots offset .. offset + S_part - 1 of the cache
+    v_part: torch.Tensor,  # [B, S_part, KV, Dh]
+    pos: int,  # position of the new token
+    offset: int,  # the global index of the part's first slot
+    n_slots: int,  # S_cache, the whole cache's length
+    *,
+    ring: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One part of ``decode_attention`` over a slice of the cache's slots,
+    masked by the global slot index as ``decode_attention`` masks it.
+    Returns, all fp32, the part's largest score m [B, 1, H], its sum of
+    exponentials l = sum exp(s - m) [B, 1, H] and its unnormalised weighted
+    sum of v, o = sum exp(s - m) v [B, 1, H, Dh]. o is computed as the part's
+    softmax, cast to v's dtype and applied to v as ``decode_attention``
+    applies its probabilities, times l: so a cache in one part gives
+    ``decode_attention``'s output bit for bit where v is bf16 or fp16 (the
+    combine's l o / l, within an fp32 ulp of o, rounds back to it; fp32
+    keeps that ulp). A part with no slot has m = NEG_INF and
+    l = o = 0; a part whose slots are all masked has m = NEG_INF, and the
+    combine weighs it by exp(NEG_INF - max) = 0."""
+    b, _, h, d = q.shape
+    kv = k_part.shape[2]
+    s = k_part.shape[1]
+    if s == 0:
+        m = torch.full((b, 1, h), NEG_INF, dtype=torch.float32, device=q.device)
+        return m, torch.zeros_like(m), torch.zeros((b, 1, h, d), dtype=torch.float32, device=q.device)
+    qg = _grouped(q, kv)  # [B, 1, KV, G, Dh]
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k_part.float()) * d**-0.5
+    n_valid = min(pos + 1, n_slots) if ring else pos + 1
+    valid = torch.arange(offset, offset + s, device=q.device) < n_valid
+    scores = torch.where(valid, scores, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)  # [B, KV, G, 1, 1]
+    l = torch.exp(scores - m).sum(dim=-1, keepdim=True)
+    probs = torch.softmax(scores, dim=-1).to(v_part.dtype)
+    o = torch.einsum("bkgqs,bskd->bqkgd", probs, v_part).float() * l.permute(0, 3, 1, 2, 4)
+    return m.reshape(b, h, 1).transpose(1, 2), l.reshape(b, h, 1).transpose(1, 2), o.reshape(b, 1, h, d)
+
+
+def rescale_decode_part(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                        m_max: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A part's (l, o) at the maximum ``m_max`` over every part (>= m):
+    both times exp(m - m_max)."""
+    c = torch.exp(m - m_max)
+    return l * c, o * c[..., None]
+
+
+def finish_decode(l: torch.Tensor, o: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The attention output [B, 1, H, Dh] from the sums over every part, in
+    ``dtype`` (v's, as ``decode_attention`` returns it)."""
+    return (o / l[..., None]).to(dtype)
+
+
+def combine_decode_parts(parts: list, dtype: torch.dtype) -> torch.Tensor:
+    """``decode_attention`` from the ``decode_attention_part`` of each slice
+    of the cache, in one process: the largest m, each part rescaled to it,
+    the sums added, divided and cast to ``dtype``. A sharded decode does the
+    same with an all-reduce (max) of m and an all-reduce (sum) of l and o."""
+    m_max = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    scaled = [rescale_decode_part(m, l, o, m_max) for m, l, o in parts]
+    return finish_decode(sum(l for l, _ in scaled), sum(o for _, o in scaled), dtype)
 
 
 def cache_insert(

@@ -92,7 +92,8 @@ from ..configs.base import LayerKind, ModelConfig
 from ..kernels.ops import flash_attention, mamba_scan, rwkv6
 from . import ssm
 from . import moe
-from .attention import NEG_INF, _grouped, attention, cache_insert, decode_attention
+from .attention import (NEG_INF, _grouped, attention, cache_insert, decode_attention, decode_attention_part,
+                        finish_decode, rescale_decode_part)
 from .layers import apply_mrope, apply_rope, rmsnorm, swiglu
 from ..distributed.sharding import P, axis_size, distribute_local, placements, sharded_region
 from .params import ParamDef, stand_ins
@@ -318,7 +319,9 @@ class Ctx:
 #   - every mixer runs on each rank's local shard through ``local_map``
 #     (``_on_shards``): attention, kernel or plain, on query heads; decode
 #     attention on the cache's head_dim slice with the scores summed over
-#     tp; the WKV recurrence on heads; the selective scan on Di; the expert
+#     tp, or on its slice of slots with the softmax's parts combined over
+#     tp (``kv_shard="seq"``; the owner of the new token's slot writes it);
+#     the WKV recurrence on heads; the selective scan on Di; the expert
 #     FFN after the router on batch rows; the embedding lookup on batch rows.
 #     A kernel's wrapper never sees a DTensor;
 #   - tensors the model builds itself (causal masks, positions, RoPE
@@ -423,22 +426,78 @@ def _attend(ctx: Ctx, fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
                       (q, k, v), (heads, whole, whole), (heads,))
 
 
+def _slot_offset(ctx: Ctx, n_slots: int) -> int:
+    """The global index of this rank's first slot of a cache of ``n_slots``
+    slots split over tp (``kv_shard="seq"``), as DTensor splits a dim
+    (``torch.chunk``: ceil(n / tp) slots a rank, the last ranks' fewer or
+    none), so that any length splits."""
+    r = ctx.rules
+    per = -(-n_slots // axis_size(r.mesh, r.tp))
+    return min(r.mesh.get_local_rank(r.tp) * per, n_slots)
+
+
+def _cache_insert(ctx: Ctx, kc: torch.Tensor, vc: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  pos: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``cache_insert`` of the new token's k/v [B, 1, KV, Dh]; sharded, into
+    the cache as ``rules.kv_cache`` places it. With head_dim over tp the new
+    token takes the cache's spec. With the slots over tp (``kv_shard="seq"``)
+    its dim 1 of size 1 cannot: it stays whole over tp and only the rank
+    that owns slot ``pos % S_cache`` writes it, in place."""
+    r = ctx.rules
+    if r is None:
+        return cache_insert(kc, vc, k, v, pos)
+    spec = r.kv_cache(ctx.batch_shardable)
+    if r.kv_shard != "seq" or r.tp is None:
+        return cache_insert(kc, vc, r.constrain(k, spec), r.constrain(v, spec), pos)
+    if any(tuple(c.placements) != placements(spec, r.mesh) for c in (kc, vc)):
+        raise ValueError(f"a KV cache placed {kc.placements}, not as rules.kv_cache places it: {spec}")
+    n_slots = kc.shape[1]
+    slot = pos % n_slots - _slot_offset(ctx, n_slots)
+
+    def write(kc, vc, k, v):  # kc, vc [B, S/tp, KV, Dh] (this rank's slots); k, v [B, 1, KV, Dh]
+        if 0 <= slot < kc.shape[1]:
+            kc[:, slot] = k[:, 0].to(kc.dtype)
+            vc[:, slot] = v[:, 0].to(vc.dtype)
+        return kc
+
+    # the caches' local tensors are written in place (their placements are the spec, so
+    # local_map hands over their own storage); the caches are returned, not local_map's
+    # output, whose global shape it infers from the local one (wrong for an uneven split)
+    new = P(spec[0], None, None, None)
+    _on_shards(ctx, write, (kc, vc, k, v), (spec, spec, new, new), (spec,))
+    return kc, vc
+
+
 def _decode_attend(ctx: Ctx, q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor, pos: int,
                    ring: bool = False) -> torch.Tensor:
     """``decode_attention``; sharded, on each rank's shard of the cache as
-    ``rules.kv_cache`` places it: with head_dim over tp, each rank scores its
+    ``rules.kv_cache`` places it. With head_dim over tp, each rank scores its
     head_dim slice and the scores are summed over tp (the reference's score
-    all-reduce), then each rank weights its slice of v; the output's
-    head_dim is gathered (one token: [B, 1, H, Dh])."""
+    all-reduce), then each rank weights its slice of v. With the slots over
+    tp (``kv_shard="seq"``), q is whole on each rank, each rank takes
+    ``decode_attention_part`` of its slots, and three all-reduces over tp
+    combine the parts: the max of their maxima, then the sums of their
+    rescaled exponential sums and weighted v. Either way the output is whole
+    over tp (one token: [B, 1, H, Dh])."""
     r = ctx.rules
     if r is None:
         return decode_attention(q, kc, vc, pos, ring=ring)
     spec = r.kv_cache(ctx.batch_shardable)
     whole = P(spec[0], None, None, None)
     dh = q.shape[-1]
-    if r.kv_shard != "head_dim":
-        raise NotImplementedError("decoding from a sequence-sharded KV cache (kv_shard='seq') is not ported: "
-                                  "ROADMAP.md §A item 8")
+    if r.kv_shard == "seq" and r.tp:
+        n_slots, offset, group = kc.shape[1], _slot_offset(ctx, kc.shape[1]), r.mesh.get_group(r.tp)
+
+        def parts(q, k, v):  # q [B, 1, H, Dh]; k, v [B, S/tp, KV, Dh]
+            m, l, o = decode_attention_part(q, k, v, pos, offset, n_slots, ring=ring)
+            m_max = m.clone()
+            torch.distributed.all_reduce(m_max, op=torch.distributed.ReduceOp.MAX, group=group)
+            l, o = rescale_decode_part(m, l, o, m_max)
+            torch.distributed.all_reduce(l, group=group)
+            torch.distributed.all_reduce(o, group=group)
+            return finish_decode(l, o, v.dtype)
+
+        return _on_shards(ctx, parts, (q, kc, vc), (whole, spec, spec), (whole,))
     if not (r.tp and _splits(dh, axis_size(r.mesh, r.tp))):  # the cache's head_dim gathered
         return _on_shards(ctx, lambda q, k, v: decode_attention(q, k, v, pos, ring=ring),
                           (q, kc, vc), (whole, whole, whole), (whole,))
@@ -585,10 +644,7 @@ def _self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, ctx: Ctx, cache)
     q, k = _rope(cfg, ctx, q, k)
     new_cache = {}
     if ctx.mode == "decode":
-        if ctx.rules is not None:  # the new token's k/v as the cache is placed
-            spec = ctx.rules.kv_cache(ctx.batch_shardable)
-            k, v = ctx.rules.constrain(k, spec), ctx.rules.constrain(v, spec)
-        kc, vc = cache_insert(cache["k"], cache["v"], k, v, ctx.pos)
+        kc, vc = _cache_insert(ctx, cache["k"], cache["v"], k, v, ctx.pos)
         out = _decode_attend(ctx, q, kc, vc, ctx.pos, ring=cfg.sliding_window is not None)
         new_cache = {"k": kc, "v": vc}
     else:
@@ -607,12 +663,14 @@ def _prefill_kv_cache(cfg: ModelConfig, ctx: Ctx, k: torch.Tensor, v: torch.Tens
     L = ctx.cache_len
 
     def build(t):
-        buf = t.new_zeros((B, L, KV, Dh))
         if cfg.sliding_window is not None and S > L:
-            # ring discipline: token s lives at slot s % L
-            slots = torch.arange(S - L, S, device=t.device) % L
-            buf[:, slots] = t[:, S - L :]
+            # ring discipline: token s lives at slot s % L, so the cache is the last L tokens
+            # rotated by S % L; built of slices and a cat, as torch 2.11's DTensor has no
+            # strategy for writing at an index tensor (index_put_)
+            tail, s0 = t[:, S - L :], S % L
+            buf = torch.cat([tail[:, L - s0 :], tail[:, : L - s0]], dim=1) if s0 else tail.clone()
         else:
+            buf = t.new_zeros((B, L, KV, Dh))
             n = min(S, L)
             buf[:, :n] = t[:, :n]
         if ctx.rules is not None:

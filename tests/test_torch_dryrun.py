@@ -2,7 +2,11 @@
 
 The counterparts of tests/test_dryrun_smoke.py's four cells run, each in a
 subprocess of its own (the fake process group of 256 or 512 ranks belongs
-to the whole process), all four started together. A smoke config's step,
+to the whole process), all four started together. So do qwen3's and
+mixtral's decode_32k with the KV cache's slots over tp
+(``decode_kv_shard=seq``) on both meshes, held against the same cells
+with head_dim over tp by the collectives each plan counts, and the command
+line of such a cell. A smoke config's step,
 unsharded and with the kernels off, counts exactly the FLOPs that
 ``FlopCounterMode`` counts over the same step run on CPU tensors; on a (1, 1)
 mesh (a fake process group for the plan, a gloo one for the run, in a
@@ -12,6 +16,7 @@ importing the launch tools starts no process group.
 import json
 import os
 import subprocess
+from collections import Counter
 import sys
 from pathlib import Path
 
@@ -66,6 +71,35 @@ with tempfile.TemporaryDirectory() as d:
 print("FLOPS=" + json.dumps({"plan": plans, "run": runs}))
 """
 
+# decode from a sequence-sharded KV cache: qwen3 (B=128 over dp, 16/8 heads, Dh 128, 32768 slots)
+# and mixtral (48/8 heads, a 4096-slot ring) on both production meshes
+SEQ_CELLS = [(a, m) for a in ("qwen3_0_6b", "mixtral_8x22b") for m in ("single", "multi")]
+_SEQ = """
+import collections, json, sys, tempfile
+from pathlib import Path
+import repro_torch.launch.dryrun as d
+from repro_torch import configs
+from repro_torch.distributed.sharding import rules_for
+from repro_torch.launch.mesh import make_production_mesh
+arch, multi = sys.argv[1], sys.argv[2] == "multi"
+out = {}
+if arch == "qwen3_0_6b" and not multi:  # the command line, before the mesh's fake group starts
+    with tempfile.TemporaryDirectory() as tmp:
+        d.RESULTS_DIR = Path(tmp)
+        sys.argv = ["dryrun", "--arch", arch, "--shape", "decode_32k", "--override", "decode_kv_shard=seq"]
+        try:
+            d.main()
+        except SystemExit as e:
+            out["cli"] = [e.code, json.loads((Path(tmp) / f"{arch}.decode_32k.pod16x16.json").read_text())]
+mesh = make_production_mesh(multi_pod=multi)
+for kv in ("seq", "head_dim"):
+    cfg = configs.get(arch).replace(decode_kv_shard=kv)
+    st = d.plan_step(cfg, configs.SHAPES["decode_32k"], rules_for(cfg, mesh))
+    out[kv] = {"collectives": st["collectives"], "kernel_calls": d.kernel_calls(st["ops"]),
+               "peak": st["memory"]["peak_bytes"]}
+print("SEQ=" + json.dumps(out))
+"""
+
 
 def _env():
     return {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1"}
@@ -94,7 +128,9 @@ def planned():
     procs = {c: _start(_CELL, *c) for c in CELLS}
     procs.update({c: _start(_CELL, *c, "1") for c in C4_CELLS})
     procs["mesh"] = _start(_MESH, str(Path(__file__).parent))
-    return {c: _result(p, "FLOPS=" if c == "mesh" else "CELL=") for c, p in procs.items()}
+    procs.update({("seq", *c): _start(_SEQ, *c) for c in SEQ_CELLS})
+    prefix = {"mesh": "FLOPS="}
+    return {c: _result(p, "SEQ=" if c[0] == "seq" else prefix.get(c, "CELL=")) for c, p in procs.items()}
 
 
 @pytest.mark.parametrize("arch,shape,mesh", CELLS)
@@ -122,6 +158,36 @@ def test_dryrun_plans_a_train_step_whose_heads_do_not_split_over_tp(planned, arc
     assert configs.get(arch).n_heads % 16 != 0 and cell["chips"] == 256
     assert cell["flops_per_device"] > 0 and cell["memory"]["peak_bytes"] >= cell["memory"]["argument_bytes"] > 0
     assert cell["kernel_calls"] == {"flash_attention_fwd": 2}  # the forward and remat's recompute
+
+
+@pytest.mark.parametrize("arch,mesh", SEQ_CELLS)
+def test_dryrun_plans_decode_from_a_sequence_sharded_cache(planned, arch, mesh):
+    """A decode step whose KV cache has its slots over tp: against the same
+    step with head_dim over tp, each layer's score all-reduce (B x H x S
+    fp32 a rank) gives way to three all-reduces, of the parts' maxima and
+    exponential sums (B x H fp32 each) and of their weighted v (B x H x Dh),
+    and nothing else changes among the collectives. qwen3's command line
+    plans the cell and exits 0."""
+    rc, out, stderr = planned[("seq", arch, mesh)]
+    assert rc == 0 and out is not None, stderr
+    cfg, shape = configs.get(arch), configs.SHAPES["decode_32k"]
+    b = shape.global_batch // (512 // 16 if mesh == "multi" else 16)  # rank 0's batch rows over dp
+    slots = min(shape.seq_len, cfg.sliding_window or shape.seq_len)
+    h, dh, layers = cfg.n_heads, cfg.head_dim, cfg.n_layers
+
+    def all_reduces(kv):  # (operand bytes, link) of each; the tp group crosses nodes on these meshes
+        return Counter((nbytes, link) for kind, nbytes, link in out[kv]["collectives"] if kind == "all_reduce")
+
+    seq, head_dim = all_reduces("seq"), all_reduces("head_dim")
+    assert seq - head_dim == Counter({(4 * b * h, "nic"): 2 * layers, (4 * b * h * dh, "nic"): layers})
+    assert head_dim - seq == Counter({(4 * b * h * slots, "nic"): layers})
+    others = [Counter(tuple(c) for c in out[kv]["collectives"] if c[0] != "all_reduce") for kv in ("seq", "head_dim")]
+    assert others[0] == others[1]
+    assert out["seq"]["kernel_calls"] == out["head_dim"]["kernel_calls"] == {}
+    if "cli" in out:
+        code, cell = out["cli"]
+        assert code == 0 and cell["status"] == "ok" and cell["overrides"] == {"decode_kv_shard": "seq"}
+        assert cell["collective_by_type"]["all_reduce"] == sum(k * n for (k, _), n in seq.items())
 
 
 KINDS = {"train": configs.Shape("smoke_train", "train", 32, 4),

@@ -54,6 +54,9 @@ SHAPES = [
     (8, 512, 512, 48, 8, 128, True, 4096),  # mixtral-8x22b: GQA group 6, the window does not bind
     (1, 8192, 8192, 48, 8, 128, True, 4096),  # mixtral-8x22b's long prompt: the window binds
     (8, 512, 512, 56, 8, 128, True, None),  # arctic-480b: 56 heads, GQA group 7
+    (8, 512, 512, 32, 32, 96, True, None),  # phi3-mini-3.8B: MHA, Dh 96 (three 32-column TMA boxes a row)
+    (8, 512, 512, 32, 8, 64, True, None),  # granite-3-2B: GQA group 4
+    (8, 512, 512, 48, 8, 128, True, None),  # internlm2-20B: GQA group 6, no window
 ]
 
 
@@ -774,6 +777,29 @@ def test_sharded_smoke_serving_on_a_one_rank_mesh_matches_unsharded(mesh11, arch
     tok0, lg0, n0 = _sharded_tokens(cfg, plain, None, batch, 4, 72)
     tok1, lg1, n1 = _sharded_tokens(cfg, placed, rules, batch, 4, 72)
     assert n1 == n0 and sum(n0) > 0
+    for a, b in zip(tok1, tok0):
+        assert torch.equal(a, b)
+    for a, b in zip(lg1, lg0):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3_0_6b", "mixtral_8x22b", "seamless_m4t_large_v2"])
+def test_seq_placed_decode_on_a_one_rank_mesh_matches_unsharded(mesh11, arch):
+    """fp32 smoke serving with the KV cache's slots over tp
+    (``decode_kv_shard="seq"``; mixtral's ring wraps, seamless's memory is
+    seq-placed too): the unsharded run's tokens exactly, its logits to 1e-5,
+    and the same launches."""
+    from repro_torch.distributed.sharding import rules_for
+
+    cfg = configs.get_smoke(arch).replace(use_pallas="on", decode_kv_shard="seq")
+    rules = rules_for(cfg, mesh11)
+    batch = prompt_batch(cfg, 8, 64, 0, torch.device("cuda"))
+    plain = init_params(T.param_defs(cfg), seed=0, dtype=torch.float32, device="cuda")
+    placed = init_params(T.param_defs(cfg, rules), seed=0, dtype=torch.float32, device="cuda", rules=rules)
+    tok0, lg0, n0 = _sharded_tokens(cfg, plain, None, batch, 4, 72)
+    tok1, lg1, n1 = _sharded_tokens(cfg, placed, rules, batch, 4, 72)
+    assert n1 == n0 and n0[0] > 0 and rules.kv_cache(True)[1] == "model"
     for a, b in zip(tok1, tok0):
         assert torch.equal(a, b)
     for a, b in zip(lg1, lg0):

@@ -135,6 +135,33 @@ def test_sharded_input_specs_equal_the_reference(production, shape):
             assert all(isinstance(p, Replicate) for p in tokens.placements)
 
 
+@pytest.mark.parametrize("arch", ["qwen3_0_6b", "mixtral_8x22b"])
+def test_sequence_sharded_kv_cache_specs_equal_the_reference(production, arch):
+    """decode_32k's stand-ins with the KV cache's slots over tp
+    (``decode_kv_shard="seq"``, the reference's ``P(dp, tp, None, None)``):
+    every leaf's placements and rank 0's shard shape equal the reference's
+    on the AbstractMesh of the same axes."""
+    mesh, jmesh = production
+    shape = configs.SHAPES["decode_32k"]
+    cfg = configs.get(arch).replace(decode_kv_shard="seq")
+    jcfg = jconfigs.get(arch).replace(decode_kv_shard="seq")
+    jrules = jax_make_rules(jmesh, seq_shard_residual=jcfg.seq_shard_residual, kv_shard="seq",
+                            expert_axis=jcfg.moe_expert_axis, fsdp=jcfg.fsdp_params)
+    _, port, ref = _split_decode(specs.input_specs(cfg, shape, rules_for(cfg, mesh)),
+                                 jspecs.input_specs(jcfg, jconfigs.SHAPES["decode_32k"], jmesh, jrules))
+    assert sorted(port) == sorted(ref)
+    dp = ("pod", "data") if len(jmesh.axis_names) == 3 else "data"
+    kv_paths = [p for p in ref if p.endswith(("/k", "/v"))]
+    assert kv_paths
+    for path, r in ref.items():
+        t = port[path]
+        assert (tuple(t.shape), t.dtype) == (r.shape, _JAX_DTYPES[r.dtype.type]), path
+        assert t.placements == placements(r.sharding.spec, mesh), path
+        assert tuple(t._local_tensor.shape) == r.sharding.shard_shape(r.shape), path
+        if path in kv_paths:
+            assert tuple(r.sharding.spec) == (None, dp, "model", None, None), path
+
+
 def _probe_product(mesh):
     """A bf16 [4096,1024] @ [1024,1024] on the (data, model) dims, the first
     (Shard(0), Replicate()), the second (Replicate(), Shard(1)): its output

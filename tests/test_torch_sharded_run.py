@@ -23,6 +23,13 @@ parametrised test asserts one case, so each case counts.
   to the unsharded port's (drops follow from the choices by the capacity
   rule, and the logits hold them), the KV caches (built by prefill and
   written in place by decode) placed by ``rules.kv_cache(B >= 8)``.
+- Serving from a sequence-sharded KV cache (``kv_shard="seq"``: the cache's
+  slots over tp, each rank's part of the decode softmax combined by three
+  all-reduces): qwen3 at B=8 on both meshes, mixtral (its window of 8 makes
+  the ring cache wrap in decode), seamless (cross-attention over the
+  seq-placed encoder memory) and qwen3 with a cache of 37 slots, which 4 tp
+  ranks split 10, 10, 10, 7; held as above, the JAX reference run with the
+  same cache length.
 - Training: one fp32 step of qwen3 and mixtral, FSDP off and on, of rwkv6
   and jamba (with its experts), and of qwen3 with int8 error-feedback
   compression: the first moment (and the compression's residual) within
@@ -42,7 +49,13 @@ parametrised test asserts one case, so each case counts.
   bitwise, every leaf on the new mesh, the manifest's step, annex keys
   equal to an unsharded save of the same tree, and the JAX package's
   ``CheckpointManager.restore`` of the commit gives the same arrays.
+
+Without processes: ``decode_attention_part`` over 1 to 4 slices of a cache
+(even and uneven splits, an empty slice, ring and not, parts wholly masked),
+merged by ``combine_decode_parts``, against ``decode_attention`` of the port
+and of the JAX package; and one part in bf16 and fp16, bit for bit the port's.
 """
+import itertools
 import json
 import os
 import subprocess
@@ -64,6 +77,10 @@ SERVE = [(a, 8) for a in ARCHS] + [("qwen3_0_6b", 2)]
 # on the (2, 4) mesh: qwen3's 2 KV heads do not split over 4 tp ranks, so each
 # rank keeps k/v whole and slices its query heads' group
 SERVE_TP4 = ("qwen3_0_6b", 8)
+# decode from a sequence-sharded KV cache: (arch, mesh, extra cache slots); 36 slots split
+# evenly over 2 and 4 tp ranks, 37 over 4 as 10, 10, 10, 7
+SERVE_SEQ = [("qwen3_0_6b", MESH_A, 0), ("qwen3_0_6b", MESH_B, 0), ("mixtral_8x22b", MESH_A, 0),
+             ("seamless_m4t_large_v2", MESH_A, 0), ("qwen3_0_6b", MESH_B, 1)]
 # (arch, fsdp, int8 error-feedback compression): qwen3 and mixtral with FSDP
 # off and on, params held after the step; rwkv6 and jamba, whose WKV u and
 # Mamba A, B and C are whole over a mesh dim their scan is split over, and
@@ -89,6 +106,10 @@ RANK_TIMEOUT = 600
 
 def _case(arch: str, b: int) -> str:
     return f"{arch}-B{b}"
+
+
+def _seq_suffix(mesh: tuple, extra: int) -> str:
+    return "-seq" + ("-tp4" if mesh == MESH_B else "") + (f"-L{PROMPT + GEN + extra}" if extra else "")
 
 
 def _inputs(cfg, b: int, seed: int = 0) -> dict:
@@ -158,7 +179,7 @@ def _routes(moe):
     return got, lambda: setattr(moe, "router_topk", orig)
 
 
-def _serve_case(mesh, data, arch, b, res, arrays, suffix=""):
+def _serve_case(mesh, data, arch, b, res, arrays, suffix="", kv_shard=None, extra=0):
     from repro_torch import configs
     from repro_torch.convert import params_from_numpy
     from repro_torch.distributed.sharding import P, placements, rules_for
@@ -167,12 +188,13 @@ def _serve_case(mesh, data, arch, b, res, arrays, suffix=""):
     from repro_torch.train.steps import make_decode_step, make_prefill_step
 
     cfg = configs.get_smoke(arch).replace(use_pallas="on")
+    cfg = cfg.replace(decode_kv_shard=kv_shard) if kv_shard else cfg
     rules = rules_for(cfg, mesh)
     key = _case(arch, b)
     tree = _nest({p[len(arch) + 1:]: data[p] for p in data.files if p.startswith(arch + "/")})
     batch = {k: torch.from_numpy(data[f"in/{key}/{k}"]) for k in _inputs(cfg, b)}
     key += suffix
-    cache_len = PROMPT + GEN
+    cache_len = PROMPT + GEN + extra
     runs = {}
     for name, r in (("port", None), ("sharded", rules)):
         params = params_from_numpy(tree, "cpu", rules=r, cfg=cfg)
@@ -186,7 +208,8 @@ def _serve_case(mesh, data, arch, b, res, arrays, suffix=""):
         runs[name] = (lg, toks, routes, caches)
     (lg0, tok0, rt0, _), (lg1, tok1, rt1, caches) = runs["port"], runs["sharded"]
     want_kv = placements(P(None, *rules.kv_cache(b >= 8)), mesh)
-    kv_ok = all(tuple(c[n].placements) == want_kv for c in caches.values() for n in ("k", "v") if n in c)
+    kv_ok = all(tuple(c[n].placements) == want_kv for c in caches.values() for n in ("k", "v", "xk", "xv")
+                if n in c)
     res[key] = {
         "port_err": max(float((a - w).abs().max()) for a, w in zip(lg1, lg0)),
         "tokens_equal_port": all(torch.equal(a, w) for a, w in zip(tok1, tok0)),
@@ -194,6 +217,8 @@ def _serve_case(mesh, data, arch, b, res, arrays, suffix=""):
         "routes_equal": len(rt0) == len(rt1) and all(torch.equal(a, w) for a, w in zip(rt1, rt0)),
         "kv_layers": sum("k" in c for c in caches.values()),
         "kv_placed": kv_ok,
+        "kv_spec": [str(x) for x in rules.kv_cache(b >= 8)],
+        "k_local_slots": [c["k"]._local_tensor.shape[2] for c in caches.values() if "k" in c][:1],
     }
     for i, (a, t) in enumerate(zip(lg1, tok1)):
         arrays[f"{key}/logits{i}"] = a.numpy()
@@ -350,6 +375,12 @@ def _rank_main(rank: int, workdir: str) -> None:
         t = time.perf_counter()
         _serve_case(mesh_b, data, *SERVE_TP4, res["serve"], arrays, suffix="-tp4")
         times[_case(*SERVE_TP4) + "-tp4"] = time.perf_counter() - t
+        for arch, shape, extra in SERVE_SEQ:
+            t = time.perf_counter()
+            suffix = _seq_suffix(shape, extra)
+            _serve_case(mesh if shape == MESH_A else mesh_b, data, arch, 8, res["serve"], arrays, suffix=suffix,
+                        kv_shard="seq", extra=extra)
+            times[_case(arch, 8) + suffix] = time.perf_counter() - t
         for case in TRAIN:
             t = time.perf_counter()
             _train_case(mesh, data, *case, res["train"], state)
@@ -372,19 +403,24 @@ def _rank_main(rank: int, workdir: str) -> None:
 
 # ------------------------------------------------------------------ the parent
 def _jax_reference(jconfigs, data) -> dict:
-    """Unsharded JAX: logits and greedy tokens of prefill and each decode step."""
+    """Unsharded JAX: logits and greedy tokens of prefill and each decode
+    step; for each cache length of ``SERVE_SEQ`` past the others', again
+    under ``{case}-L{length}``."""
     import jax
     import jax.numpy as jnp
 
     from repro.models import transformer as JT
 
     out = {}
-    for arch, b in SERVE:
+    runs = [(a, b, 0) for a, b in SERVE] + sorted({(a, 8, x) for a, _, x in SERVE_SEQ if x})
+    for arch, b, extra in runs:
         jcfg = jconfigs.get_smoke(arch).replace(use_pallas="off")
         key = _case(arch, b)
         params = _nest({p[len(arch) + 1:]: jnp.asarray(data[p]) for p in data.files if p.startswith(arch + "/")})
         batch = {k: jnp.asarray(data[f"in/{key}/{k}"]) for k in _inputs(jcfg, b)}
-        caches, logits = jax.jit(lambda p, bt: JT.prefill(jcfg, None, p, bt, cache_len=PROMPT + GEN))(params, batch)
+        key += f"-L{PROMPT + GEN + extra}" if extra else ""
+        caches, logits = jax.jit(lambda p, bt: JT.prefill(jcfg, None, p, bt, cache_len=PROMPT + GEN + extra))(
+            params, batch)
         step = jax.jit(lambda p, c, t, pos: JT.decode_step(jcfg, None, p, c, t, pos))
         for i in range(GEN):
             tok = jnp.argmax(logits[:, : jcfg.vocab_size], axis=-1)[:, None].astype(jnp.int32)
@@ -478,6 +514,91 @@ def test_sharded_serving_matches_unsharded_port_and_jax(run, arch, b, suffix):
     assert r["routes_equal"], r
     assert (r["n_routes"] > 0) == (arch in ("jamba_1_5_large_398b", "mixtral_8x22b", "arctic_480b")), r
     assert r["kv_placed"] and (r["kv_layers"] > 0) == (arch != "rwkv6_1_6b"), r
+
+
+SEQ_IDS = [_case(a, 8) + _seq_suffix(m, x) for a, m, x in SERVE_SEQ]
+
+
+@pytest.mark.parametrize("arch,mesh,extra", SERVE_SEQ, ids=SEQ_IDS)
+def test_decode_from_a_sequence_sharded_cache_matches_unsharded_port_and_jax(run, arch, mesh, extra):
+    """``kv_shard="seq"``: the KV caches (and seamless's projected memory)
+    placed with their slots over tp, each rank scoring its slots; greedy
+    tokens equal to the unsharded port's and the JAX package's, logits
+    within PORT_TOL and JAX_TOL, at the JAX run's own cache length."""
+    res, got, want = run
+    key = _case(arch, 8) + _seq_suffix(mesh, extra)
+    r = res["serve"][key]
+    assert r["kv_spec"] == ["data", "model", "None", "None"] and r["kv_placed"] and r["kv_layers"] > 0, r
+    assert r["k_local_slots"] == [-(-_cache_slots(arch, extra) // mesh[1])], r  # rank 0's, as torch.chunk splits
+    assert r["port_err"] <= PORT_TOL, r
+    assert r["tokens_equal_port"] and r["routes_equal"], r
+    ref = _case(arch, 8) + (f"-L{PROMPT + GEN + extra}" if extra else "")
+    for i in range(GEN):
+        np.testing.assert_allclose(got[f"{key}/logits{i}"], want[f"{ref}/logits{i}"], rtol=JAX_TOL, atol=JAX_TOL,
+                                   err_msg=f"{key} logits{i}")
+        np.testing.assert_array_equal(got[f"{key}/token{i}"], want[f"{ref}/token{i}"])
+
+
+def _cache_slots(arch: str, extra: int) -> int:
+    """The KV cache's slots: the cache length, or the smoke config's sliding
+    window where that is shorter (the ring)."""
+    from repro_torch import configs
+
+    return min(PROMPT + GEN + extra, configs.get_smoke(arch).sliding_window or PROMPT + GEN + extra)
+
+
+def _combine_cases():
+    """(n_parts, even, ring, late): a cache of 6 n slots (even) or 6 n + 1
+    (uneven), split as torch.chunk splits it, padded with empty parts to n
+    (DTensor's rule: 3 x 3 slots over 4 ranks leaves the last none); the new
+    token early (pos = S // 3: later parts wholly masked) or late (the last
+    slot; with a ring, past a wrap)."""
+    return list(itertools.product((1, 2, 3, 4), (True, False), (False, True), (False, True)))
+
+
+@pytest.mark.parametrize("n_parts,even,ring,late", _combine_cases(),
+                         ids=[f"{n}parts-{'even' if e else 'uneven'}-{'ring' if r else 'flat'}-{'late' if t else 'early'}"
+                              for n, e, r, t in _combine_cases()])
+def test_decode_parts_combine_to_decode_attention(n_parts, even, ring, late):
+    import jax.numpy as jnp
+
+    from repro.models.attention import decode_attention as jax_decode_attention
+    from repro_torch.models.attention import combine_decode_parts, decode_attention, decode_attention_part
+
+    s = 6 * n_parts + (0 if even else 1)
+    if n_parts == 4 and not even:
+        s = 9  # 3, 3, 3 and an empty part
+    pos = (s - 1 + (s + 3 if ring else 0)) if late else s // 3
+    rng = np.random.default_rng(n_parts * 16 + even * 8 + ring * 4 + late)
+    q, k, v = (rng.normal(size=shape).astype(np.float32) for shape in ((2, 1, 4, 16), (2, s, 2, 16), (2, s, 2, 16)))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    slots = list(torch.arange(s).chunk(n_parts))
+    slots += [torch.arange(0)] * (n_parts - len(slots))
+    parts = [decode_attention_part(tq, tk[:, idx], tv[:, idx], pos, int(idx[0]) if len(idx) else s, s, ring=ring)
+             for idx in slots]
+    got = combine_decode_parts(parts, tv.dtype)
+    assert got.dtype == torch.float32 and got.shape == (2, 1, 4, 16)
+    np.testing.assert_allclose(got.numpy(), decode_attention(tq, tk, tv, pos, ring=ring).numpy(),
+                               rtol=1e-6, atol=1e-6)
+    want = jax_decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.int32(pos), ring=ring)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("ring", [False, True])
+def test_one_decode_part_is_decode_attention_bit_for_bit(dtype, ring):
+    """A whole cache as one part (one tp rank) in a 16-bit type gives
+    ``decode_attention``'s output bit for bit: a bf16 greedy decode changes
+    tokens under a one-ulp change of a few attention outputs. (In fp32 the
+    combine's l o / l keeps an ulp; the combine cases above hold it.)"""
+    from repro_torch.models.attention import combine_decode_parts, decode_attention, decode_attention_part
+
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(getattr(torch, dtype))
+               for shape in ((8, 1, 16, 128), (8, 136, 8, 128), (8, 136, 8, 128)))
+    for pos in (20, 128, 300):
+        got = combine_decode_parts([decode_attention_part(q, k, v, pos, 0, 136, ring=ring)], v.dtype)
+        assert torch.equal(got, decode_attention(q, k, v, pos, ring=ring)), pos
 
 
 @pytest.mark.parametrize("arch,fsdp,compress", TRAIN, ids=[_train_id(*c) for c in TRAIN])
