@@ -194,22 +194,31 @@ Phases; any failure exits non-zero before the result lines are printed.
                     layer, whose query heads (56, 28) do not split over its 16
                     tp ranks (ROADMAP §C4): each must come back "ok".
  28. campaign     — training on data pinned to commits through
-                    ``repro_torch.launch.campaign.run`` (the training half of
-                    examples/surrogate_campaign.py): qwen3-0.6B at full width,
-                    cut to 2 of its 28 layers, phase 14's shapes (bf16 weights,
-                    fp32 moments, remat, B=8 x 512). Data commit 1 (4 simulation shards of 65,536
-                    tokens below 4096), 4 steps on a RepoTokenDataset pinned to
-                    it and a checkpoint; data commit 2 (4 more shards), a new
+                    ``repro_torch.launch.campaign.run`` (examples/
+                    surrogate_campaign.py on the port's own Slurm protocol):
+                    qwen3-0.6B at full width, cut to 2 of its 28 layers, phase
+                    14's shapes (bf16 weights, fp32 moments, remat, B=8 x 512).
+                    Data commit 1 is the octopus merge of 4 simulation jobs
+                    (one ``submit_many`` on a local cluster, each job a
+                    ``python3`` writing a shard of 65,536 tokens below 4096),
+                    4 steps on a RepoTokenDataset pinned to it and a
+                    checkpoint; data commit 2 (4 more jobs), a new
                     train_segment that resumes at step 4 and checkpoints at 8;
-                    then ``serve.run(..., repo=, commit=)`` from the step-8
-                    checkpoint. Every batch must equal one recomputed from the
-                    shards' recipe with numpy alone; the step-8 manifest must
-                    hold step 8 and data_step 8; ``Repository.log`` from it must
-                    list data commit 2, the step-4 checkpoint and data commit 1,
-                    in that order; the flash kernel must launch 4 times a step
-                    and 2 times a prefill, and the served tokens must be finite
-                    and in the vocabulary. Prints step p50/p95, tokens/s, peak
-                    memory and each save's seconds.
+                    batch 0 resubmitted verbatim must be memoized, 4 of 4, with
+                    no sbatch; then ``serve.run(..., repo=, commit=)`` from
+                    the step-8 checkpoint. Every batch must equal one
+                    recomputed from the shards' recipe with numpy alone; the
+                    step-8 manifest must hold step 8 and data_step 8; each data
+                    commit must merge 4 job commits whose records name their
+                    shard.npy and a Slurm job id; ``Repository.log`` from the
+                    step-8 checkpoint must list it, data commit 2, that
+                    merge's job commits and the scripts' save under it, the
+                    step-4 checkpoint, then data commit 1's likewise, and
+                    nothing else; the flash
+                    kernel must launch 4 times a step and 2 times a prefill,
+                    and the served tokens must be finite and in the
+                    vocabulary. Prints step p50/p95, tokens/s, peak memory and
+                    each save's seconds.
  29. train rwkv6  — first the WKV op's backward (through ``rwkv6_ref``) at the
                     train shape (8, 512, 32, 64) in fp32 against the plain
                     version's autograd (GRAD_TOL), and, printed as a finding,
@@ -254,6 +263,29 @@ Phases; any failure exits non-zero before the result lines are printed.
                     layers each: fp32 prefill, B=2 x 512, kernel on against
                     off (last logits and every k/v), then the bf16 check of
                     phase 6.
+ 35. jobs         — in phase 28's repository, before it goes: four Slurm
+                    jobs in one ``submit_many`` on a local cluster of 4
+                    workers, submitted when phase 28 has taken its timings,
+                    so that they start while phase 27 (run after phase 28
+                    since PR 27) plans; phase 27 times no work on the card,
+                    but its planning seconds are taken beside the jobs. Job k
+                    (``jobs/serve_k/slurm.sh``) a ``python3`` that serves the
+                    step-8 checkpoint commit through ``serve.run`` (qwen3 as
+                    phase 28 cuts it, B=8, prompt 64, gen 16, seed k, on the
+                    card, deterministic), saves its tokens as its declared
+                    output ``tokens.npy`` and logs its stages' seconds. While
+                    they run this process serves each seed. All four must
+                    complete with their running intervals (env.json:
+                    SubmitTime + Elapsed) overlapping; ``finish(octopus=True)``
+                    must merge 4 job commits whose records carry their spec;
+                    job k's tokens must equal ``serve.run``'s in this process
+                    for seed k, and its committed log must show 2 flash
+                    launches a prefill; job 0's spec resubmitted must be
+                    memoized with no sbatch, and its ``reschedule`` must run
+                    on the card again, alone, and commit the same tokens.npy
+                    entry. No job may rebuild the kernels. Prints
+                    submit-to-completion seconds, each job's runtime and
+                    stages, and the finish and reschedule seconds.
 Phases 3, 4 and 9 also run one backward through each kernel op
 (``ops.flash_attention``, ``ops.rwkv6``, ``ops.mamba_scan``) at a small fp32
 shape and hold its gradients against the plain version's autograd.
@@ -364,6 +396,33 @@ TRAIN = dict(steps=8, batch=8, seq_len=512)  # phase 14's timed run (launch.trai
 CAMPAIGN = dict(sim_jobs=4, steps=8)  # phase 28: shards committed in each phase; phase 1 trains to 4, phase 2 to 8
 # phase 28 at full width, cut to 2 of qwen3's 28 layers (phase 14 trains and saves the full depth)
 CAMPAIGN_CUTS = {"n_layers": 2}
+SERVE_JOBS = 4  # phase 35: concurrent serving jobs, one local-cluster worker each
+JOB_SERVE = dict(batch=8, prompt_len=64, gen=16)  # phase 35: what each job serves
+# phase 35: one serving job, run by the local cluster in jobs/serve_<k>/ of a repository that
+# holds a checkpoint commit; formatted with the commit, seed, device, full, overrides and shape
+SERVE_JOB = """#!/bin/bash
+# serve a checkpoint commit of this repository; keep the tokens, log the flash launches
+python3 - <<'EOF'
+import json
+import time
+t = [time.perf_counter()]
+import numpy as np
+import torch
+t.append(time.perf_counter())
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.launch import serve
+t.append(time.perf_counter())
+torch.zeros(1, device="{device}")
+t.append(time.perf_counter())
+torch.use_deterministic_algorithms(True)
+res = serve.run("qwen3_0_6b", repo="../..", commit="{commit}", seed={seed}, device="{device}", full={full},
+                overrides={overrides!r}, **{shape!r})
+t.append(time.perf_counter())
+np.save("tokens.npy", res.tokens.cpu().numpy())
+stages = dict(zip(("import torch", "serving imports", "device start", "serve.run"), np.diff(t).round(3).tolist()))
+print(json.dumps(dict(prefills=res.prefills, flash_attention_fwd=flash_attention_fwd.launches, stages_s=stages)))
+EOF
+"""
 TRAIN_LR = 1e-3  # the fixed-batch check: constant rate, AdamW's other defaults
 TRAIN_PARITY_LAYERS = 2  # the kernel on/off train step: 2 of qwen3's 28 layers, full width
 PREEMPT = (6, 3)  # the unbroken run's steps, and the step the other is cut at
@@ -1198,9 +1257,32 @@ def dryrun_phase(torch, np, configs, T, kernels: dict, dev, seed: int):
     return held
 
 
-def campaign_phase(torch, np, configs, serve, kernels: dict, dev, seed: int):
-    """Phase 28 (see the module docstring). Returns (training launches by
-    wrapper, steps trained, serving launches by wrapper, prefills served)."""
+@contextmanager
+def counting_sbatch():
+    """Count ``LocalSlurmCluster.sbatch`` calls (the list of their work
+    directories) while the block runs."""
+    from repro_torch.core.slurm import LocalSlurmCluster
+
+    plain = LocalSlurmCluster.sbatch
+    calls = []
+
+    def sbatch(self, script, workdir, *args, **kw):
+        calls.append(workdir)
+        return plain(self, script, workdir, *args, **kw)
+
+    LocalSlurmCluster.sbatch = sbatch
+    try:
+        yield calls
+    finally:
+        LocalSlurmCluster.sbatch = plain
+
+
+def campaign_phase(torch, np, configs, serve, kernels: dict, dev, seed: int, repo_dir: str):
+    """Phase 28 (see the module docstring), in the empty directory
+    ``repo_dir``. Returns (training launches by wrapper, steps trained,
+    serving launches by wrapper, prefills served, the step-8 checkpoint
+    commit)."""
+    from repro_torch.core.records import RunRecord
     from repro_torch.core.repo import Repository
     from repro_torch.launch import campaign
     from repro_torch.train.checkpoint import CheckpointManager
@@ -1224,28 +1306,28 @@ def campaign_phase(torch, np, configs, serve, kernels: dict, dev, seed: int):
     torch.cuda.reset_peak_memory_stats(dev)
     campaign.RepoTokenDataset = Recording
     try:
-        with tempfile.TemporaryDirectory() as repo_dir:
+        with counting_sbatch() as sbatched:
             t = time.perf_counter()
             res = campaign.run("qwen3_0_6b", repo=repo_dir, full=True, seq_len=s, batch=b, seed=seed, device=dev,
                                overrides=CAMPAIGN_CUTS, **CAMPAIGN)
             wall = time.perf_counter() - t
-            train_launches = {counter.__name__: counter.launches for counter in kernels.values()}
-            peak = torch.cuda.max_memory_allocated(dev)
-            last = res.segments[-1].checkpoint_commit
-            manifest = json.loads(CheckpointManager(Repository(repo_dir))._tree_bytes(
-                last, f"checkpoints/step_{end2:08d}/manifest.json"))
-            # the shards' recipe with numpy alone; the committed files must hold these tokens
-            shards = [np.random.Generator(np.random.Philox(key=base + t)).integers(0, 4096, size=65_536,
-                                                                                  dtype=np.int32)
-                      for base in (0, 100) for t in range(jobs)]
-            on_disk = [np.load(Path(repo_dir) / f"campaign/batch_{base}/{t}/shard.npy")
-                       for base in (0, 100) for t in range(jobs)]
-            if not all(np.array_equal(a, w) for a, w in zip(on_disk, shards)):
-                fail("the committed shards differ from the simulation recipe's tokens")
-            gc.collect()
-            torch.cuda.empty_cache()
-            _, serve_res, serve_launches = serve_phase(torch, serve, configs, "qwen3_0_6b", kernels, dev, seed,
-                                                       overrides=CAMPAIGN_CUTS, repo=repo_dir, commit=last)
+        train_launches = {counter.__name__: counter.launches for counter in kernels.values()}
+        peak = torch.cuda.max_memory_allocated(dev)
+        repo = Repository(repo_dir)
+        last = res.segments[-1].checkpoint_commit
+        manifest = json.loads(CheckpointManager(repo)._tree_bytes(last, f"checkpoints/step_{end2:08d}/manifest.json"))
+        # the shards' recipe with numpy alone; the committed files must hold these tokens
+        shards = [np.random.Generator(np.random.Philox(key=base + t)).integers(0, 4096, size=65_536,
+                                                                              dtype=np.int32)
+                  for base in (0, 100) for t in range(jobs)]
+        on_disk = [np.load(Path(repo_dir) / f"campaign/batch_{base}/{t}/shard.npy")
+                   for base in (0, 100) for t in range(jobs)]
+        if not all(np.array_equal(a, w) for a, w in zip(on_disk, shards)):
+            fail("the committed shards differ from the simulation recipe's tokens")
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, serve_res, serve_launches = serve_phase(torch, serve, configs, "qwen3_0_6b", kernels, dev, seed,
+                                                   overrides=CAMPAIGN_CUTS, repo=repo_dir, commit=last)
     finally:
         campaign.RepoTokenDataset = plain_dataset
 
@@ -1267,9 +1349,32 @@ def campaign_phase(torch, np, configs, serve, kernels: dict, dev, seed: int):
         fail(f"segments ran {seg1.start_step}->{seg1.end_step} and {seg2.start_step}->{seg2.end_step}")
     if (manifest["step"], manifest["data_step"]) != (end2, end2):
         fail(f"the last checkpoint's manifest holds step {manifest['step']}, data_step {manifest['data_step']}")
-    lineage = [oid for oid, _ in res.lineage]
-    if lineage != [last, c2, seg1.checkpoint_commit, c1]:
+    # each data commit merges the batch's job commits, each with its shard and Slurm job id
+    sim_times = {}  # batch: (each job's runtime, first submission to last end), from the env.json files
+    for base, data in ((0, c1), (100, c2)):
+        parents = repo.objects.get_commit(data)["parents"]
+        records = [RunRecord.from_message(repo.objects.get_commit(p)["message"]) for p in parents[1:]]
+        outputs = sorted(o for r in records for o in r.outputs if o.endswith("shard.npy"))
+        if (len(parents) != jobs + 1 or any(r.slurm_job_id is None for r in records)
+                or outputs != [f"campaign/batch_{base}/{t}/shard.npy" for t in range(jobs)]):
+            fail(f"data commit {data[:12]} of batch {base} has parents {parents} with records "
+                 f"{[(r.slurm_job_id, r.outputs) for r in records]}")
+        envs = [json.loads(committed_bytes(repo, data, f"{r.pwd}/slurm-job-{r.slurm_job_id}.env.json"))
+                for r in records]
+        sim_times[base] = ([round(e["Elapsed"][0], 3) for e in envs],
+                           round(max(e["SubmitTime"] + e["Elapsed"][0] for e in envs)
+                                 - min(e["SubmitTime"] for e in envs), 3))
+    # each checkpoint, its data commit, that merge's job commits (newest first) and the scripts' save
+    lineage = []
+    for ckpt, data in ((last, c2), (seg1.checkpoint_commit, c1)):
+        save, *job_commits = repo.objects.get_commit(data)["parents"]
+        lineage += [ckpt, data, *sorted(job_commits, key=lambda j: -repo.objects.get_commit(j)["timestamp"]), save]
+    if [oid for oid, _ in res.lineage] != lineage or repo.objects.get_commit(lineage[-1])["parents"]:
         fail(f"Repository.log from the step-{end2} checkpoint: {res.lineage}")
+    if (len(sbatched) != 2 * jobs or [r["status"] for r in res.replay] != ["memoized"] * jobs
+            or any(r["slurm_id"] is not None for r in res.replay)):
+        fail(f"{len(sbatched)} sbatch calls for {2 * jobs} simulation jobs; the replay's rows "
+             f"{[(r['status'], r['slurm_id']) for r in res.replay]}")
     flash_per_step = 2 * cfg.n_layers
     if train_launches["flash_attention_fwd"] != flash_per_step * end2 or any(
             n for name, n in train_launches.items() if name != "flash_attention_fwd"):
@@ -1284,10 +1389,13 @@ def campaign_phase(torch, np, configs, serve, kernels: dict, dev, seed: int):
     p50, p95 = float(np.percentile(timed, 50)), float(np.percentile(timed, 95))
     print(f"campaign qwen3_0_6b, {cfg.n_layers} of {configs.get('qwen3_0_6b').n_layers} layers, bf16 weights, fp32 "
           f"moments, remat, B={b} x {s} (launch.campaign.run): data "
-          f"commit 1 {c1[:12]} ({jobs} shards of 65536 tokens), steps 0->{end1}, checkpoint "
-          f"{seg1.checkpoint_commit[:12]}; data commit 2 {c2[:12]} ({2 * jobs} shards), resumed "
+          f"commit 1 {c1[:12]} (octopus merge of {jobs} Slurm jobs, shards of 65536 tokens), steps 0->{end1}, "
+          f"checkpoint {seg1.checkpoint_commit[:12]}; data commit 2 {c2[:12]} ({2 * jobs} shards), resumed "
           f"{seg2.start_step}->{seg2.end_step}, checkpoint {last[:12]} (manifest step {manifest['step']}, "
-          f"data_step {manifest['data_step']}); step p50 {p50:.3f} ms p95 {p95:.3f} ms over each segment's steps "
+          f"data_step {manifest['data_step']}); replay of batch 0: "
+          f"{sum(r['status'] == 'memoized' for r in res.replay)} of {jobs} specs memoized, "
+          f"{len(sbatched)} sbatch calls in all; simulation jobs' runtimes and each batch's span (s) {sim_times}; "
+          f"step p50 {p50:.3f} ms p95 {p95:.3f} ms over each segment's steps "
           f"but its first (all: {[round(x, 3) for x in seg1.step_ms + seg2.step_ms]} ms); "
           f"{b * s / (float(np.mean(timed)) / 1e3):.1f} tokens/s; peak memory "
           f"{peak / 2**30:.3f} GiB; saves {[round(x, 3) for x in seg1.save_s + seg2.save_s]} s; losses "
@@ -1295,7 +1403,160 @@ def campaign_phase(torch, np, configs, serve, kernels: dict, dev, seed: int):
           f"first of each dataset loads its shards); {len(handed)} batches equal to numpy's; whole run {wall:.3f} s; "
           f"launches {train_launches}")
     print("campaign lineage from the last checkpoint: " + "; ".join(f"{o[:12]} {t}" for o, t in res.lineage))
-    return train_launches, end2, serve_launches, serve_res.prefills
+    return train_launches, end2, serve_launches, serve_res.prefills, last
+
+
+def serving_job_specs(repo_root: str, commit: str, n: int, *, full: bool, device: str,
+                      overrides: dict | None) -> list:
+    """Write ``jobs/serve_<k>/slurm.sh`` (``SERVE_JOB`` with seed k) for k < n
+    in the repository at ``repo_root`` and return their specs: each declares
+    ``tokens.npy`` and takes ``PYTHONPATH`` (this checkout's ``src``) and
+    cuBLAS's fixed workspace through its env."""
+    from repro_torch import RunSpec
+
+    specs = []
+    for k in range(n):
+        d = Path(repo_root) / "jobs" / f"serve_{k}"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "slurm.sh").write_text(SERVE_JOB.format(commit=commit, seed=k, device=device, full=full,
+                                                     overrides=overrides, shape=JOB_SERVE))
+        specs.append(RunSpec(script="slurm.sh", outputs=[f"jobs/serve_{k}/tokens.npy"], pwd=f"jobs/serve_{k}",
+                             message=f"serve {commit[:12]} seed {k}",
+                             env={"PYTHONPATH": str(ROOT / "src"), "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}))
+    return specs
+
+
+def committed_bytes(repo, commit: str, path: str) -> bytes:
+    entry = repo.entry_at(commit, path)
+    if entry is None:
+        fail(f"{path} is not in commit {commit[:12]}")
+    return repo.objects.get_blob(entry["oid"]) if entry["t"] == "blob" else repo.annex.read(entry["key"])
+
+
+class ServingJobs:
+    """Phase 35 (see the module docstring) in two steps, so that its jobs run
+    while this process does untimed work: the constructor submits the four
+    serving jobs (phase 27 then plans meanwhile); ``finish`` serves each
+    seed here, finishes the jobs, and resubmits and reschedules job 0."""
+
+    def __init__(self, repo_dir: str, commit: str):
+        import repro_torch
+        from repro_torch.kernels import build
+
+        self.repo_dir, self.commit = repo_dir, commit
+        self.libs = {p: p.stat().st_mtime_ns for p in build.BUILD_DIR.glob("*.so")}
+        self.session = repro_torch.open(repo_dir, max_workers=SERVE_JOBS)
+        atexit.register(self.close)  # also when a later phase fails
+        self.specs = serving_job_specs(repo_dir, commit, SERVE_JOBS, full=True, device="cuda",
+                                       overrides=CAMPAIGN_CUTS)
+        self.ids = self.session.submit_many(self.specs)
+
+    def close(self) -> None:
+        """Stop every job still running (a no-op for the ones that ended) and
+        the local cluster."""
+        if self.session is None:
+            return
+        db = self.session.scheduler.db
+        for row in db.open_jobs():
+            if row["slurm_id"] is not None:
+                self.session.cluster.scancel(row["slurm_id"])
+        self.session.close()
+        self.session = None
+
+    def finish(self, torch, np, serve, dev, smi: str):
+        """Returns (the jobs' launches by wrapper, read from their committed
+        logs, prefills they served)."""
+        import io
+
+        from repro_torch.core.hashing import annex_key_for_bytes
+        from repro_torch.core.records import RunRecord
+        from repro_torch.kernels import build
+
+        s, n, commit, repo_dir = self.session, SERVE_JOBS, self.commit, self.repo_dir
+        # while the jobs run: the tokens each must make, from serve.run here
+        with deterministic(torch):
+            want = [serve.run("qwen3_0_6b", full=True, device=dev, seed=k, repo=repo_dir, commit=commit,
+                              overrides=CAMPAIGN_CUTS, **JOB_SERVE).tokens.cpu().numpy() for k in range(n)]
+        s.wait(self.ids, timeout=600)
+        rows = [s.scheduler.db.get(j) for j in self.ids]
+        runtimes = [s.cluster.job_runtime(r["slurm_id"]) for r in rows]
+        t = time.perf_counter()
+        results = s.finish(octopus=True)
+        finish_s = time.perf_counter() - t
+        if [r.state for r in results] != ["COMPLETED"] * n:
+            logs = [Path(repo_dir) / f"jobs/serve_{k}" / f"log.slurm-{r['slurm_id']}.out" for k, r in enumerate(rows)]
+            fail(f"serving jobs ended {[r.state for r in results]}; logs:\n"
+                 + "\n".join(p.read_text()[-3000:] for p in logs if p.exists()))
+        repo = s.repo
+        merge = repo.head_commit()
+        parents = repo.objects.get_commit(merge)["parents"]
+        by_job = {r.job_id: r.commit for r in results}
+        if len(parents) != n + 1 or sorted(parents[1:]) != sorted(by_job.values()):
+            fail(f"the octopus merge {merge[:12]} has parents {parents}, the jobs committed {by_job}")
+        launches, prefills, intervals, stages = 0, 0, [], []
+        for k, (row, spec) in enumerate(zip(rows, self.specs)):
+            jc = by_job[row["job_id"]]
+            rec = RunRecord.from_message(repo.objects.get_commit(jc)["message"])
+            if s.spec_of(jc).spec_id != spec.spec_id or rec.slurm_job_id != row["slurm_id"]:
+                fail(f"job {k}'s commit {jc[:12]} does not carry its spec and Slurm id: {rec}")
+            got = np.load(io.BytesIO(committed_bytes(repo, merge, f"jobs/serve_{k}/tokens.npy")))
+            if not np.array_equal(got, want[k]):
+                fail(f"job {k}'s tokens differ from serve.run's in this process for seed {k}")
+            log = committed_bytes(repo, merge, f"jobs/serve_{k}/log.slurm-{row['slurm_id']}.out").decode()
+            counts = json.loads(log.strip().splitlines()[-1])
+            if counts["flash_attention_fwd"] != CAMPAIGN_CUTS["n_layers"] * counts["prefills"]:
+                fail(f"job {k} launched flash_attention_fwd {counts['flash_attention_fwd']} times over "
+                     f"{counts['prefills']} prefills")
+            launches += counts["flash_attention_fwd"]
+            prefills += counts["prefills"]
+            stages.append(counts["stages_s"])
+            env = json.loads(committed_bytes(repo, merge, f"jobs/serve_{k}/slurm-job-{row['slurm_id']}.env.json"))
+            if env["State"] != "COMPLETED":
+                fail(f"job {k}'s env.json says {env['State']}")
+            # the cluster has a worker for each job, so each ran from its submission
+            intervals.append((env["SubmitTime"], env["SubmitTime"] + env["Elapsed"][0]))
+        overlap = min(e for _, e in intervals) - max(b for b, _ in intervals)
+        if overlap <= 0:
+            fail(f"the serving jobs' running intervals do not overlap: {intervals}")
+        span = max(e for _, e in intervals) - min(b for b, _ in intervals)
+        # job 0's spec verbatim: the run cache answers it
+        with counting_sbatch() as sbatched:
+            memo = s.scheduler.db.get(s.submit_many([self.specs[0]])[0])
+        if memo["status"] != "memoized" or memo["slurm_id"] is not None or sbatched:
+            fail(f"job 0's spec resubmitted: {memo['status']}, slurm id {memo['slurm_id']}, "
+                 f"{len(sbatched)} sbatch calls")
+        # job 0 rescheduled from its record runs on the card again
+        t = time.perf_counter()
+        with counting_sbatch() as sbatched:
+            again = s.reschedule(commitish=by_job[rows[0]["job_id"]])
+        s.wait(again, timeout=600)
+        rerun, = s.finish()
+        reschedule_s = time.perf_counter() - t
+        if rerun.state != "COMPLETED" or len(sbatched) != 1:
+            fail(f"the reschedule of job 0 ended {rerun.state} after {len(sbatched)} sbatch calls")
+        first = repo.entry_at(merge, "jobs/serve_0/tokens.npy")
+        second = repo.entry_at(rerun.commit, "jobs/serve_0/tokens.npy")
+        first_key = annex_key_for_bytes(committed_bytes(repo, merge, "jobs/serve_0/tokens.npy"))
+        second_key = annex_key_for_bytes(committed_bytes(repo, rerun.commit, "jobs/serve_0/tokens.npy"))
+        if first != second or first_key != second_key:
+            fail(f"job 0's rescheduled tokens.npy is {second} ({second_key}), the first run's {first} ({first_key})")
+        rerun_runtime = s.cluster.job_runtime(s.scheduler.db.get(again[0])["slurm_id"])
+        self.close()
+        rebuilt = [p.name for p, m in self.libs.items() if p.stat().st_mtime_ns != m]
+        if rebuilt or set(build.BUILD_DIR.glob("*.so")) != set(self.libs):
+            fail(f"a serving job rebuilt the kernels: {rebuilt or sorted(p.name for p in build.BUILD_DIR.glob('*.so'))}")
+        print(f"jobs: {n} qwen3_0_6b serving jobs ({CAMPAIGN_CUTS['n_layers']} layers, B={JOB_SERVE['batch']} "
+              f"prompt={JOB_SERVE['prompt_len']} gen={JOB_SERVE['gen']}, from checkpoint {commit[:12]}) in one "
+              f"submit_many on a local cluster of {n} workers, submitted after phase 28's timed serve; submit to "
+              f"completion {span:.3f} s (phase 27 and this process's serves of the {n} seeds ran meanwhile); job "
+              f"runtimes {[round(x, 3) for x in runtimes]} s; running intervals overlap by {overlap:.3f} s; each "
+              f"job's stages (s) {stages}; finish(octopus=True) {finish_s:.3f} s -> {merge[:12]} with "
+              f"{len(parents) - 1} job parents; tokens equal to this process's for seeds 0-{n - 1}; flash launches "
+              f"{launches} over {prefills} prefills (from the committed logs); job 0 resubmitted: memoized, 0 sbatch; "
+              f"rescheduled, alone: {reschedule_s:.3f} s from submission to its finish (job runtime "
+              f"{rerun_runtime:.3f} s), tokens.npy {second} (annex key of its bytes {second_key}) as the first run's; "
+              f"kernels not rebuilt; card: {smi}")
+        return {"flash_attention_fwd": launches, "rwkv6_fwd": 0, "mamba_scan_fwd": 0}, prefills
 
 
 def train_mfu(flops: float, p50_ms: float) -> float:
@@ -2217,20 +2478,30 @@ def main() -> None:
         torch, np, configs, T, all_kernels, dev, args.seed, qwen_res)
     print(f"sharded qwen3 phase {time.perf_counter() - t0:.1f} s")
 
-    # ----------------------------------------------------------- 27. dryrun
-    t0 = phase("dryrun")
-    gc.collect()
-    torch.cuda.empty_cache()
-    dryrun_phase(torch, np, configs, T, all_kernels, dev, args.seed)
-    print(f"dryrun phase {time.perf_counter() - t0:.1f} s")
-
     # --------------------------------------------------------- 28. campaign
     t0 = phase("campaign")
     gc.collect()
     torch.cuda.empty_cache()
-    campaign_train_launches, campaign_steps, campaign_serve_launches, campaign_prefills = campaign_phase(
-        torch, np, configs, serve, all_kernels, dev, args.seed)
-    print(f"campaign phase {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as campaign_dir:
+        campaign_train_launches, campaign_steps, campaign_serve_launches, campaign_prefills, last = (
+            campaign_phase(torch, np, configs, serve, all_kernels, dev, args.seed, campaign_dir))
+        print(f"campaign phase {time.perf_counter() - t0:.1f} s")
+        # phase 35's jobs serve the step-8 checkpoint while phase 27, which times no work on the card, plans
+        jobs = ServingJobs(campaign_dir, last)
+
+        # ------------------------------------------------------- 27. dryrun
+        t0 = phase("dryrun")
+        gc.collect()
+        torch.cuda.empty_cache()
+        dryrun_phase(torch, np, configs, T, all_kernels, dev, args.seed)
+        print(f"dryrun phase {time.perf_counter() - t0:.1f} s")
+
+        # ----------------------------------------- 35. jobs, in phase 28's repository
+        t0 = phase("jobs")
+        gc.collect()
+        torch.cuda.empty_cache()
+        jobs_launches, jobs_prefills = jobs.finish(torch, np, serve, dev, smi)
+        print(f"jobs phase {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------ 29. train rwkv6
     t0 = phase("train rwkv6")
@@ -2290,6 +2561,7 @@ def main() -> None:
             "qwen3_0_6b campaign train": (campaign_train_launches, campaign_steps, "step"),
             "qwen3_0_6b campaign, served from its checkpoint": (campaign_serve_launches, campaign_prefills,
                                                                "prefill"),
+            "qwen3_0_6b Slurm serving jobs": (jobs_launches, jobs_prefills, "prefill"),
             "rwkv6_1_6b train": (rwkv_train_launches, rwkv_train_steps, "step"),
             f"{JAMBA} train, 8 layers, no experts": (jamba_train_launches, jamba_train_steps, "step"),
             **dense}

@@ -7,10 +7,17 @@ a module of the JAX package it keeps its own copy.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; they
 never fall back to the CPU on their own.
+
+``repro_torch.open(root)`` returns a :class:`Session` over a versioned
+repository (the paper's run/rerun and Slurm protocol), as ``repro.open``
+does.
 """
 from __future__ import annotations
 
 import torch
+
+from .core.session import Session, open  # noqa: A004 (module-level `open` is the API)
+from .core.spec import RunSpec, SpecError
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -24,4 +31,4 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "open", "Session", "RunSpec", "SpecError"]

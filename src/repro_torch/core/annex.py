@@ -21,7 +21,7 @@ import os
 from collections.abc import Iterable
 
 from .chunks import ChunkParams, Cutter
-from .files import read_bytes, tmp_name, write_atomic
+from .files import file_blocks, read_bytes, tmp_name, write_atomic
 from .hashing import (
     chunk_key_for_bytes,
     is_chunk_key,
@@ -197,6 +197,18 @@ class AnnexStore:
         if not self.has(key):
             self._publish(key, encode_chunk_manifest(key, chunk_keys, self.chunk_params))
         return key
+
+    def copy_to(self, key: str, dst: str, tmp_dir: str | None = None) -> None:
+        """Publish ``key``'s content at ``dst`` (through a temporary file in
+        ``tmp_dir``): a whole object streamed, a chunked one reassembled
+        with every chunk verified."""
+        path = self._path(key)
+        with open(path, "rb") as f:
+            head = f.read(len(CHUNK_MAGIC) + 1)
+        if head == CHUNK_MAGIC + b"\n" and parse_chunk_manifest(read_bytes(path), key) is not None:
+            write_atomic(dst, self.read(key), tmp_dir=tmp_dir)
+        else:
+            write_atomic(dst, file_blocks(path), tmp_dir=tmp_dir)
 
     def read(self, key: str) -> bytes:
         """The content of ``key``, reassembled if chunked; every chunk and

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import os
 import uuid
-from collections.abc import Iterable
+from collections.abc import Iterable, Iterator
 
 
 def tmp_name(directory: str) -> str:
@@ -35,6 +35,13 @@ def write_atomic(path: str, blocks: bytes | Iterable[bytes], tmp_dir: str | None
             os.unlink(tmp)
         raise
     return n
+
+
+def file_blocks(path: str, block: int = 1 << 20) -> Iterator[bytes]:
+    """A file's bytes in blocks of ``block``, streamed."""
+    with open(path, "rb") as f:
+        while data := f.read(block):
+            yield data
 
 
 def read_bytes(path: str) -> bytes:

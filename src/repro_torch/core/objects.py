@@ -42,6 +42,11 @@ class ObjectStore:
     def _path(self, oid: str) -> str:
         return os.path.join(self.root, oid[:2], oid[2:])
 
+    @staticmethod
+    def oid_for(kind: str, payload: bytes) -> str:
+        """The oid ``put(kind, payload)`` would assign, without writing."""
+        return sha256_bytes(_frame(kind, payload))
+
     def put(self, kind: str, payload: bytes) -> str:
         framed = _frame(kind, payload)
         oid = sha256_bytes(framed)

@@ -154,7 +154,7 @@ def run(arch: str = "qwen3_0_6b", *, batch: int = 8, prompt_len: int = 64, gen: 
         cfg = cfg.replace(**overrides)
     step_restored = None
     if repo:
-        state, manifest = CheckpointManager(Repository(repo)).restore(commit, device=dev)
+        state, manifest = CheckpointManager(Repository(repo))._restore(commit, dev, params_only=True)
         if state is None:
             raise FileNotFoundError(f"no checkpoint commit in {repo}")
         params, step_restored = state["params"], manifest["step"]

@@ -45,8 +45,9 @@ from torch.distributed.tensor import DTensor, distribute_tensor
 from .. import resolve_device
 from ..convert import bf16_tensor_from_bits, tensor_from_numpy
 from ..core.annex import make_pointer
-from ..core.records import RunRecord, command_spec_json
+from ..core.records import RunRecord
 from ..core.repo import Repository
+from ..core.spec import RunSpec
 
 MARKER = "[REPRO CKPT]"
 SUBDIR = "checkpoints"  # the reference's default: step N lives in checkpoints/step_<N:08d>
@@ -227,7 +228,7 @@ class CheckpointManager:
         if MARKER not in msg:
             msg = f"{MARKER} {msg}"
         return self.repo.save(paths=[reldir], message=record.to_message(msg),
-                              spec=command_spec_json(cmd, [reldir]))
+                              spec=RunSpec(cmd=cmd, outputs=[reldir]).to_json())
 
     # ---------------------------------------------------------- restore
     def _walk(self, head: str, seen: set, old_head: str | None):
@@ -303,6 +304,11 @@ class CheckpointManager:
         broadcast from rank 0."""
         if shardings is not None:
             return self._restore_sharded(commitish, device, fetch_workers, _flatten(shardings))
+        return self._restore(commitish, device, fetch_workers)
+
+    def _restore(self, commitish: str | None, device, fetch_workers: int = FETCH_WORKERS, params_only: bool = False):
+        """``restore`` onto one device; ``params_only`` reads the ``params``
+        part of the state alone, as serving does (it needs no moments)."""
         dev = resolve_device(device)
         if commitish is None:
             latest = self.latest()
@@ -315,7 +321,8 @@ class CheckpointManager:
             raise ValueError(f"commit {oid} is not a checkpoint")
         reldir = f"{SUBDIR}/step_{rec.extras['checkpoint_step']:08d}"
         manifest = json.loads(self._tree_bytes(oid, f"{reldir}/manifest.json"))
-        leaves = manifest["leaves"]
+        leaves = {path: meta for path, meta in manifest["leaves"].items()
+                  if not params_only or path.split("/", 1)[0] == "params"}
         # each leaf's annex key; a legacy manifest has none, and then the
         # committed tree entry says where the leaf is (a small one may be a blob)
         jobs: dict[str, tuple] = {}

@@ -10,19 +10,21 @@ package's counterparts and ``examples/surrogate_campaign.py``.
   count of the global batch; the refusals; a branch name and a short oid.
 - ROADMAP §C5: the reference's batch at a fixed commit changes once the
   worktree is rewritten; the port's, read from the commit, does not.
-- The flow across the packages, on one repository: the reference's Session
-  runs the example's ``run_simulation_batch`` (2 Slurm jobs a batch, as
-  local subprocesses) for data commit 1; the port's ``train_on_commits``
-  trains the example's surrogate LM at smoke size on the CPU, and the
-  reference's ``train_segment`` the same on a copy of the repository taken
-  before training: losses within 1e-6. ``train_segment`` initialises bf16
-  weights in both packages, so the test first commits an fp32 step-0 state
-  (the reference's ``CheckpointManager``) that both resume from, and the two
-  run in fp32. A second batch from the reference's Session makes data
-  commit 2 on top of the port's checkpoint, and the port resumes at the
-  phase-1 step; the example's phase 3 then memoises every phase-1 spec with
-  no Slurm submission, and the reference's ``log`` and
-  ``RunRecord.from_message`` read the port's checkpoint commits.
+- The flow on the port's own Slurm protocol: the port's Session runs
+  ``campaign.run_simulation_batch`` (2 Slurm jobs a batch, as local
+  subprocesses, finished in one octopus merge) for data commit 1; the port's
+  ``train_on_commits`` trains the example's surrogate LM at smoke size on
+  the CPU, and the reference's ``train_segment`` the same on a copy of the
+  repository taken before training: losses within 1e-6. ``train_segment``
+  initialises bf16 weights in both packages, so the test first commits an
+  fp32 step-0 state (the reference's ``CheckpointManager``) that both
+  resume from, and the two run in fp32. A second batch makes data commit 2
+  on top of the port's checkpoint, and the port resumes at the phase-1 step;
+  the example's phase 3 then memoises every phase-1 spec with no Slurm
+  submission, and the reference's ``log`` and ``RunRecord.from_message``
+  read the port's checkpoint commits. The reference's Session runs the
+  example's own ``run_simulation_batch`` on a repository of its own, and
+  its data commits hold the port's shard entries (annex keys).
 """
 import importlib.util
 import io
@@ -38,7 +40,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 import repro  # noqa: E402
-from repro import RunSpec  # noqa: E402
+import repro_torch  # noqa: E402
 from repro.core.records import RunRecord as JRunRecord  # noqa: E402
 from repro.core.repo import Repository as JRepository  # noqa: E402
 from repro.data.tokens import RepoTokenDataset as JRepoTokenDataset  # noqa: E402
@@ -202,36 +204,46 @@ def flow(tmp_path_factory):
     ex = _example()
     work = tmp_path_factory.mktemp("campaign")
     root = str(work / "repo")
-    s = repro.open(root, create=True, annex_threshold=4096, max_workers=JOBS)
-    out = {"root": root, "ref_root": str(work / "ref")}
-    try:
-        out["c1"] = ex.run_simulation_batch(s, 0, JOBS)
+    out = {"root": root, "ref_root": str(work / "ref"), "example_root": str(work / "example")}
+    # the example itself, on the reference's Session, on a repository of its own
+    with repro.open(out["example_root"], create=True, annex_threshold=4096, max_workers=JOBS) as js:
+        out["example"] = [ex.run_simulation_batch(js, base, JOBS) for base in (0, 100)]
+    with repro_torch.open(root, create=True, annex_threshold=campaign.ANNEX_THRESHOLD, max_workers=JOBS) as s:
+        out["c1"] = campaign.run_simulation_batch(s, 0, JOBS)
         jcfg = _jax_surrogate()
         params = jax_init_params(JT.param_defs(jcfg), seed=0, dtype=jnp.float32)
         JCheckpointManager(JRepository(root)).save(0, params, JAdamW(lr=LR).init(params), data_step=0)
         shutil.copytree(root, out["ref_root"])
 
         cfg = campaign.surrogate_config(MODEL_DIM, LAYERS)
-        repo = Repository(root)
         kw = dict(seq_len=FLOW_SEQ, global_batch=BATCH, device="cpu")
-        out["seg1"], = campaign.train_on_commits(repo, cfg, [out["c1"]], [P1], **kw)
+        out["seg1"], = campaign.train_on_commits(s.repo, cfg, [out["c1"]], [P1], **kw)
         jrepo = JRepository(out["ref_root"])
         jds = JRepoTokenDataset(jrepo, out["c1"], prefix="campaign", seq_len=FLOW_SEQ, global_batch=BATCH)
         out["jseg1"] = jax_train_segment(jrepo, jcfg, jds, n_steps=P1, ckpt_every=P1, optimizer=JAdamW(lr=LR))
         _, out["jmanifest"] = JCheckpointManager(jrepo).restore()
 
-        out["c2"] = ex.run_simulation_batch(s, 100, JOBS)
-        out["seg2"], = campaign.train_on_commits(repo, cfg, [out["c2"]], [P2], **kw)
+        out["c2"] = campaign.run_simulation_batch(s, 100, JOBS)
+        out["seg2"], = campaign.train_on_commits(s.repo, cfg, [out["c2"]], [P2], **kw)
 
-        replay = [RunSpec(script="slurm.sh", outputs=[f"campaign/batch_0/{t}/shard.npy"],
-                          pwd=f"campaign/batch_0/{t}", message=f"simulation 0+{t}") for t in range(JOBS)]
-        ids = s.submit_many(replay)
+        ids = s.submit_many(campaign.simulation_specs(0, JOBS))
         out["replay_rows"] = [s.scheduler.db.get(j) for j in ids]
-        head = s.repo.head_commit()
-        out["replay_head"] = JRunRecord.from_message(s.repo.objects.get_commit(head)["message"])
-        out["ref_log"] = list(s.repo.log())
-    finally:
-        s.close()
+    head = JRepository(root).head_commit()
+    out["replay_head"] = JRunRecord.from_message(JRepository(root).objects.get_commit(head)["message"])
+    out["ref_log"] = list(JRepository(root).log())
+    return out
+
+
+def _expected_log(repo, checkpoints: list[str], data_commits: list[str]) -> list[str]:
+    """What ``Repository.log`` walks from the last checkpoint, newest first:
+    each checkpoint, then the data commit it trained on, that octopus
+    merge's job commits (newest first) and the scripts' save it merged them
+    onto; the oldest save has no parent."""
+    out = []
+    for ckpt, data in zip(reversed(checkpoints), reversed(data_commits)):
+        save, *jobs = repo.objects.get_commit(data)["parents"]
+        out += [ckpt, data, *sorted(jobs, key=lambda j: -repo.objects.get_commit(j)["timestamp"]), save]
+    assert repo.objects.get_commit(out[-1])["parents"] == []
     return out
 
 
@@ -252,10 +264,12 @@ def test_port_resumes_on_the_second_data_commit(flow):
     assert [s for _, s in ckpt.checkpoints()] == [P2, P1, 0]
     ds = RepoTokenDataset(Repository(flow["root"]), flow["c2"], prefix="campaign", seq_len=FLOW_SEQ)
     assert len(ds.files) == 2 * JOBS
-    lineage = [oid for oid, _ in Repository(flow["root"]).log(seg.checkpoint_commit)]
-    order = [seg.checkpoint_commit, flow["c2"], flow["seg1"].checkpoint_commit, flow["c1"]]
-    assert all(o in lineage for o in order) and [lineage.index(o) for o in order] == sorted(
-        lineage.index(o) for o in order)
+    repo = Repository(flow["root"])
+    lineage = [oid for oid, _ in repo.log(seg.checkpoint_commit)]
+    expected = _expected_log(repo, [flow["seg1"].checkpoint_commit, seg.checkpoint_commit], [flow["c1"], flow["c2"]])
+    # the fp32 step-0 checkpoint both packages resume from lies between data commit 1 and segment 1's
+    step0 = next(oid for oid, _ in ckpt.checkpoints() if oid not in expected)
+    assert lineage == expected[:-JOBS - 2] + [step0] + expected[-JOBS - 2:]
 
 
 def test_run_cache_memoizes_the_replay_after_the_port_commits(flow):
@@ -282,15 +296,17 @@ def test_tree_of_and_log_match_reference_across_packages(flow):
     assert _same_trees_and_logs(flow["ref_root"]) > 0
 
 
-def test_commit_shards_writes_the_simulation_jobs_bytes(flow, tmp_path):
-    """The port's in-process shards have the annex keys of the example's
-    Slurm jobs' outputs."""
-    repo = Repository.init(str(tmp_path / "p"))
-    commit = campaign.commit_shards(repo, 0, JOBS)
-    jrepo = JRepository(flow["root"])
-    for t in range(JOBS):
-        rel = f"campaign/batch_0/{t}/shard.npy"
-        assert repo.entry_at(commit, rel) == jrepo.entry_at(flow["c1"], rel)
+def test_scheduled_shards_have_the_example_jobs_annex_keys(flow):
+    """Each data commit of the port's scheduled jobs holds the shard entries
+    (annex keys) of the example's jobs on the reference's Session, and both
+    are octopus merges of the batch's job commits."""
+    repo, jrepo = Repository(flow["root"]), JRepository(flow["example_root"])
+    for mine, theirs, base in zip((flow["c1"], flow["c2"]), flow["example"], (0, 100)):
+        for t in range(JOBS):
+            rel = f"campaign/batch_{base}/{t}/shard.npy"
+            assert repo.entry_at(mine, rel) == jrepo.entry_at(theirs, rel) and repo.entry_at(mine, rel)["t"] == "annex"
+        assert len(repo.objects.get_commit(mine)["parents"]) == len(jrepo.objects.get_commit(theirs)["parents"]) == (
+            JOBS + 1)
 
 
 def test_campaign_command_line(tmp_path, capsys):
@@ -298,9 +314,12 @@ def test_campaign_command_line(tmp_path, capsys):
     res = campaign.main(["--repo", root, "--device", "cpu", "--sim-jobs", "1", "--steps", "2",
                          "--model-dim", "64", "--layers", "1", "--seq-len", "64"])
     assert [s.start_step for s in res.segments] == [0, 1] and [s.end_step for s in res.segments] == [1, 2]
-    oids = [oid for oid, _ in res.lineage]
-    assert oids == [res.segments[1].checkpoint_commit, res.data_commits[1], res.segments[0].checkpoint_commit,
-                    res.data_commits[0]]
-    assert "provenance (newest first)" in capsys.readouterr().out
+    repo = Repository(root)
+    assert [oid for oid, _ in res.lineage] == _expected_log(repo, [s.checkpoint_commit for s in res.segments],
+                                                            res.data_commits)
+    assert [len(repo.objects.get_commit(c)["parents"]) for c in res.data_commits] == [2, 2]  # one job each
+    assert [(r["status"], r["slurm_id"]) for r in res.replay] == [("memoized", None)]
+    out = capsys.readouterr().out
+    assert "provenance (newest first)" in out and "replay of batch 0: 1 of 1 specs memoized" in out
     with pytest.raises(ValueError, match="shards' tokens lie below 4096"):
         campaign.run("qwen3_0_6b", repo=str(tmp_path / "smoke"), device="cpu")

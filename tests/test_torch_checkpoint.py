@@ -122,6 +122,24 @@ def test_port_checkpoint_restores_in_jax_with_the_same_keys_and_subtree(tmp_path
     assert commit["message"].replace(repo.dsid, "") == jcommit["message"].replace(jrepo.dsid, "")
 
 
+def test_a_subtree_restore_reads_only_that_part_of_a_jax_checkpoint(tmp_path, monkeypatch):
+    """Serving restores ``params`` alone (``serve.run``'s params-only
+    restore): the same tensors as the whole restore's, and no leaf of the
+    moments is read."""
+    params, opt_state = _jax_state(jnp.float32)
+    oid = JCheckpointManager(JRepository.init(str(tmp_path))).save(1, params, opt_state)
+    ckpt = CheckpointManager(Repository(str(tmp_path)))
+    read = []
+    plain_read = ckpt.repo.annex.read
+    monkeypatch.setattr(ckpt.repo.annex, "read", lambda key: read.append(key) or plain_read(key))
+    state, manifest = ckpt._restore(oid, "cpu", params_only=True)
+    assert list(state) == ["params"] and manifest["step"] == 1
+    _assert_bit_equal(state, {"params": params})
+    params_keys = [m["key"] for p, m in manifest["leaves"].items() if p.startswith("params/")]
+    assert sorted(read) == sorted(params_keys)  # one read a params leaf (identical leaves share a key)
+    assert len(params_keys) < len(manifest["leaves"])
+
+
 def test_port_repository_opens_in_jax(tmp_path):
     repo = Repository.init(str(tmp_path), chunk_threshold=1 << 20)
     jrepo = JRepository(str(tmp_path))
