@@ -285,7 +285,47 @@ Phases; any failure exits non-zero before the result lines are printed.
                     on the card again, alone, and commit the same tokens.npy
                     entry. No job may rebuild the kernels. Prints
                     submit-to-completion seconds, each job's runtime and
-                    stages, and the finish and reschedule seconds.
+                    stages, and the finish and reschedule seconds. Its local
+                    cluster numbers its jobs after the highest Slurm id in
+                    the job database (``local_cluster``), so every record
+                    names a Slurm id of its own.
+ 36. pipeline     — in phase 28's repository, after phase 35: one
+                    ``repro_torch.Pipeline`` of three stages whose edges it
+                    infers (prompts -> serve -> score; a local cluster
+                    numbering after phase 35's ids). ``prompts`` (CPU) writes
+                    pipe/prompts.npy, B=8 x 64 token ids from numpy's seeded
+                    generator; ``serve`` (the card) restores the step-8
+                    checkpoint (qwen3 as phase 28 cuts it) and greedily
+                    decodes 16 tokens from those prompts through
+                    ``make_prefill_step``/``make_decode_step``/
+                    ``greedy_token``, deterministic, into
+                    pipe/serve/tokens.npy, logging its flash launches;
+                    ``score`` (CPU) reads pipe/serve/*.npy and writes
+                    pipe/score.json (the tokens' sha256 and counts by
+                    position). First ``run_pipeline(close_failed_jobs=True)``
+                    with a serve script that exits 1 before python starts:
+                    Slurm's afterok cascade must cancel ``score`` unstarted,
+                    ``prompts`` must be committed, serve closed-failed and
+                    score cancelled-dependency, both outputs released. The
+                    fixed script is saved and the same pipeline run again
+                    with ``finish=False``: prompts memoized with no sbatch,
+                    serve then score run (score starts after serve ends),
+                    ``job_deps`` names serve as score's parent. That finish
+                    runs in a session with ``FaultPlan(crash_at=
+                    {"finish:after-publish": 1})`` and must die with
+                    ``CrashInjected``; a fresh session's ``recover()`` must
+                    report 1 lock broken, 1 journal replayed, 1 commit
+                    published again and 1 job finished again, ``verify()``
+                    no divergence, every Slurm id's record must be published
+                    once over all refs, and a second ``recover()`` must
+                    replay nothing. The committed tokens.npy must equal this
+                    process's greedy decode of the committed prompts through
+                    the same functions, bit for bit, score.json this
+                    process's score of them, and the serve job's committed
+                    log 2 flash launches for its one prefill. Prints each
+                    stage's submit-to-result and runtime, the finishes, the
+                    recover and verify seconds and report, the killed
+                    finish's journal bytes and lines, and the launches.
 Phases 3, 4 and 9 also run one backward through each kernel op
 (``ops.flash_attention``, ``ops.rwkv6``, ``ops.mamba_scan``) at a small fp32
 shape and hold its gradients against the plain version's autograd.
@@ -421,6 +461,73 @@ t.append(time.perf_counter())
 np.save("tokens.npy", res.tokens.cpu().numpy())
 stages = dict(zip(("import torch", "serving imports", "device start", "serve.run"), np.diff(t).round(3).tolist()))
 print(json.dumps(dict(prefills=res.prefills, flash_attention_fwd=flash_attention_fwd.launches, stages_s=stages)))
+EOF
+"""
+PIPE = dict(batch=8, prompt_len=64, gen=16)  # phase 36: the prompts stage's batch, the tokens serve decodes
+# phase 36's three stages, run by the local cluster in pipe/ (prompts, score) and pipe/serve/ (serve) of a
+# repository that holds a checkpoint commit. PIPE_PROMPTS is formatted with the seed, the vocabulary and
+# PIPE's shape; PIPE_SERVE with ``broken`` (a first line, or ""), the commit, device, full, overrides and gen.
+PIPE_PROMPTS = """#!/bin/bash
+# the pipeline's prompts: token ids from numpy's seeded generator, below the vocabulary
+python3 - <<'EOF'
+import numpy as np
+np.save("prompts.npy", np.random.default_rng({seed}).integers(0, {vocab}, size=({batch}, {prompt_len})))
+EOF
+"""
+PIPE_SERVE = """#!/bin/bash
+# greedy-decode the pipeline's prompts from a checkpoint commit of this repository; keep the tokens, log the
+# flash launches
+{broken}python3 - <<'EOF'
+import json
+import time
+t = [time.perf_counter()]
+import numpy as np
+import torch
+t.append(time.perf_counter())
+from repro_torch import configs
+from repro_torch.core.repo import Repository
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.train.checkpoint import CheckpointManager
+from repro_torch.train.steps import greedy_token, make_decode_step, make_prefill_step
+t.append(time.perf_counter())
+dev = torch.device("{device}")
+torch.zeros(1, device=dev)
+t.append(time.perf_counter())
+torch.use_deterministic_algorithms(True)
+cfg = (configs.get if {full} else configs.get_smoke)("qwen3_0_6b").replace(**{overrides!r})
+params = CheckpointManager(Repository("../.."))._restore("{commit}", dev, params_only=True)[0]["params"]
+prompts = torch.from_numpy(np.load("../prompts.npy")).to(dev)
+prefill = make_prefill_step(cfg, cache_len=prompts.shape[1] + {gen})
+decode = make_decode_step(cfg)
+caches, logits = prefill(params, dict(tokens=prompts))
+tok = greedy_token(cfg, logits)
+out = [tok]
+for i in range({gen} - 1):
+    logits, caches = decode(params, caches, tok, prompts.shape[1] + i)
+    tok = greedy_token(cfg, logits)
+    out.append(tok)
+np.save("tokens.npy", torch.cat(out, dim=1).cpu().numpy())
+t.append(time.perf_counter())
+stages = dict(zip(("import torch", "serving imports", "device start", "restore and decode"),
+                  np.diff(t).round(3).tolist()))
+print(json.dumps(dict(prefills=1, flash_attention_fwd=flash_attention_fwd.launches, stages_s=stages,
+                      end=time.time())))
+EOF
+"""
+PIPE_SCORE = """#!/bin/bash
+# score the served tokens: their sha256 and their counts by position
+python3 - <<'EOF'
+import hashlib
+import json
+import time
+start = time.time()
+import numpy as np
+tokens = np.load("serve/tokens.npy")
+counts = [dict((str(int(v)), int(c)) for v, c in zip(*np.unique(col, return_counts=True))) for col in tokens.T]
+with open("score.json", "w") as f:
+    json.dump(dict(sha256=hashlib.sha256(tokens.tobytes()).hexdigest(), shape=list(tokens.shape),
+                   counts_by_position=counts), f, sort_keys=True)
+print(json.dumps(dict(start=start)))
 EOF
 """
 TRAIN_LR = 1e-3  # the fixed-batch check: constant rate, AdamW's other defaults
@@ -1257,6 +1364,19 @@ def dryrun_phase(torch, np, configs, T, kernels: dict, dev, seed: int):
     return held
 
 
+def local_cluster(repo_dir: str, workers: int):
+    """A local Slurm cluster for jobs in ``repo_dir``, numbering after the
+    Slurm ids its job database holds: every ``LocalSlurmCluster`` starts at
+    the same id, and ``verify()`` counts two jobs with one Slurm id as a
+    duplicate record."""
+    from repro_torch.core.jobdb import JobDB
+    from repro_torch.core.repo import REPRO_DIR
+    from repro_torch.core.slurm import LocalSlurmCluster
+
+    ids = [j["slurm_id"] for j in JobDB(os.path.join(repo_dir, REPRO_DIR)).all_jobs() if j["slurm_id"] is not None]
+    return LocalSlurmCluster(max_workers=workers, **({"first_job_id": max(ids) + 1} if ids else {}))
+
+
 @contextmanager
 def counting_sbatch():
     """Count ``LocalSlurmCluster.sbatch`` calls (the list of their work
@@ -1445,7 +1565,7 @@ class ServingJobs:
 
         self.repo_dir, self.commit = repo_dir, commit
         self.libs = {p: p.stat().st_mtime_ns for p in build.BUILD_DIR.glob("*.so")}
-        self.session = repro_torch.open(repo_dir, max_workers=SERVE_JOBS)
+        self.session = repro_torch.open(repo_dir, cluster=local_cluster(repo_dir, SERVE_JOBS))
         atexit.register(self.close)  # also when a later phase fails
         self.specs = serving_job_specs(repo_dir, commit, SERVE_JOBS, full=True, device="cuda",
                                        overrides=CAMPAIGN_CUTS)
@@ -1460,7 +1580,7 @@ class ServingJobs:
         for row in db.open_jobs():
             if row["slurm_id"] is not None:
                 self.session.cluster.scancel(row["slurm_id"])
-        self.session.close()
+        self.session.cluster.shutdown()
         self.session = None
 
     def finish(self, torch, np, serve, dev, smi: str):
@@ -1557,6 +1677,221 @@ class ServingJobs:
               f"{rerun_runtime:.3f} s), tokens.npy {second} (annex key of its bytes {second_key}) as the first run's; "
               f"kernels not rebuilt; card: {smi}")
         return {"flash_attention_fwd": launches, "rwkv6_fwd": 0, "mamba_scan_fwd": 0}, prefills
+
+
+def pipeline_stages(repo_root: str, commit: str, *, vocab: int, seed: int, full: bool, device: str,
+                    overrides: dict | None, broken: bool):
+    """Write phase 36's scripts under ``pipe/`` of the repository at
+    ``repo_root`` (the serve script exits 1 first with ``broken``) and return
+    its ``repro_torch.Pipeline``, whose edges the pipeline infers. Each stage
+    declares its script as an input and takes ``PYTHONPATH`` (this
+    checkout's ``src``) and cuBLAS's fixed workspace through its env."""
+    from repro_torch import Pipeline, RunSpec
+
+    d = Path(repo_root) / "pipe"
+    (d / "serve").mkdir(parents=True, exist_ok=True)
+    (d / "prompts.sh").write_text(PIPE_PROMPTS.format(seed=seed, vocab=vocab, batch=PIPE["batch"],
+                                                      prompt_len=PIPE["prompt_len"]))
+    (d / "serve" / "slurm.sh").write_text(PIPE_SERVE.format(
+        broken="exit 1  # broken on purpose\n" if broken else "", commit=commit, device=device, full=full,
+        overrides=overrides or {}, gen=PIPE["gen"]))
+    (d / "score.sh").write_text(PIPE_SCORE)
+    env = {"PYTHONPATH": str(ROOT / "src"), "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    return Pipeline({
+        "prompts": RunSpec(script="prompts.sh", pwd="pipe", inputs=["pipe/prompts.sh"],
+                           outputs=["pipe/prompts.npy"], env=env, message="pipeline prompts"),
+        "serve": RunSpec(script="slurm.sh", pwd="pipe/serve", inputs=["pipe/serve/slurm.sh", "pipe/prompts.npy"],
+                         outputs=["pipe/serve/tokens.npy"], env=env, message=f"serve {commit[:12]} on the prompts"),
+        "score": RunSpec(script="score.sh", pwd="pipe", inputs=["pipe/score.sh", "pipe/serve/*.npy"],
+                         outputs=["pipe/score.json"], env=env, message="score the served tokens"),
+    })
+
+
+def pipeline_greedy(torch, cfg, params: dict, prompts, gen: int):
+    """Greedy-decode ``gen`` tokens from ``prompts`` through the functions
+    ``serve.run`` uses, as phase 36's serve stage does: [B, gen]."""
+    from repro_torch.train.steps import greedy_token, make_decode_step, make_prefill_step
+
+    prefill = make_prefill_step(cfg, cache_len=prompts.shape[1] + gen)
+    decode = make_decode_step(cfg)
+    caches, logits = prefill(params, {"tokens": prompts})
+    tok = greedy_token(cfg, logits)
+    out = [tok]
+    for i in range(gen - 1):
+        logits, caches = decode(params, caches, tok, prompts.shape[1] + i)
+        tok = greedy_token(cfg, logits)
+        out.append(tok)
+    return torch.cat(out, dim=1)
+
+
+def pipeline_score(np, tokens) -> dict:
+    """What phase 36's score stage writes for ``tokens``."""
+    import hashlib
+
+    tokens = np.ascontiguousarray(tokens)
+    counts = [{str(int(v)): int(c) for v, c in zip(*np.unique(col, return_counts=True))} for col in tokens.T]
+    return {"sha256": hashlib.sha256(tokens.tobytes()).hexdigest(), "shape": list(tokens.shape),
+            "counts_by_position": counts}
+
+
+def slurm_record_counts(repo) -> dict:
+    """{slurm id: commits publishing its record} over every ref."""
+    from repro_torch.core.records import RunRecord
+
+    counts: dict[int, int] = {}
+    seen: set[str] = set()
+    for b in repo.branches():
+        frontier = [repo.branch_head(b)]
+        while frontier:
+            oid = frontier.pop()
+            if oid is None or oid in seen:
+                continue
+            seen.add(oid)
+            c = repo.objects.get_commit(oid)
+            rec = RunRecord.from_message(c.get("message", ""))
+            if rec is not None and rec.slurm_job_id is not None:
+                counts[rec.slurm_job_id] = counts.get(rec.slurm_job_id, 0) + 1
+            frontier.extend(c.get("parents", []))
+    return counts
+
+
+def pipeline_phase(torch, np, configs, repo_dir: str, commit: str, seed: int, *, full: bool, device: str,
+                   overrides: dict | None, smi: str):
+    """Phase 36 (see the module docstring) in the repository ``repo_dir``
+    that holds the checkpoint ``commit``. Returns (the serve stage's
+    launches by wrapper, read from its committed log, prefills it served)."""
+    import io
+
+    import repro_torch
+    from repro_torch.core.faults import CrashInjected
+    from repro_torch.core.recovery import list_journals
+    from repro_torch.core.repo import Repository
+    from repro_torch.core.slurm import CANCELLED, COMPLETED, LocalSlurmCluster
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    cfg = (configs.get if full else configs.get_smoke)("qwen3_0_6b").replace(**(overrides or {}))
+    kw = dict(vocab=cfg.vocab_size, seed=seed, full=full, device=device, overrides=overrides)
+    pipeline = pipeline_stages(repo_dir, commit, broken=True, **kw)
+    if pipeline.levels() != [["prompts"], ["serve"], ["score"]]:
+        fail(f"the pipeline inferred levels {pipeline.levels()} from edges {pipeline.edges()}")
+    cluster = local_cluster(repo_dir, 2)
+    sessions = []
+
+    def session(**kw):
+        sessions.append(repro_torch.open(repo_dir, cluster=cluster, **kw))
+        return sessions[-1]
+
+    try:
+        s = session()
+        db = s.scheduler.db
+        # 1. the serve stage fails: Slurm cancels score, the finish closes both
+        t = time.perf_counter()
+        out = s.run_pipeline(pipeline, close_failed_jobs=True, timeout=600)
+        first_s = time.perf_counter() - t
+        rows = {n: db.get(j) for n, j in out["jobs"].items()}
+        status = {n: r["status"] for n, r in rows.items()}
+        cancelled = rows["score"]["slurm_id"]
+        if (status != {"prompts": "finished", "serve": "closed-failed", "score": "cancelled-dependency"}
+                or cluster.sacct(cancelled) != CANCELLED or cluster.job_runtime(cancelled) is not None
+                or (Path(repo_dir) / f"pipe/log.slurm-{cancelled}.out").exists()):
+            fail(f"the failed pipeline ended {status}, score's Slurm state {cluster.sacct(cancelled)}")
+        db.check_outputs(["pipe/serve/tokens.npy", "pipe/score.json"])  # their protection was released
+        # what the serve stage must make, from the committed prompts, here
+        prompts = np.load(Path(repo_dir) / "pipe/prompts.npy")
+        params = CheckpointManager(Repository(repo_dir))._restore(commit, device, params_only=True)[0]["params"]
+        with deterministic(torch):
+            want = pipeline_greedy(torch, cfg, params, torch.from_numpy(prompts).to(device), PIPE["gen"])
+        want = want.cpu().numpy()
+        del params
+        # 2. the fixed script, saved; the same pipeline again, not finished
+        pipeline_stages(repo_dir, commit, broken=False, **kw)
+        s.save(paths=["pipe/serve/slurm.sh"], message="fix the pipeline's serve stage")
+        with counting_sbatch() as sbatched:
+            t_submit = time.time()
+            out = s.run_pipeline(pipeline, finish=False, timeout=600)
+            replay_s = time.time() - t_submit
+        rows = {n: db.get(j) for n, j in out["jobs"].items()}
+        score_parents = [p["stage"] for p in db.parents_of(rows["score"]["job_id"])]
+        if (rows["prompts"]["status"] != "memoized" or rows["prompts"]["slurm_id"] is not None
+                or len(sbatched) != 2 or score_parents != ["serve"]):
+            fail(f"the replay: prompts {rows['prompts']['status']}, {len(sbatched)} sbatch calls, score's "
+                 f"parents {score_parents}")
+        serve_slurm, score_slurm = rows["serve"]["slurm_id"], rows["score"]["slurm_id"]
+        logs = {n: Path(repo_dir) / d / f"log.slurm-{rows[n]['slurm_id']}.out"
+                for n, d in (("serve", "pipe/serve"), ("score", "pipe"))}
+        if [cluster.sacct(serve_slurm), cluster.sacct(score_slurm)] != [COMPLETED] * 2:
+            fail(f"the replay's jobs ended {cluster.sacct(serve_slurm)}, {cluster.sacct(score_slurm)}; logs:\n"
+                 + "\n".join(p.read_text()[-3000:] for p in logs.values() if p.exists()))
+        serve_log = json.loads(logs["serve"].read_text().strip().splitlines()[-1])
+        score_start = json.loads(logs["score"].read_text().strip().splitlines()[-1])["start"]
+        if score_start < serve_log["end"]:
+            fail(f"score started {serve_log['end'] - score_start:.3f} s before serve ended")
+        runtimes = {n: cluster.job_runtime(rows[n]["slurm_id"]) for n in ("serve", "score")}
+        # 3. the finish is killed after its first publication, then recovered
+        t = time.perf_counter()
+        try:
+            session(faults=repro_torch.FaultPlan(crash_at={"finish:after-publish": 1})).finish()
+        except CrashInjected:
+            killed_s = time.perf_counter() - t
+        else:
+            fail("the finish with crash point finish:after-publish did not crash")
+        journals = list_journals(str(Path(repo_dir) / ".repro"))
+        if len(journals) != 1 or not (Path(repo_dir) / ".repro/locks/refs.lock").exists():
+            fail(f"the killed finish left journals {journals} and no refs lock")
+        journal = Path(journals[0]).read_bytes()
+        s2 = session()
+        t = time.perf_counter()
+        report = s2.recover()
+        recover_s = time.perf_counter() - t
+        t = time.perf_counter()
+        check = s2.verify()
+        verify_s = time.perf_counter() - t
+        done = {k: v for k, v in report.items() if v}
+        if done != {"locks_broken": 1, "journals_replayed": 1, "commits_republished": 1, "jobs_refinished": 1}:
+            fail(f"recover() reported {report}")
+        counts = slurm_record_counts(s2.repo)
+        if check["divergence"] or any(n != 1 for n in counts.values()) or not {serve_slurm, score_slurm} <= set(counts):
+            fail(f"after recovery: verify {check['issues']}, records by Slurm id {counts}")
+        again = s2.recover()
+        if again["journals_replayed"] or again["jobs_refinished"]:
+            fail(f"a second recover() did work: {again}")
+        statuses = {n: s2.scheduler.db.get(rows[n]["job_id"])["status"] for n in rows}
+        if statuses != {"prompts": "memoized", "serve": "finished", "score": "finished"}:
+            fail(f"after recovery the rows are {statuses}")
+        # 4. the results, as committed
+        repo = s2.repo
+        head = repo.head_commit()
+        got = np.load(io.BytesIO(committed_bytes(repo, head, "pipe/serve/tokens.npy")))
+        if got.shape != (PIPE["batch"], PIPE["gen"]) or not np.array_equal(got, want):
+            fail("the serve stage's committed tokens differ from this process's greedy decode of the prompts")
+        score = json.loads(committed_bytes(repo, head, "pipe/score.json"))
+        if score != pipeline_score(np, want):
+            fail(f"the committed score.json differs from this process's: {score}")
+        log = committed_bytes(repo, head, f"pipe/serve/log.slurm-{serve_slurm}.out").decode()
+        served = json.loads(log.strip().splitlines()[-1])
+        per_prefill = cfg.n_layers if device == "cuda" else 0  # the CPU runs the plain version
+        if served["flash_attention_fwd"] != per_prefill * served["prefills"]:
+            fail(f"the serve stage launched flash_attention_fwd {served['flash_attention_fwd']} times over "
+                 f"{served['prefills']} prefills")
+    finally:
+        for sess in sessions:
+            sess.close()
+        cluster.shutdown()
+    print(f"pipeline: prompts -> serve -> score (qwen3_0_6b, {cfg.n_layers} layers, B={PIPE['batch']} "
+          f"prompt={PIPE['prompt_len']} gen={PIPE['gen']}, checkpoint {commit[:12]}), edges {pipeline.edges()}; "
+          f"first run with a failing serve script: run_pipeline(close_failed_jobs=True) {first_s:.3f} s, score "
+          f"cancelled by the afterok cascade unstarted; replay run_pipeline(finish=False) {replay_s:.3f} s from "
+          f"submission to both jobs' end, prompts memoized, {len(sbatched)} sbatch calls; submit to result: serve "
+          f"{serve_log['end'] - t_submit:.3f} s, score {score_start + runtimes['score'] - t_submit:.3f} s; "
+          f"runtimes (s) serve {runtimes['serve']:.3f}, score {runtimes['score']:.3f}; score started "
+          f"{score_start - serve_log['end']:.3f} s after serve ended; serve stages (s) {serve_log['stages_s']}; "
+          f"finish killed at finish:after-publish after {killed_s:.3f} s, its journal {len(journal)} bytes in "
+          f"{journal.count(b'\n')} lines; recover() {recover_s:.3f} s -> {done}; verify() {verify_s:.3f} s, "
+          f"divergence {check['divergence']}, {check['checked_commits']} commits, every one of {len(counts)} Slurm "
+          f"ids recorded once; tokens and score.json equal to this process's; serve's flash launches "
+          f"{served['flash_attention_fwd']} over {served['prefills']} prefill; card: {smi}")
+    return {"flash_attention_fwd": served["flash_attention_fwd"], "rwkv6_fwd": 0, "mamba_scan_fwd": 0}, \
+        served["prefills"]
 
 
 def train_mfu(flops: float, p50_ms: float) -> float:
@@ -2503,6 +2838,14 @@ def main() -> None:
         jobs_launches, jobs_prefills = jobs.finish(torch, np, serve, dev, smi)
         print(f"jobs phase {time.perf_counter() - t0:.1f} s")
 
+        # -------------------------------------- 36. pipeline, in phase 28's repository
+        t0 = phase("pipeline")
+        gc.collect()
+        torch.cuda.empty_cache()
+        pipe_launches, pipe_prefills = pipeline_phase(torch, np, configs, campaign_dir, last, args.seed, full=True,
+                                                      device="cuda", overrides=CAMPAIGN_CUTS, smi=smi)
+        print(f"pipeline phase {time.perf_counter() - t0:.1f} s")
+
     # ------------------------------------------------------ 29. train rwkv6
     t0 = phase("train rwkv6")
     gc.collect()
@@ -2562,6 +2905,7 @@ def main() -> None:
             "qwen3_0_6b campaign, served from its checkpoint": (campaign_serve_launches, campaign_prefills,
                                                                "prefill"),
             "qwen3_0_6b Slurm serving jobs": (jobs_launches, jobs_prefills, "prefill"),
+            "qwen3_0_6b pipeline serve stage": (pipe_launches, pipe_prefills, "prefill"),
             "rwkv6_1_6b train": (rwkv_train_launches, rwkv_train_steps, "step"),
             f"{JAMBA} train, 8 layers, no experts": (jamba_train_launches, jamba_train_steps, "step"),
             **dense}

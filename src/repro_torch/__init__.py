@@ -9,13 +9,15 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; they
 never fall back to the CPU on their own.
 
 ``repro_torch.open(root)`` returns a :class:`Session` over a versioned
-repository (the paper's run/rerun and Slurm protocol), as ``repro.open``
-does.
+repository (the paper's run/rerun and Slurm protocol, pipelines of jobs and
+crash recovery), as ``repro.open`` does.
 """
 from __future__ import annotations
 
 import torch
 
+from .core.dag import Pipeline, PipelineError
+from .core.faults import FaultPlan, FaultRule
 from .core.session import Session, open  # noqa: A004 (module-level `open` is the API)
 from .core.spec import RunSpec, SpecError
 
@@ -31,4 +33,5 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device", "open", "Session", "RunSpec", "SpecError"]
+__all__ = ["resolve_device", "open", "Session", "RunSpec", "SpecError", "Pipeline", "PipelineError", "FaultPlan",
+           "FaultRule"]

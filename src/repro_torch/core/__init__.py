@@ -13,14 +13,18 @@
   jobdb.py     — the sqlite job database of §5.3,
   runcache.py  — execution keys of the §11 run cache,
   slurm.py     — the Slurm interface and a local cluster of subprocesses,
-  scheduler.py — submit / finish / reschedule,
+  dag.py       — ``Pipeline``, a DAG of specs with inferred edges (§14),
+  faults.py    — fault plans, crash points and incarnation tokens (§10),
+  recovery.py  — intent journals, ``recover`` and ``verify`` (§10),
+  scheduler.py — submit / finish / reschedule / submit_pipeline,
   session.py   — ``Session`` and ``open``, the entry point.
 
-Every on-disk format is the reference's byte for byte, so a repository and
-a job database that either package wrote open in the other. What the
-reference adds around it is not here: the DAG layer, recovery journals and
-fault injection, remote annex tiers, pack writing and gc, clone and
-checkout, and the parallel-filesystem cost model (ROADMAP.md §A item 2).
-Files are read and written with plain ``open``, and whatever a reader may
-see is published by writing a temporary file and renaming it into place.
+Every on-disk format is the reference's byte for byte, so a repository, a
+job database and an intent journal that either package wrote open (and
+recover) in the other. What the reference adds around it is not here:
+remote annex tiers, pack writing and gc, clone and checkout, and the
+parallel-filesystem cost model with its filesystem fault rules (ROADMAP.md
+§A items 2.3-2.6). Files are read and written with plain ``open``, and
+whatever a reader may see is published by writing a temporary file and
+renaming it into place.
 """

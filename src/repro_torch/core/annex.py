@@ -12,6 +12,11 @@ cut by :mod:`.chunks`) whose concatenation is the content. Chunks are
 published first, the manifest last, so an interrupted ingest leaves only
 unreferenced chunks. ``read`` verifies every chunk and the whole content
 against their keys.
+
+Crash points (:mod:`.faults`): ``chunk:mid-publish`` after the first chunk a
+chunked ingest publishes, ``chunk:before-manifest`` before its manifest.
+Temporary files carry the writer's incarnation token; a killed writer's are
+left for ``Repository.sweep_stale_tmps``.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import os
 from collections.abc import Iterable
 
 from .chunks import ChunkParams, Cutter
+from .faults import ensure_live, is_crash
 from .files import file_blocks, read_bytes, tmp_name, write_atomic
 from .hashing import (
     chunk_key_for_bytes,
@@ -86,10 +92,16 @@ class AnnexStore:
     """The local key/value store of annexed content."""
 
     def __init__(self, root: str, chunk_params: ChunkParams | None = None,
-                 chunk_threshold: int | None = None):
+                 chunk_threshold: int | None = None, token: str | None = None, faults=None):
         self.root = root
         self.chunk_params = chunk_params
         self.chunk_threshold = chunk_threshold
+        self.token = token  # the writer's incarnation (tmp names)
+        self.faults = faults  # a FaultPlan, for the crash points
+
+    def _crash_point(self, name: str) -> None:
+        if self.faults is not None:
+            self.faults.crash_point(name)
 
     def _path(self, key: str) -> str:
         _, hx = parse_annex_key(key)
@@ -110,7 +122,7 @@ class AnnexStore:
                 for name in os.listdir(os.path.join(self.root, shard))]
 
     def _publish(self, key: str, data: bytes) -> None:
-        write_atomic(self._path(key), data, tmp_dir=self.root)
+        write_atomic(self._path(key), data, tmp_dir=self.root, token=self.token)
 
     def put_bytes(self, key: str, data: bytes) -> None:
         """Store ``data`` under ``key`` (checked), chunked at or above the
@@ -132,8 +144,9 @@ class AnnexStore:
         if chunked:
             return self._ingest_chunked(blocks)
         h = hashlib.sha256()
+        ensure_live(self.token)
         os.makedirs(self.root, exist_ok=True)
-        tmp = tmp_name(self.root)
+        tmp = tmp_name(self.root, self.token)
         try:
             size = 0
             with open(tmp, "wb") as f:
@@ -142,12 +155,15 @@ class AnnexStore:
                     f.write(b)
                     size += len(b)
             key = make_annex_key(h.hexdigest(), size)
+            ensure_live(self.token)
             if self.has(key):
                 os.unlink(tmp)
             else:
                 os.makedirs(os.path.dirname(self._path(key)), exist_ok=True)
                 os.replace(tmp, self._path(key))
-        except BaseException:
+        except BaseException as e:
+            if is_crash(e):
+                raise  # a dead process runs no cleanup: the tmp leaks
             if os.path.exists(tmp):
                 os.unlink(tmp)
             raise
@@ -164,14 +180,18 @@ class AnnexStore:
         chunk_keys: list[str] = []
         pending: list[tuple[str, bytes]] = []
         pending_bytes = 0
+        published = 0
 
         def flush():
-            nonlocal pending, pending_bytes
+            nonlocal pending, pending_bytes, published
             present = self.has_many(k for k, _ in pending)
             for ck, data in pending:
                 if ck not in present:
                     self._publish(ck, data)
                     present.add(ck)  # a chunk repeated within the batch
+                    published += 1
+                    if published == 1:
+                        self._crash_point("chunk:mid-publish")
             pending, pending_bytes = [], 0
 
         def take(chunk: bytes):
@@ -194,6 +214,7 @@ class AnnexStore:
             take(chunk)
         flush()
         key = make_annex_key(full.hexdigest(), total)
+        self._crash_point("chunk:before-manifest")
         if not self.has(key):
             self._publish(key, encode_chunk_manifest(key, chunk_keys, self.chunk_params))
         return key
@@ -206,9 +227,9 @@ class AnnexStore:
         with open(path, "rb") as f:
             head = f.read(len(CHUNK_MAGIC) + 1)
         if head == CHUNK_MAGIC + b"\n" and parse_chunk_manifest(read_bytes(path), key) is not None:
-            write_atomic(dst, self.read(key), tmp_dir=tmp_dir)
+            write_atomic(dst, self.read(key), tmp_dir=tmp_dir, token=self.token)
         else:
-            write_atomic(dst, file_blocks(path), tmp_dir=tmp_dir)
+            write_atomic(dst, file_blocks(path), tmp_dir=tmp_dir, token=self.token)
 
     def read(self, key: str) -> bytes:
         """The content of ``key``, reassembled if chunked; every chunk and
@@ -226,3 +247,19 @@ class AnnexStore:
         if not verify_annex_key(key, data):
             raise IOError(f"annex corruption for {key}")
         return data
+
+    def manifest_of(self, key: str) -> list[str] | None:
+        """Chunk keys of ``key`` if it is stored chunked here, else None. A
+        manifest is the one object whose stored size differs from the size
+        its key embeds, so a plain object costs one stat."""
+        if is_chunk_key(key):
+            return None
+        content_size, _ = parse_annex_key(key)
+        path = self._path(key)
+        if os.path.getsize(path) == content_size:
+            return None
+        mf = parse_chunk_manifest(read_bytes(path), key)
+        if mf is None:
+            raise IOError(f"annex corruption for {key}: stored size differs from key size but content is not "
+                          "a chunk manifest")
+        return list(mf["chunks"])

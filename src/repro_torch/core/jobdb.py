@@ -13,11 +13,12 @@ stores the canonical JSON of its originating :class:`~.spec.RunSpec`, so
 :meth:`JobDB.add_jobs` amortizes a whole batch: N inserts + one shared
 conflict pass in ONE transaction.
 
-Every table of the reference is created. The ``annex_locations`` table
-(remote tiers), and ``job_deps`` and ``job_pipeline`` (the DAG layer), are
-not written by the port yet (ROADMAP.md §A item 2); rows are read through
-the reference's join on ``job_pipeline``, so a job dict has the same keys in
-both packages.
+Every table of the reference is created. ``job_deps`` holds a pipeline's
+afterok edges and ``job_pipeline`` tags each stage's row with its pipeline
+and stage (the DAG layer, §14); rows are read through the reference's join
+on ``job_pipeline``, so a job dict has the same keys in both packages. The
+``annex_locations`` table (remote tiers, ROADMAP.md §A item 2.3) is only
+read, by ``verify``.
 """
 from __future__ import annotations
 
@@ -167,18 +168,21 @@ class JobDB:
         return conn
 
     # ------------------------------------------------------------------
-    def add_jobs(self, specs: list[RunSpec], exec_keys: list[str | None] | None = None) -> list[int]:
+    def add_jobs(self, specs: list[RunSpec], exec_keys: list[str | None] | None = None,
+                 pipeline: str | None = None, stages: list[str] | None = None) -> list[int]:
         """Insert a batch of specs and protect their outputs atomically: ONE
         transaction for N row inserts plus one shared §5.5 conflict pass
         (each output checked once against the persisted N/P sets; conflicts
         *between* specs of the batch are caught because each spec's
         protection rows are inserted before the next spec is checked). Any
-        conflict rolls the entire batch back."""
+        conflict rolls the entire batch back. With ``pipeline``, each row is
+        tagged with its name in ``stages``."""
         conn = self._conn()
         job_ids: list[int] = []
         keys = exec_keys if exec_keys is not None else [None] * len(specs)
+        stage_names = stages if stages is not None else [None] * len(specs)
         with conn:  # single transaction: all checks + inserts + protection
-            for spec, ekey in zip(specs, keys):
+            for spec, ekey, stage in zip(specs, keys, stage_names):
                 cur = conn.execute(
                     "INSERT INTO jobs (script, script_args, pwd, inputs, outputs,"
                     " alt_dir, is_array, array_n, message, spec, exec_key,"
@@ -201,6 +205,9 @@ class JobDB:
                 )
                 job_id = cur.lastrowid
                 job_ids.append(job_id)
+                if pipeline is not None and stage is not None:
+                    conn.execute("INSERT OR REPLACE INTO job_pipeline (job_id, pipeline, stage) VALUES (?,?,?)",
+                                 (job_id, pipeline, stage))
                 # RunSpec construction already normalized the outputs and
                 # rejected intra-spec nesting; only cross-job checks remain
                 normed = list(spec.outputs)
@@ -271,8 +278,76 @@ class JobDB:
         rows = self._conn().execute(self._JOB_SELECT + " ORDER BY j.job_id").fetchall()
         return [_to_dict(r) for r in rows]
 
+    def unsubmitted_open_jobs(self) -> list[dict]:
+        """Rows a crash left open with no slurm id (died between ``add_jobs``
+        and ``set_slurm_ids``): the §10 sweep's target."""
+        rows = self._conn().execute(self._JOB_SELECT + " WHERE j.status='scheduled' AND j.slurm_id IS NULL"
+                                    " ORDER BY j.job_id").fetchall()
+        return [_to_dict(r) for r in rows]
+
+    def orphan_protection(self) -> list[int]:
+        """Job ids owning protection rows despite no longer being open
+        (``close_job`` releases protection with the status flip, so only
+        divergence from outside leaves these)."""
+        rows = self._conn().execute("SELECT DISTINCT p.job_id FROM protected p JOIN jobs j"
+                                    " ON p.job_id = j.job_id WHERE j.status != 'scheduled'").fetchall()
+        return [r[0] for r in rows]
+
+    def release_protection(self, job_ids: list[int]) -> None:
+        if not job_ids:
+            return
+        with self._conn() as c:
+            c.executemany("DELETE FROM protected WHERE job_id=?", [(j,) for j in job_ids])
+
     def n_protected(self) -> int:
         return self._conn().execute("SELECT COUNT(*) FROM protected WHERE kind='name'").fetchone()[0]
+
+    # ------------------------------------------- pipeline tier (v5, §14)
+    def add_deps(self, pairs: list[tuple[int, int]], pipeline: str | None = None) -> None:
+        """Record afterok edges as (child_job, parent_job) pairs; idempotent,
+        so journal replay can record them again."""
+        if not pairs:
+            return
+        with self._conn() as c:
+            c.executemany("INSERT OR REPLACE INTO job_deps (child_job, parent_job, pipeline) VALUES (?,?,?)",
+                          [(child, parent, pipeline) for child, parent in pairs])
+
+    def dependents_of(self, job_id: int) -> list[dict]:
+        """Job rows with an afterok edge on ``job_id`` (any status)."""
+        rows = self._conn().execute(self._JOB_SELECT + " JOIN job_deps d ON j.job_id = d.child_job"
+                                    " WHERE d.parent_job=? ORDER BY j.job_id", (job_id,)).fetchall()
+        return [_to_dict(r) for r in rows]
+
+    def parents_of(self, job_id: int) -> list[dict]:
+        rows = self._conn().execute(self._JOB_SELECT + " JOIN job_deps d ON j.job_id = d.parent_job"
+                                    " WHERE d.child_job=? ORDER BY j.job_id", (job_id,)).fetchall()
+        return [_to_dict(r) for r in rows]
+
+    def replace_dep_parent(self, old_parent: int, new_parent: int, children: list[int] | None = None) -> None:
+        """Rewire edges on ``old_parent`` to ``new_parent`` (a straggler's
+        replacement). With ``children``, only those rows move: the callers
+        pass the dependents the cluster actually detached."""
+        if children is not None and not children:
+            return
+        sql = "UPDATE OR REPLACE job_deps SET parent_job=? WHERE parent_job=?"
+        params: tuple = (new_parent, old_parent)
+        if children is not None:
+            sql += f" AND child_job IN ({','.join('?' * len(children))})"
+            params += tuple(children)
+        with self._conn() as c:
+            c.execute(sql, params)
+
+    def pipeline_rows(self, pipeline: str) -> dict[str, dict]:
+        """Latest job row per stage of one pipeline submission, by stage
+        name: how dag-journal replay finds what already landed."""
+        rows = self._conn().execute(self._JOB_SELECT + " WHERE p.pipeline=? ORDER BY j.job_id",
+                                    (pipeline,)).fetchall()
+        return {r["stage"]: _to_dict(r) for r in rows if r["stage"]}
+
+    def locations_all(self) -> list[tuple[str, str]]:
+        """Every (key, remote) row of the remote tier's location hints."""
+        return [(r[0], r[1]) for r in self._conn().execute(
+            "SELECT key, remote FROM annex_locations ORDER BY key, remote")]
 
     # --------------------------------------------------- run cache (§11)
     def cache_lookup(self, exec_keys: list[str | None]) -> dict[str, dict]:

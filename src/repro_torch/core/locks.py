@@ -1,14 +1,19 @@
 """Cross-process advisory locks (port of ``repro.core.recovery``'s
-``LockHeld`` and ``FileLock``; the intent journals, ``recover`` and
-``verify`` are not ported, ROADMAP.md §A item 2).
+``LockHeld`` and ``FileLock``).
 
 A lock is a file under ``.repro/locks/`` created with O_CREAT|O_EXCL and
 stamped with its owner, ``{"pid", "token", "host", "heartbeat"}``, the
-reference's payload (``token`` is the reference's simulated-crash
-incarnation; the port has none and writes null). A lock whose owner pid is
-dead, whose payload does not parse (torn by a crash), or whose heartbeat is
-older than ``ttl_s`` is stale and is broken on acquire, so a crashed holder
-cannot wedge the repository. Either package's holder excludes the other's.
+reference's payload (``token`` is the owner's incarnation, :mod:`.faults`).
+A lock whose owner is provably dead (dead pid, or a dead incarnation of
+this process), whose payload does not parse (torn by a crash), or whose
+heartbeat is older than ``ttl_s`` (the cross-host fallback) is stale and
+is broken on acquire, so a crashed holder cannot wedge the repository.
+Across processes either package's holder excludes the other's. Inside one
+process it does not: each package keeps its own set of live incarnations
+(:func:`~.faults.owner_is_dead`), so each takes the other's lock there for
+a dead one and breaks it. A holder whose incarnation a crash killed
+releases nothing: its lock stays for ``recover`` or the next acquire to
+break.
 """
 from __future__ import annotations
 
@@ -17,6 +22,8 @@ import os
 import socket
 import time
 
+from .faults import CrashInjected, ensure_live, owner_is_dead
+
 LOCKS_DIR = "locks"
 
 
@@ -24,34 +31,23 @@ class LockHeld(RuntimeError):
     """The lock is held by a live owner and the wait budget ran out."""
 
 
-def _pid_alive(pid) -> bool:
-    try:
-        os.kill(pid, 0)
-    except ProcessLookupError:
-        return False
-    except PermissionError:
-        return True  # exists, owned by someone else
-    except (OverflowError, ValueError, TypeError):
-        return False
-    return True
-
-
 class FileLock:
     """An exclusive file stamped with its owner; complements the in-process
     ``Repository.ref_lock``, which threads take first, so this file only
-    arbitrates across processes."""
+    arbitrates across processes and across crash boundaries."""
 
     _GONE = object()  # sentinel: the lock file vanished between probe and read
 
-    def __init__(self, path: str, ttl_s: float | None = 600.0):
+    def __init__(self, path: str, ttl_s: float | None = 600.0, token: str | None = None):
         self.path = path
         self.ttl_s = ttl_s
+        self.token = token
         self._held = False
 
     def _payload(self) -> bytes:
         return json.dumps({
             "pid": os.getpid(),
-            "token": None,
+            "token": self.token,
             "host": socket.gethostname(),
             "heartbeat": time.time(),
         }).encode()
@@ -73,8 +69,7 @@ class FileLock:
             return False
         if info is None:
             return True
-        pid = info.get("pid")
-        if pid is not None and not _pid_alive(pid):
+        if owner_is_dead(info.get("pid"), info.get("token")):
             return True
         hb = info.get("heartbeat")
         if self.ttl_s is not None and isinstance(hb, (int, float)):
@@ -99,6 +94,7 @@ class FileLock:
     def acquire(self, wait_s: float = 30.0, poll_s: float = 0.02) -> "FileLock":
         deadline = time.monotonic() + wait_s
         while True:
+            ensure_live(self.token)
             try:
                 self._create()
                 self._held = True
@@ -115,12 +111,18 @@ class FileLock:
                 time.sleep(poll_s)
 
     def release(self) -> None:
+        """Unlink the lock; a holder whose incarnation is dead raises
+        :class:`~.faults.CrashInjected` and leaves it, as a dead process
+        would."""
         if self._held:
+            ensure_live(self.token)
             self._held = False
             self.break_lock()
 
     def __enter__(self) -> "FileLock":
         return self.acquire()
 
-    def __exit__(self, *exc) -> None:
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is not None and issubclass(exc_type, CrashInjected):
+            return  # killed: the lock stays held
         self.release()

@@ -35,8 +35,9 @@ def _frame(kind: str, payload: bytes) -> bytes:
 
 
 class ObjectStore:
-    def __init__(self, root: str):
+    def __init__(self, root: str, token: str | None = None):
         self.root = root  # .../objects
+        self.token = token  # the writer's incarnation (tmp names)
         self.packs = PackManager(os.path.join(root, PACK_DIR))
 
     def _path(self, oid: str) -> str:
@@ -53,7 +54,7 @@ class ObjectStore:
         if not self.has(oid):
             # the temporary file lies outside the 2-hex shards, so a shard
             # listing (prefix search, the reference's repack) never sees it
-            write_atomic(self._path(oid), zlib.compress(framed, 1), tmp_dir=self.root)
+            write_atomic(self._path(oid), zlib.compress(framed, 1), tmp_dir=self.root, token=self.token)
         return oid
 
     def has(self, oid: str) -> bool:

@@ -1,0 +1,624 @@
+"""Crash recovery: intent journals, ``recover`` and ``verify`` (DESIGN.md §10;
+port of ``repro.core.recovery``, whose journals it writes and replays byte
+for byte, so a repository left by a crash of either package is recovered by
+the other).
+
+Ordering bounds the damage of a crash (publish the ref before closing the
+job) but does not clean it up: a finish process killed mid-batch leaves open
+job rows whose commits exist but were never published, tmp files, a held
+lock file, and a window between ref publication and job close where a naive
+re-finish would commit the same job twice. This module closes that story:
+
+Intent journals
+    ``submit_many``, ``finish``, the memoized publication and
+    ``submit_pipeline`` write a journal file under ``.repro/journal/``
+    before their effects land (a header published through an fsynced tmp
+    and a rename, one JSONL line appended per applied step, unlinked on
+    completion). The finish journal records each job's commit oid *before*
+    the ref moves, so replay tells the three crash windows apart:
+    committed-not-published (publish from the journal), published-not-closed
+    (close the row), and not-yet-committed (re-finish exactly those jobs;
+    ingest is content-addressed, and an unjournaled pre-crash commit is
+    unreachable garbage, not a duplicate record). That is the exactly-once
+    guarantee.
+
+``recover(session)``
+    Break stale locks (``locks.FileLock``), sweep dead-owner tmp files,
+    replay journals, close unsubmitted orphan rows, release orphaned output
+    protection. A push or pull journal (remote tiers, ROADMAP.md §A item
+    2.3, which only the reference writes) is left in place and named in the
+    report's ``errors``.
+
+``verify(session)``
+    fsck: cross-checks refs, the object store, the annex and the job
+    database, and reports divergence (broken refs, missing annex objects,
+    duplicate Slurm records, orphan rows and protection); ``repair=True``
+    fixes what can be fixed without inventing data.
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import TYPE_CHECKING
+
+from .files import append_text, read_bytes, unlink, write_atomic
+from .later import REMOTES
+from .locks import LOCKS_DIR, FileLock
+
+if TYPE_CHECKING:  # typing only: session imports this module
+    from .session import Session
+
+JOURNAL_DIR = "journal"
+
+
+# -- intent journal ----------------------------------------------------------
+
+
+def _journal_dir(repro_dir: str) -> str:
+    return os.path.join(repro_dir, JOURNAL_DIR)
+
+
+class JournalHandle:
+    """One in-flight batch's journal file. The header line is published
+    atomically (fsynced tmp and rename) *before* any effect of the batch
+    lands; per-step lines are appended as each effect is applied;
+    :meth:`done` retires the journal. A journal file present means a batch
+    possibly interrupted. Every write is stamped with the writer's
+    incarnation ``token``: a killed writer's journal stays."""
+
+    _seq = 0
+
+    def __init__(self, path: str, token: str | None = None):
+        self.path = path
+        self.token = token
+
+    @classmethod
+    def begin(cls, repo, kind: str, header: dict) -> "JournalHandle":
+        cls._seq += 1
+        name = f"{kind}-{int(time.time() * 1000):013d}-{os.getpid()}-{cls._seq:04d}.jsonl"
+        path = os.path.join(_journal_dir(repo.repro_dir), name)
+        line = json.dumps({"kind": kind, **header}, sort_keys=True) + "\n"
+        write_atomic(path, line.encode(), token=repo.token, fsync=True)
+        return cls(path, repo.token)
+
+    def append(self, record: dict) -> None:
+        append_text(self.path, json.dumps(record, sort_keys=True) + "\n", token=self.token)
+
+    def append_many(self, records: list[dict]) -> None:
+        """All of a batch's lines in one write: the memoize replay assumes
+        they land together or not at all."""
+        if records:
+            append_text(self.path, "".join(json.dumps(r, sort_keys=True) + "\n" for r in records),
+                        token=self.token)
+
+    def done(self) -> None:
+        unlink(self.path, token=self.token)
+
+
+def list_journals(repro_dir: str) -> list[str]:
+    d = _journal_dir(repro_dir)
+    if not os.path.isdir(d):
+        return []
+    return [os.path.join(d, n) for n in os.listdir(d) if n.endswith(".jsonl")]
+
+
+def read_journal(path: str) -> tuple[dict | None, list[dict]]:
+    """(header, entries). A torn trailing line (the crash interrupted an
+    append) is skipped: its effect never happened or is derived again. A
+    torn or missing header returns (None, [])."""
+    try:
+        raw = read_bytes(path)
+    except FileNotFoundError:
+        return None, []
+    records = []
+    for line in raw.split(b"\n"):
+        if not line.strip():
+            continue
+        try:
+            rec = json.loads(line)
+        except ValueError:
+            continue  # torn write: drop
+        if isinstance(rec, dict):
+            records.append(rec)
+    if not records or "kind" not in records[0]:
+        return None, []
+    return records[0], records[1:]
+
+
+def _stale_locks(repo) -> list[FileLock]:
+    locks_dir = os.path.join(repo.repro_dir, LOCKS_DIR)
+    if not os.path.isdir(locks_dir):
+        return []
+    out = []
+    for name in sorted(os.listdir(locks_dir)):
+        if name.endswith(".lock"):
+            lock = FileLock(os.path.join(locks_dir, name))
+            info = lock.read_info()
+            if info is not FileLock._GONE and lock.is_stale(info):
+                out.append(lock)
+    return out
+
+
+# -- recover -----------------------------------------------------------------
+
+
+def recover(session: "Session") -> dict:
+    """Bring the repository back to a consistent state after a crash.
+    Idempotent, and cheap when there is nothing to do. Returns a report with
+    the reference's keys (``pushes_resumed``, ``pulls_resumed`` and
+    ``remote_keys_resent`` stay 0: the port has no remote tier)."""
+    repo = session.repo
+    db = session.scheduler.db
+    report = {
+        "locks_broken": 0,
+        "stale_tmps_swept": 0,
+        "journals_replayed": 0,
+        "slurm_ids_recovered": 0,
+        "commits_republished": 0,
+        "memoized_republished": 0,
+        "jobs_refinished": 0,
+        "jobs_closed_unsubmitted": 0,
+        "protection_released": 0,
+        "pushes_resumed": 0,
+        "pulls_resumed": 0,
+        "remote_keys_resent": 0,
+        "dag_pipelines_resumed": 0,
+        "dag_levels_resubmitted": 0,
+        "errors": [],
+    }
+    # 1. stale locks, before journal replay, which takes them
+    for lock in _stale_locks(repo):
+        lock.break_lock()
+        report["locks_broken"] += 1
+    # 2. the tmp files of dead writers
+    report["stale_tmps_swept"] += repo.sweep_stale_tmps()
+    # 3. journals in name order, but ``dag`` journals last: every submit
+    # journal must have recovered its level's slurm ids and closed its dead
+    # rows before a pipeline's levels are read back from their rows
+    journals = [(path, *read_journal(path)) for path in sorted(list_journals(repo.repro_dir))]
+    ordered = ([j for j in journals if (j[1] or {}).get("kind") != "dag"]
+               + [j for j in journals if (j[1] or {}).get("kind") == "dag"])
+    for path, header, entries in ordered:
+        ok = True
+        kind = None if header is None else header.get("kind")
+        if kind == "submit":
+            _replay_submit(db, header, entries, report)
+        elif kind == "finish":
+            ok = _replay_finish(session, header, entries, report)
+        elif kind == "memoize":
+            ok = _replay_memoize(session, header, entries, report)
+        elif kind == "dag":
+            ok = _replay_dag(session, header, entries, report)
+        elif kind in ("push", "pull"):
+            report["errors"].append(f"{kind} journal {os.path.basename(path)} left in place: replaying it needs "
+                                    f"the remote tier ({REMOTES})")
+            ok = False
+        # a missing header (it never landed) means the batch had no effects
+        if ok:
+            unlink(path, token=repo.token)
+            report["journals_replayed"] += 1
+    # 4. orphan rows no journal covered (a crash before the journal)
+    for row in db.unsubmitted_open_jobs():
+        db.close_job(row["job_id"], status="closed-unsubmitted")
+        report["jobs_closed_unsubmitted"] += 1
+    # 5. protection owned by rows that are no longer open
+    orphans = db.orphan_protection()
+    if orphans:
+        db.release_protection(orphans)
+        report["protection_released"] += len(orphans)
+    return report
+
+
+def _replay_submit(db, header: dict, entries: list[dict], report: dict) -> None:
+    """Crash window: between the sbatch calls and the batched
+    ``set_slurm_ids``. Every journaled (job_id, slurm_id) pair IS submitted:
+    persist it (the UPDATE is idempotent). Header-listed jobs with no pair
+    never reached sbatch: close them, releasing their output protection."""
+    pairs = [(e["job_id"], e["slurm_id"]) for e in entries if "job_id" in e and "slurm_id" in e]
+    if pairs:
+        db.set_slurm_ids(pairs)
+        report["slurm_ids_recovered"] += len(pairs)
+    for job_id in header.get("job_ids", ()):
+        row = db.get(job_id)
+        if row and row["status"] == "scheduled" and row["slurm_id"] is None:
+            db.close_job(job_id, status="closed-unsubmitted")
+            report["jobs_closed_unsubmitted"] += 1
+
+
+def _replay_finish(session: "Session", header: dict, entries: list[dict], report: dict) -> bool:
+    """Exactly-once finish replay. Per journaled entry (written after the
+    commit object existed, before the ref moved):
+
+      row closed                 -> done before the crash, skip;
+      commit exists, ref at it   -> the publication landed, close the row;
+      commit exists, ref at its  -> publish from the journal, never
+        parent                      commit again;
+      otherwise                  -> re-finish below.
+
+    Jobs with no usable entry are re-finished through the normal path.
+    Returns False when the re-finish could not run (the cluster no longer
+    knows the jobs): the journal is kept for a later ``recover``. The
+    reference's ``engine`` and ``data_plane`` flags are not read: the port's
+    one finish path commits what either engine would."""
+    repo = session.repo
+    sched = session.scheduler
+    db = sched.db
+    flags = header.get("flags", {})
+    branch = header.get("branch")
+    octopus_done = any("octopus" in e for e in entries)
+    branch_names: list[str] = []
+    for e in entries:
+        if "octopus" in e:
+            continue
+        jid = e.get("job_id")
+        commit = e.get("commit")
+        job_branch = e.get("job_branch")
+        if job_branch:
+            branch_names.append(job_branch)
+        row = db.get(jid) if jid is not None else None
+        if row is None or row["status"] != "scheduled":
+            continue
+        if not commit or not repo.objects.has(commit):
+            continue  # the commit never landed: re-finish below
+        if job_branch:
+            # per-job branch: it roots at the shared base and only this job
+            # ever publishes it
+            if repo.branch_head(job_branch) != commit:
+                repo.set_branch(job_branch, commit)
+            db.close_job(jid, status="finished")
+            report["commits_republished"] += 1
+        else:
+            head = repo.branch_head(branch)
+            parents = repo.objects.get_commit(commit).get("parents", [])
+            if head == commit:
+                db.close_job(jid, status="finished")
+                report["commits_republished"] += 1
+            elif head in parents:
+                repo.set_branch(branch, commit)
+                db.close_job(jid, status="finished")
+                report["commits_republished"] += 1
+            # else: the chain advanced past other commits first; this one
+            # cannot fast-forward, so the job is re-finished
+    remaining = [j["job_id"] for j in header.get("jobs", ())
+                 if (db.get(j["job_id"]) or {}).get("status") == "scheduled"]
+    if remaining:
+        try:
+            res = sched.finish(job_ids=remaining, close_failed_jobs=flags.get("close_failed_jobs", False),
+                               commit_failed_jobs=flags.get("commit_failed_jobs", False),
+                               branches=flags.get("branches", False),
+                               octopus=False)  # merged below, with the replayed branches
+        except Exception as e:
+            report["errors"].append(f"re-finish of jobs {remaining}: {e}")
+            return False
+        report["jobs_refinished"] += len(remaining)
+        branch_names += [r.branch for r in res if r.branch]
+    if flags.get("octopus") and branch_names and not octopus_done:
+        heads = {h for h in (repo.branch_head(b) for b in branch_names) if h is not None}
+        head_commit = repo.head_commit()
+        merged = set(repo.objects.get_commit(head_commit).get("parents", [])) if head_commit else set()
+        if heads and not heads <= merged:
+            repo.merge_octopus(sorted(set(branch_names)),
+                               message=f"octopus merge of {len(set(branch_names))} slurm jobs (recovered)")
+    return True
+
+
+def _replay_memoize(session: "Session", header: dict, entries: list[dict], report: dict) -> bool:
+    """Exactly-once replay of a memoized (§11 cache hit) publication. Its
+    journal is written in two strokes: the header before any commit, then
+    ONE append naming every (job_id, commit) after all the commits exist but
+    before the one ref publication. So either no entry survived (the
+    commits, if any, are unreachable: every still-open hit is published
+    again from the durable cache rows) or every entry's commit exists, and
+    how far the ref moved is read by walking the head back to the journaled
+    base. Cache rows are only read here, never inserted."""
+    from .jobdb import job_spec
+
+    repo = session.repo
+    sched = session.scheduler
+    db = sched.db
+    branch = header.get("branch")
+    base = header.get("base")
+    # commits already reachable from the head, back to the journaled base
+    published: set[str] = set()
+    head = repo.branch_head(branch) if branch else None
+    oid = head
+    while oid and oid != base and repo.objects.has(oid):
+        published.add(oid)
+        parents = repo.objects.get_commit(oid).get("parents", [])
+        oid = parents[0] if parents else None
+    last = head
+    for e in entries:
+        jid = e.get("job_id")
+        commit = e.get("commit")
+        row = db.get(jid) if jid is not None else None
+        if row is None or row["status"] != "scheduled":
+            continue
+        if not commit or not repo.objects.has(commit):
+            continue  # never landed: published again from the cache rows below
+        if commit in published or head == commit:
+            db.close_job(jid, status="memoized")
+            report["memoized_republished"] += 1
+            continue
+        parents = repo.objects.get_commit(commit).get("parents", [])
+        if last in parents or (last is None and not parents):
+            repo.set_branch(branch, commit)
+            published.add(commit)
+            last = head = commit
+            db.close_job(jid, status="memoized")
+            report["memoized_republished"] += 1
+    remaining = [j for j in header.get("jobs", ())
+                 if (db.get(j.get("job_id")) or {}).get("status") == "scheduled"]
+    if remaining:
+        cached = db.cache_lookup([j.get("exec_key") for j in remaining])
+        hits = []
+        for j in remaining:
+            jid = j["job_id"]
+            row = cached.get(j.get("exec_key"))
+            if row is None:
+                # the index row is gone (evicted since): nothing to replay
+                # from; close the orphan, releasing its protection, and say so
+                db.close_job(jid, status="closed-unsubmitted")
+                report["jobs_closed_unsubmitted"] += 1
+                report["errors"].append(f"memoize replay: cache row missing for job {jid}")
+                continue
+            hits.append((jid, job_spec(db.get(jid)), j["exec_key"], row))
+        if hits:
+            try:
+                sched._publish_memoized(hits)
+            except Exception as e:
+                report["errors"].append(f"memoize re-publish of jobs {[h[0] for h in hits]}: {e}")
+                return False
+            report["memoized_republished"] += len(hits)
+    return True
+
+
+def _replay_dag(session: "Session", header: dict, entries: list[dict], report: dict) -> bool:
+    """Exactly-once replay of a pipeline submission (§14). The header
+    carries the whole pipeline (stage specs and edges), so the DAG is built
+    again and walked level by level: stages whose rows landed (found by
+    their pipeline/stage tags, after every submit journal replayed) are
+    reused and their edges recorded again (idempotently); rows the crash
+    left open with no slurm id are closed and their stages submitted again;
+    stages with no row are submitted, chained by afterok onto whichever
+    parent rows are real jobs. Nothing runs twice: landed rows are never
+    sbatched again, and the resubmission goes through ``submit_many``'s own
+    journal. A journal of the reference's ``refresh=True`` submission (the
+    port's run cache is always on) is kept and reported."""
+    from .dag import Pipeline, PipelineError
+    from .spec import RunSpec, SpecError
+
+    del entries  # what landed is read back from the tagged rows
+    sched = session.scheduler
+    db = sched.db
+    pid = header["pipeline"]
+    if header.get("refresh"):
+        report["errors"].append(f"dag replay {pid}: a refresh=True submission; the port's run cache is always "
+                                "on, so it is left for the reference's recover()")
+        return False
+    try:
+        pipeline = Pipeline({n: RunSpec.from_json(js) for n, js in header.get("stages", {}).items()})
+    except (PipelineError, SpecError, KeyError, TypeError) as e:
+        report["errors"].append(f"dag replay {pid}: bad journal header: {e}")
+        return True  # unreplayable: retire it; the rows tell the story
+    rows = db.pipeline_rows(pid)
+    stage_jobs: dict[str, int] = {}
+    resubmitted = 0
+    for i, level in enumerate(pipeline.levels()):
+        missing: list[str] = []
+        for name in level:
+            row = rows.get(name)
+            if row is None:
+                missing.append(name)
+                continue
+            if row["status"] == "scheduled" and row["slurm_id"] is None:
+                # submission never completed and no submit journal covered
+                # it: close the orphan (releasing protection) and redo it
+                db.close_job(row["job_id"], status="closed-unsubmitted")
+                report["jobs_closed_unsubmitted"] += 1
+                missing.append(name)
+                continue
+            if row["status"] in ("closed-unsubmitted", "submit-failed"):
+                missing.append(name)
+                continue
+            stage_jobs[name] = row["job_id"]
+        # the crash may have hit between dag:level-submitted and
+        # dag:deps-recorded: record the landed stages' edges again
+        db.add_deps([(stage_jobs[c], stage_jobs[p]) for c in level if c in stage_jobs
+                     for p in pipeline.parents[c] if p in stage_jobs], pipeline=pid)
+        if not missing:
+            continue
+        try:
+            sched._submit_level(pipeline, pid, i, missing, stage_jobs)
+        except Exception as e:
+            report["errors"].append(f"dag replay {pid} level {i}: {e}")
+            return False
+        resubmitted += 1
+    report["dag_levels_resubmitted"] += resubmitted
+    report["dag_pipelines_resumed"] += 1
+    return True
+
+
+# -- verify (fsck) -----------------------------------------------------------
+
+_DIVERGENCE_KINDS = {
+    "broken-ref",
+    "missing-commit",
+    "missing-annex",
+    "missing-chunk",
+    "broken-manifest",
+    "duplicate-record",
+    "orphan-job",
+    "orphan-protection",
+    "broken-cache",
+    "remote-manifest-divergence",
+}
+
+
+def verify(session: "Session", repair: bool = False) -> dict:
+    """Cross-check the job database, refs, object store and annex
+    (``repro fsck``).
+
+    Reports issues as ``{"kind", "detail", ...}`` dicts; ``divergence``
+    counts those that mean the stores disagree (stale tmps, stale locks and
+    pending journals are warnings: ``recover`` owns those). ``repair=True``
+    fixes what is safe: ingests a missing annex object again from an intact
+    worktree copy, closes orphan rows, releases orphan protection, evicts
+    broken cache rows, sweeps dead tmps, breaks stale locks. It never
+    invents data. The remote tier's location hints cannot be checked here
+    (ROADMAP.md §A item 2.3); they are reported as ``unchecked-location``,
+    as hints never divergence."""
+    from .files import file_blocks
+    from .records import RunRecord
+    from .runcache import RunCache
+
+    repo = session.repo
+    db = session.scheduler.db
+    issues: list[dict] = []
+    repaired: list[dict] = []
+
+    def issue(kind: str, detail: str, **extra) -> dict:
+        rec = {"kind": kind, "detail": detail, **extra}
+        issues.append(rec)
+        return rec
+
+    def fixed(rec: dict) -> None:
+        rec["repaired"] = True
+        repaired.append(rec)
+
+    # -- refs -> commits -> trees: every branch once -----------------------
+    annex_keys: dict[str, str] = {}  # key -> a path that needs it
+    slurm_records: dict[int, list[str]] = {}
+    seen: set[str] = set()
+    n_commits = 0
+    for b in repo.branches():
+        head = repo.branch_head(b)
+        if head is None:
+            continue
+        if not repo.objects.has(head):
+            issue("broken-ref", f"branch {b} points at missing commit", branch=b, commit=head)
+            continue
+        frontier = [head]
+        while frontier:
+            oid = frontier.pop()
+            if oid in seen:
+                continue
+            seen.add(oid)
+            try:
+                commit = repo.objects.get_commit(oid)
+            except Exception:
+                issue("missing-commit", f"commit {oid[:12]} unreadable", commit=oid)
+                continue
+            n_commits += 1
+            rec = RunRecord.from_message(commit.get("message", ""))
+            if rec is not None and rec.slurm_job_id is not None:
+                slurm_records.setdefault(rec.slurm_job_id, []).append(oid)
+            frontier.extend(commit.get("parents", []))
+        try:
+            for path, entry in repo.tree_of(head).items():
+                if entry.get("t") == "annex":
+                    annex_keys.setdefault(entry["key"], path)
+        except Exception as e:
+            issue("broken-ref", f"tree of branch {b} unreadable: {e}", branch=b)
+
+    # exactly-once: one published record per slurm job, ever
+    for slurm_id, oids in sorted(slurm_records.items()):
+        if len(oids) > 1:
+            issue("duplicate-record", f"slurm job {slurm_id} recorded by {len(oids)} commits",
+                  slurm_id=slurm_id, commits=sorted(oids))
+
+    def ingest_again(path: str, key: str, chunked: bool) -> bool:
+        """Ingest the worktree copy of ``path`` if it still hashes to ``key``."""
+        abspath = os.path.join(repo.root, path)
+        if not os.path.isfile(abspath) or repo.hash_path_entry(path).get("key") != key:
+            return False
+        return repo.annex.put_stream(file_blocks(abspath), chunked=chunked) == key
+
+    # -- annex presence ------------------------------------------------------
+    if annex_keys:
+        where = repo.whereis_many(sorted(annex_keys))
+        for key, path in sorted(annex_keys.items()):
+            if where.get(key):
+                continue
+            rec = issue("missing-annex", f"no store holds {key} ({path})", key=key, path=path)
+            if repair:
+                try:
+                    if ingest_again(path, key, repo._should_chunk(os.path.getsize(os.path.join(repo.root, path)))):
+                        fixed(rec)
+                except Exception:
+                    pass
+
+    # -- chunk tier (§12): a store holding a manifest must hold its chunks
+    if annex_keys and repo.annex.chunk_params is not None:
+        for key, path in sorted(annex_keys.items()):
+            if not repo.annex.has(key):
+                continue
+            try:
+                chunks = repo.annex.manifest_of(key)
+            except (OSError, ValueError) as e:
+                issue("broken-manifest", f"{key} in local: {e}", key=key, store="local")
+                continue
+            for ck in sorted(set(chunks or ()) - repo.annex.has_many(chunks or ())):
+                rec = issue("missing-chunk", f"local lacks chunk {ck} of {key} ({path})", key=key, chunk=ck,
+                            store="local", path=path)
+                if repair:
+                    try:
+                        if ingest_again(path, key, True):
+                            fixed(rec)
+                    except Exception:
+                        pass
+
+    # -- job database --------------------------------------------------------
+    for row in db.unsubmitted_open_jobs():
+        rec = issue("orphan-job", f"job {row['job_id']} open with no slurm id", job_id=row["job_id"])
+        if repair:
+            db.close_job(row["job_id"], status="closed-unsubmitted")
+            fixed(rec)
+    orphans = db.orphan_protection()
+    if orphans:
+        rec = issue("orphan-protection", f"closed jobs {orphans} still hold output protection", job_ids=orphans)
+        if repair:
+            db.release_protection(orphans)
+            fixed(rec)
+
+    # -- run-cache index (§11): every row must still be materializable ------
+    for row, reason in RunCache(repo).check(db):
+        rec = issue("broken-cache", f"cache row {row['exec_key'][:12]}: {reason}", exec_key=row["exec_key"],
+                    commit=row["commit_oid"])
+        if repair:
+            # the cache is derived state: losing a row costs a re-execution
+            db.cache_evict([row["exec_key"]])
+            fixed(rec)
+
+    # -- the remote tier's location hints: not checkable here (item 2.3) ----
+    remotes: dict[str, int] = {}
+    for _, rname in db.locations_all():
+        remotes[rname] = remotes.get(rname, 0) + 1
+    for rname, n in sorted(remotes.items()):
+        issue("unchecked-location", f"{n} location rows for remote {rname!r} not checked ({REMOTES})",
+              remote=rname, count=n)
+
+    # -- crash litter (warnings: recover() owns these) ---------------------
+    for path in list_journals(repo.repro_dir):
+        issue("pending-journal", f"unreplayed journal {os.path.basename(path)}", path=path)
+    n = repo.count_stale_tmps()
+    if n:
+        rec = issue("stale-tmp", f"{n} dead-owner tmp files in local", store="local", count=n)
+        if repair:
+            repo.sweep_stale_tmps(max_age_s=None)
+            fixed(rec)
+    for lock in _stale_locks(repo):
+        rec = issue("stale-lock", f"dead-owner lock {os.path.basename(lock.path)}",
+                    lock=os.path.basename(lock.path))
+        if repair:
+            lock.break_lock()
+            fixed(rec)
+
+    unrepaired = [i for i in issues if not i.get("repaired")]
+    return {
+        "divergence": sum(1 for i in unrepaired if i["kind"] in _DIVERGENCE_KINDS),
+        "issues": issues,
+        "repaired": repaired,
+        "checked_commits": n_commits,
+        "checked_annex_keys": len(annex_keys),
+    }

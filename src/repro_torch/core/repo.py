@@ -15,9 +15,14 @@ the reference's do. For the scheduler: per-job branches and the octopus
 merge of paper §5.8, the read-only ``hash_path_entry`` that ``rerun`` and
 the run cache compare with, ``ingest_external_file`` for ``--alt-dir``
 outputs, ``annex_get`` and ``whereis_many`` over the local store,
-``lock``/``unlock`` and the cross-process ``file_lock``. Not ported
-(ROADMAP.md §A item 2): remote annex tiers, clone, checkout and switch,
-pack writing, gc, the filesystem cost model and crash points.
+``lock``/``unlock`` and the cross-process ``file_lock``.
+
+For recovery (:mod:`.recovery`): a repository is one incarnation of its
+writer, with a ``token`` (:mod:`.faults`) stamped on its tmp files and lock
+files, and an optional fault plan whose named crash points it marks
+(``crash_point``); ``sweep_stale_tmps`` removes the tmp files a killed
+incarnation left. Not ported (ROADMAP.md §A item 2): remote annex tiers,
+clone, checkout and switch, pack writing, gc and the filesystem cost model.
 """
 from __future__ import annotations
 
@@ -33,7 +38,8 @@ import uuid
 
 from .annex import POINTER_MAX, AnnexStore, make_pointer, parse_pointer_full
 from .chunks import ChunkParams
-from .files import file_blocks, read_bytes, write_atomic
+from .faults import new_token
+from .files import file_blocks, read_bytes, stale_tmps, sweep_stale_tmps, write_atomic
 from .hashing import annex_key_for_bytes, make_annex_key
 from .locks import LOCKS_DIR, FileLock
 from .objects import ObjectStore
@@ -47,22 +53,28 @@ class ConflictError(Exception):
 
 
 class Repository:
-    def __init__(self, root: str):
+    def __init__(self, root: str, faults=None):
         self.root = os.path.abspath(root)
         self.repro_dir = os.path.join(self.root, REPRO_DIR)
         cfg_path = os.path.join(self.repro_dir, "config.json")
         if not os.path.exists(cfg_path):
             raise FileNotFoundError(f"not a repro repository: {root}")
+        # this incarnation: its token stamps tmp and lock files, and dies
+        # with it when the fault plan crashes
+        self.token = new_token()
+        self.faults = faults
+        if faults is not None:
+            faults.attach(self)
         # serialises a ref's read-modify-publish among threads of this process
         self.ref_lock = threading.RLock()
         self.config = json.loads(read_bytes(cfg_path))
-        self.objects = ObjectStore(os.path.join(self.repro_dir, "objects"))
+        self.objects = ObjectStore(os.path.join(self.repro_dir, "objects"), token=self.token)
         cp = self.config.get("chunk_params")
         self._chunk_params = ChunkParams.from_json(cp) if cp else None
         self._chunk_threshold = self.config.get("chunk_threshold")
         self.annex = AnnexStore(os.path.join(self.repro_dir, "annex", "objects"),
                                 chunk_params=self._chunk_params,
-                                chunk_threshold=self._chunk_threshold)
+                                chunk_threshold=self._chunk_threshold, token=self.token, faults=faults)
 
     @classmethod
     def init(
@@ -71,10 +83,12 @@ class Repository:
         annex_threshold: int = DEFAULT_ANNEX_THRESHOLD,
         chunk_threshold: int | None = None,
         chunk_params: ChunkParams | dict | None = None,
+        faults=None,
     ) -> "Repository":
         """A new repository at ``root``. ``chunk_threshold`` turns the chunk
         tier on for content of at least that many bytes (default cutter
-        parameters unless ``chunk_params`` is given)."""
+        parameters unless ``chunk_params`` is given). ``faults`` is the
+        returned incarnation's fault plan."""
         root = os.path.abspath(root)
         repro_dir = os.path.join(root, REPRO_DIR)
         for sub in ("objects", os.path.join("refs", "heads"), os.path.join("annex", "objects")):
@@ -95,7 +109,7 @@ class Repository:
         }
         write_atomic(os.path.join(repro_dir, "config.json"), json.dumps(cfg).encode())
         write_atomic(os.path.join(repro_dir, "HEAD"), b"main")
-        return cls(root)
+        return cls(root, faults=faults)
 
     @property
     def dsid(self) -> str:
@@ -104,12 +118,33 @@ class Repository:
     def write_file(self, relpath: str, data: bytes) -> None:
         """Publish a worktree file whole (its temporary file lies in
         ``.repro/``, where no staging sees it)."""
-        write_atomic(os.path.join(self.root, relpath), data, tmp_dir=self.repro_dir)
+        write_atomic(os.path.join(self.root, relpath), data, tmp_dir=self.repro_dir, token=self.token)
 
     def file_lock(self, name: str, ttl_s: float = 600.0) -> FileLock:
         """Cross-process advisory lock ``.repro/locks/<name>.lock``; a stale
         (dead-owner) lock is broken on acquire."""
-        return FileLock(os.path.join(self.repro_dir, LOCKS_DIR, f"{name}.lock"), ttl_s=ttl_s)
+        return FileLock(os.path.join(self.repro_dir, LOCKS_DIR, f"{name}.lock"), ttl_s=ttl_s, token=self.token)
+
+    # -- crash points and the crash sweep ----------------------------------
+    def crash_point(self, name: str) -> None:
+        """A named phase boundary of the fault plan (no-op without one)."""
+        if self.faults is not None:
+            self.faults.crash_point(name)
+
+    def _tmp_dirs(self) -> list[str]:
+        """Where this package's writers put tmp files: the annex store, the
+        object store, ``.repro/`` (worktree files and refs) and the journal
+        and lock directories."""
+        return [self.annex.root, self.objects.root, self.repro_dir,
+                os.path.join(self.repro_dir, "journal"), os.path.join(self.repro_dir, LOCKS_DIR)]
+
+    def count_stale_tmps(self) -> int:
+        return sum(len(stale_tmps(d)) for d in self._tmp_dirs())
+
+    def sweep_stale_tmps(self, max_age_s: float | None = 3600.0) -> int:
+        """Unlink the tmp files of dead writers (dead pid or incarnation),
+        or older than ``max_age_s``; returns the count swept."""
+        return sum(sweep_stale_tmps(d, max_age_s, token=self.token) for d in self._tmp_dirs())
 
     # -- refs ------------------------------------------------------------
     def _ref_path(self, branch: str) -> str:
@@ -133,7 +168,7 @@ class Repository:
         return self.branch_head(self.current_branch())
 
     def set_branch(self, branch: str, oid: str) -> None:
-        write_atomic(self._ref_path(branch), oid.encode(), tmp_dir=self.repro_dir)
+        write_atomic(self._ref_path(branch), oid.encode(), tmp_dir=self.repro_dir, token=self.token)
 
     def create_branch(self, branch: str, at: str | None = None) -> None:
         at = at or self.head_commit()

@@ -97,3 +97,23 @@ class RunCache:
             return None
         self._entry_memo[rel] = (sig, entry)
         return entry
+
+    # ------------------------------------------------------------- fsck
+    def check(self, db) -> list[tuple[dict, str]]:
+        """Fsck the job database ``db``'s index without changing it: each
+        row's commit must exist in the object store and each of its annex
+        keys must be located. Returns ``(row, reason)`` per broken row."""
+        rows = db.cache_rows()
+        if not rows:
+            return []
+        union = sorted({k for r in rows for k in r["annex_keys"]})
+        located = self.repo.whereis_many(union) if union else {}
+        broken: list[tuple[dict, str]] = []
+        for r in rows:
+            if not self.repo.objects.has(r["commit_oid"]):
+                broken.append((r, f"missing commit {r['commit_oid'][:12]}"))
+                continue
+            lost = [k for k in r["annex_keys"] if not located.get(k)]
+            if lost:
+                broken.append((r, f"missing annex objects: {lost}"))
+        return broken

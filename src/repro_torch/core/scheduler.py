@@ -21,26 +21,43 @@ transaction and ONE shared §5.5 conflict pass for N jobs. The stored spec
 rides through the job DB and the finish-time record, so ``reschedule`` and
 straggler resubmission replay the exact original spec.
 
-Not ported: the DAG layer (``submit_pipeline``, afterok dependencies;
-ROADMAP.md §A item 2.1), the intent journals and crash points (item 2.2),
-pushing to remotes after finish (item 2.3), repacking after finish (item
-2.4), and the simulated clock's CLI charges (item 2.6). Commits are written
-loose, not as the reference's one pack per memoized batch.
+:meth:`SlurmScheduler.submit_pipeline` submits a :class:`~.dag.Pipeline`
+(§14) as one ``submit_many`` per topological level, chained by ``afterok``
+dependencies, and ``finish`` closes the dependents of a failed parent.
+
+Crash safety (§10, :mod:`.recovery`): ``submit_many``, ``finish``, the
+memoized publication and ``submit_pipeline`` write intent journals and mark
+their phase boundaries as named crash points (``repo.crash_point``), so that
+``Session.recover()`` completes an interrupted batch exactly once; transient
+Slurm failures are retried with a bounded backoff.
+
+Not ported: pushing to remotes after finish (ROADMAP.md §A item 2.3),
+repacking after finish (item 2.4), and the simulated clock's CLI charges
+(item 2.6). Commits are written loose, not as the reference's one pack per
+memoized batch.
 """
 from __future__ import annotations
 
 import os
 import shutil
 import statistics
+import time
+import uuid
 from dataclasses import dataclass
 
 from . import slurm as S
+from .dag import Pipeline
+from .faults import is_crash, is_transient
 from .jobdb import JobDB, job_spec
-from .later import DAG, RECOVERY, REMOTES, not_ported
+from .later import REMOTES, not_ported
 from .records import TITLE_SLURM, RunRecord, spec_of
+from .recovery import JournalHandle
 from .repo import REPRO_DIR, Repository
 from .runcache import RunCache
 from .spec import RunSpec, SpecError
+
+SLURM_BACKOFF_S = 0.05  # the first retry's wait; doubles with each retry (the reference's backoff_base_s)
+
 
 class ScheduleError(SpecError):
     """Operational scheduling error (unknown job, no records to reschedule,
@@ -64,14 +81,32 @@ class SlurmScheduler:
         self.db = JobDB(repo.repro_dir)
         self.cache = RunCache(repo)  # §11 run cache
 
+    def _retry_slurm(self, fn):
+        """Run one Slurm CLI interaction, retrying *transient* failures (a
+        flaky slurmctld or accounting database, §10) with exponential
+        backoff; permanent errors and crashes propagate at once, and the
+        retry budget is bounded, so a dead controller still surfaces."""
+        plan = self.repo.faults
+        retries = plan.max_slurm_retries if plan is not None else 3
+        attempt = 0
+        while True:
+            try:
+                return fn()
+            except BaseException as e:
+                if is_crash(e) or not is_transient(e) or attempt >= retries:
+                    raise
+                time.sleep(SLURM_BACKOFF_S * (2 ** attempt))
+                attempt += 1
+
     # ------------------------------------------------------------- submit
     def submit(self, spec: RunSpec) -> int:
         """Validate, conflict-check, stage, and submit one script spec.
         Returns the job DB id."""
         return self.submit_many([spec])[0]
 
-    def submit_many(self, specs: list[RunSpec], dependencies=None, provided=None, pipeline=None,
-                    stages=None) -> list[int]:
+    def submit_many(self, specs: list[RunSpec], dependencies: list[list[int]] | None = None,
+                    provided: set[str] | None = None, pipeline: str | None = None,
+                    stages: list[str] | None = None) -> list[int]:
         """Batched submission: N specs, ONE job-DB transaction, ONE shared
         §5.5 conflict pass (see ``JobDB.add_jobs``).
 
@@ -84,46 +119,64 @@ class SlurmScheduler:
         If ``sbatch`` (or alt-dir staging) fails mid-batch, the failed job
         and every not-yet-submitted job are closed in the DB (releasing
         their output protection) and the failed job's outputs are re-locked;
-        already-submitted jobs keep their slurm ids and stay scheduled.
+        already-submitted jobs keep their slurm ids and stay scheduled. Each
+        slurm id is journaled the moment sbatch hands it out, so a hard
+        crash before the batch's ``set_slurm_ids`` orphans no running job:
+        ``Session.recover()`` replays the journal.
 
-        ``dependencies``, ``provided``, ``pipeline`` and ``stages`` belong to
-        the DAG layer and raise NotImplementedError."""
-        if any(x is not None for x in (dependencies, provided, pipeline, stages)):
-            raise not_ported("a pipeline", DAG)
+        Pipeline plumbing (§14, for ``submit_pipeline``): ``dependencies[i]``
+        lists parent *slurm* ids of spec i (afterok); ``provided`` is the set
+        of upstream-declared outputs, inputs under which are not "missing"
+        though they do not exist yet; ``pipeline`` and ``stages`` tag the
+        rows for dag-journal replay. A spec with a live dependency never
+        consults the run cache: its parent is about to rewrite its inputs.
+        Its key is derived at finish time, once the real inputs exist."""
         specs = list(specs)
+        deps = dependencies if dependencies is not None else [[] for _ in specs]
+        provided = provided or set()
         for spec in specs:
             if not isinstance(spec, RunSpec):
                 raise ScheduleError(f"submit expects RunSpec instances, got {type(spec).__name__}")
             if spec.script is None:
                 raise ScheduleError("batch submission requires a script spec (cmd specs are for blocking run/rerun)")
         for spec in specs:  # cheap existence probe before any DB or fetch work
-            missing = spec.missing_inputs(self.repo.root)
+            missing = spec.missing_inputs(self.repo.root, provided=provided)
             if missing:
                 raise ScheduleError(f"input does not exist: {missing[0]}")
-        # uncacheable specs (unresolvable inputs) key as None and always
-        # submit as novel
-        exec_keys = self.cache.execution_keys(specs)
+        # uncacheable specs (unresolvable inputs, pending afterok parents)
+        # key as None and always submit as novel
+        exec_keys = [None if deps[i] else k for i, k in enumerate(self.cache.execution_keys(specs))]
         # conflict check + protection, atomic in the job DB (§5.3/§5.5),
         # before any input is fetched
-        job_ids = self.db.add_jobs(specs, exec_keys=exec_keys)
+        job_ids = self.db.add_jobs(specs, exec_keys=exec_keys, pipeline=pipeline, stages=stages)
+        repo = self.repo
+        repo.crash_point("submit:jobs-added")
         hit_rows = self.db.cache_lookup(exec_keys)
         if hit_rows:
             self._publish_memoized([(job_ids[i], specs[i], exec_keys[i], hit_rows[exec_keys[i]])
                                     for i in range(len(specs)) if exec_keys[i] in hit_rows])
         novel = [i for i in range(len(specs)) if exec_keys[i] not in hit_rows]
+        if not novel:
+            return job_ids
+        jh = JournalHandle.begin(repo, "submit", {"job_ids": [job_ids[i] for i in novel]})
         submitted: list[tuple[int, int]] = []
         unlocked = False  # did the currently failing spec get its outputs unlocked?
         try:
             for idx in novel:
                 spec = specs[idx]
                 unlocked = False
-                inputs = self._fetch_inputs(spec)
+                inputs = self._fetch_inputs(spec, provided=provided)
                 # unlock outputs that already exist so the job may overwrite them
                 unlocked = True
                 for o in spec.outputs:
                     self.repo.unlock(o)
-                submitted.append((job_ids[idx], self._submit_one(spec, inputs)))
-        except BaseException:
+                slurm_id = self._retry_slurm(lambda: self._submit_one(spec, inputs, deps[idx]))
+                jh.append({"job_id": job_ids[idx], "slurm_id": slurm_id})
+                repo.crash_point("submit:after-sbatch")
+                submitted.append((job_ids[idx], slurm_id))
+        except BaseException as e:
+            if is_crash(e):
+                raise  # a dead process runs no cleanup: recover() replays the journal
             # persist what did get submitted, then close the failed and
             # never-submitted jobs so their protected outputs are released
             # (and re-locked, if the failure came after the unlock)
@@ -134,50 +187,166 @@ class SlurmScheduler:
             if unlocked and failed:
                 for o in specs[failed[0]].outputs:
                     self.repo.lock(o)
+            jh.done()  # the DB now tells the whole story
             raise
+        repo.crash_point("submit:before-set-ids")
         self.db.set_slurm_ids(submitted)  # one transaction for the batch
+        repo.crash_point("submit:after-set-ids")
+        jh.done()
         return job_ids
 
-    def _fetch_inputs(self, spec: RunSpec) -> list[str]:
+    # ---------------------------------------------------- pipelines (§14)
+    def submit_pipeline(self, pipeline: Pipeline) -> dict[str, int]:
+        """Submit a whole :class:`~.dag.Pipeline` as topologically batched
+        ``submit_many`` calls, one per level, with ``afterok`` edges between
+        levels. Returns {stage name: job DB id}.
+
+        Levels are submitted without waiting, so a stage whose parents all
+        short-circuited as ``memoized`` sees its inputs materialized and
+        gets its own cache lookup, while a stage chained to a *real* job
+        submits uncached with an afterok edge: submitting a partially failed
+        campaign again re-executes exactly the failed stage's downstream
+        cone.
+
+        The submission runs under an intent journal (kind ``dag``): the
+        header carries the stage specs and edges, each level appends its job
+        ids once landed, and ``recover()`` submits again only the levels a
+        crash prevented."""
+        levels = pipeline.levels()
+        pid = f"{pipeline.pipeline_id[:12]}-{uuid.uuid4().hex[:8]}"
+        repo = self.repo
+        jh = JournalHandle.begin(repo, "dag", {
+            "pipeline": pid,
+            "stages": {n: s.to_json() for n, s in pipeline.stages.items()},
+            "edges": [list(e) for e in pipeline.edges()],
+            "levels": levels,
+            "refresh": False,  # the reference's key: the port's run cache is always on
+        })
+        repo.crash_point("dag:journal-written")
+        stage_jobs: dict[str, int] = {}
+        try:
+            for i, level in enumerate(levels):
+                self._submit_level(pipeline, pid, i, level, stage_jobs, journal=jh)
+        except BaseException as e:
+            if is_crash(e):
+                raise  # a dead process: recover() resumes from the journal
+            # a soft failure (conflict, sbatch error) already closed the
+            # failing level's rows inside submit_many; earlier levels stay
+            # queued and valid, so the DB tells the whole story
+            jh.done()
+            raise
+        repo.crash_point("dag:before-done")
+        jh.done()
+        return stage_jobs
+
+    def _submit_level(self, pipeline: Pipeline, pid: str, level_idx: int, level: list[str],
+                      stage_jobs: dict[str, int], journal: JournalHandle | None = None) -> list[str]:
+        """Submit one topological level (for ``submit_pipeline`` and the
+        dag-journal replay). Adds the landed ids to ``stage_jobs`` and
+        returns the stages *skipped* because a parent is dead (a failed or
+        cancelled row upstream: only in a replay)."""
+        repo = self.repo
+        names: list[str] = []
+        specs: list[RunSpec] = []
+        deps: list[list[int]] = []
+        skipped: list[str] = []
+        for name in level:
+            dep_ids: list[int] = []
+            alive = True
+            for p in pipeline.parents[name]:
+                prow = self.db.get(stage_jobs[p]) if p in stage_jobs else None
+                if prow is None:
+                    alive = False  # the parent never landed: a dead cone
+                    break
+                if prow["status"] == "scheduled" and prow["slurm_id"] is not None:
+                    dep_ids.append(prow["slurm_id"])
+                elif prow["status"] not in ("finished", "memoized"):  # those outputs exist on disk
+                    alive = False  # the parent closed failed or cancelled
+                    break
+            if alive:
+                names.append(name)
+                specs.append(pipeline.stages[name])
+                deps.append(dep_ids)
+            else:
+                skipped.append(name)
+        if not names:
+            return skipped
+        provided: set[str] = set()
+        for name in names:
+            provided |= pipeline.upstream_outputs(name)
+        ids = self.submit_many(specs, dependencies=deps, provided=provided, pipeline=pid, stages=names)
+        repo.crash_point("dag:level-submitted")
+        stage_jobs.update(zip(names, ids))
+        self.db.add_deps([(stage_jobs[c], stage_jobs[p]) for c in names for p in pipeline.parents[c]
+                          if p in stage_jobs], pipeline=pid)
+        repo.crash_point("dag:deps-recorded")
+        if journal is not None:
+            journal.append({"level": level_idx, "jobs": {n: stage_jobs[n] for n in names}, "skipped": skipped})
+            repo.crash_point("dag:level-journaled")
+        return skipped
+
+    def _fetch_inputs(self, spec: RunSpec, provided: set[str] | None = None) -> list[str]:
         """Resolve and annex-get a spec's inputs (step (1) of datalad run,
-        §3); wildcards glob-expand like ``datalad run``."""
-        expanded = spec.expand_inputs(self.repo.root)
+        §3); wildcards glob-expand like ``datalad run``. Inputs an upstream
+        pipeline stage will produce (``provided``) are skipped: there is
+        nothing to fetch yet."""
+        expanded = spec.expand_inputs(self.repo.root, provided=provided or ())
         for i in expanded:
             if os.path.isfile(os.path.join(self.repo.root, i)):
                 self.repo.annex_get(i)
         return expanded
 
-    def _submit_one(self, spec: RunSpec, inputs: list[str]) -> int:
+    def _submit_one(self, spec: RunSpec, inputs: list[str], dependency: list[int] | None = None) -> int:
         """Stage the alt-dir and sbatch; returns the slurm id."""
         workdir = os.path.normpath(os.path.join(self.repo.root, spec.pwd))
         if spec.alt_dir:
             workdir = self._stage_alt_dir(spec.alt_dir, spec.pwd, spec.script, inputs)
         return self.cluster.sbatch(spec.script, workdir=workdir, args=spec.script_args, array_n=spec.array_n,
-                                   time_limit_s=spec.time_limit_s, env=dict(spec.env) or None)
+                                   time_limit_s=spec.time_limit_s, env=dict(spec.env) or None,
+                                   dependency=list(dependency) if dependency else None)
 
     # ---------------------------------------------------- memoization (§11)
     def _publish_memoized(self, hits: list[tuple[int, RunSpec, str, dict]]) -> None:
         """Publish memoized provenance for cache-hit specs without touching
         Slurm; ``hits`` is ``[(job_id, spec, exec_key, cache_row)]``. Under
         the ref locks every hit's commit is chained on the branch's tip,
-        then ONE ref publication moves the branch to the last one, then the
-        rows close as ``memoized``."""
+        then ONE journal append names them all, then ONE ref publication
+        moves the branch to the last one, then the rows close as
+        ``memoized``. Before the append the commits are unreachable and
+        ``recover()`` publishes again from the durable cache rows; after
+        it, the replay tells published from committed-only by walking the
+        ref back to the journaled base."""
         repo = self.repo
         with repo.ref_lock, repo.file_lock("refs"):
             branch = repo.current_branch()
             base = repo.branch_head(branch)
+            jh = JournalHandle.begin(repo, "memoize", {
+                "branch": branch,
+                "base": base,
+                "jobs": [{"job_id": job_id, "exec_key": key} for job_id, _, key, _ in hits],
+            })
+            repo.crash_point("memoize:journal-written")
             head_commit, head_tree = base, repo._tree_oid_of(base)
-            for _, spec, key, row in hits:
+            lines: list[dict] = []
+            for job_id, spec, key, row in hits:
                 message, spec_json = self._memoized_record(spec, row, key)
                 # allow_empty: a warm worktree leaves the tree identical to
                 # the base, but each hit still gets its provenance commit
                 head_commit, head_tree = repo.commit_changes(
                     self._materialize_cached(row, base), message=message, base_commit=head_commit,
                     base_tree=head_tree, allow_empty=True, spec=spec_json)
+                lines.append({"job_id": job_id, "commit": head_commit})
+            # durability order: commit objects, then the journal lines that
+            # name them, then the ref that makes them reachable
+            jh.append_many(lines)
+            repo.crash_point("memoize:before-publish")
             repo.set_branch(branch, head_commit)
+            repo.crash_point("memoize:after-publish")
             for job_id, _, _, _ in hits:
                 self.db.close_job(job_id, status="memoized")
             self.db.cache_bump([key for _, _, key, _ in hits])
+            repo.crash_point("memoize:after-close")
+        jh.done()
 
     def _materialize_cached(self, row: dict, base_commit: str | None) -> dict:
         """Changes dict for one memoized commit: every recorded output
@@ -256,14 +425,15 @@ class SlurmScheduler:
     # --------------------------------------------------------------- finish
     def finish(self, job_id: int | None = None, slurm_job_id: int | None = None, close_failed_jobs: bool = False,
                commit_failed_jobs: bool = False, branches: bool = False, octopus: bool = False,
-               job_ids: list[int] | None = None, journal: bool = False,
-               push_to: str | list[str] | None = None) -> list[FinishResult]:
+               job_ids: list[int] | None = None, push_to: str | list[str] | None = None) -> list[FinishResult]:
         """``datalad slurm-finish``: commit results of finished jobs.
 
         Running jobs are ignored (they stay for a future call). Failed jobs
         require ``close_failed_jobs`` (drop + unprotect) or
         ``commit_failed_jobs`` (commit like a success); otherwise they stay in
-        the DB and their outputs remain protected (§5.2).
+        the DB and their outputs remain protected (§5.2). The open afterok
+        dependents of a failed job, which the cluster cancelled, are closed
+        as ``cancelled-dependency`` (§14).
 
         All committable jobs of one call share a single batched commit pass:
         the outputs of every job are ingested first (content-addressed),
@@ -273,10 +443,12 @@ class SlurmScheduler:
         The branch ref is published before each job is closed in the DB, so
         a closed job always has its commit reachable.
 
-        ``journal=True`` and ``push_to`` belong to later slices and raise
+        An intent journal is written before the commit phase, so a crash
+        anywhere in it is replayed exactly once by ``Session.recover()``
+        (§10); ``job_ids`` restricts the batch to
+        those rows (recovery re-finishes precisely the jobs a crashed batch
+        left open). ``push_to`` belongs to a later slice and raises
         NotImplementedError."""
-        if journal:
-            raise not_ported("the finish journal", RECOVERY)
         if push_to is not None:
             raise not_ported("pushing to a remote", REMOTES)
         jobs = self.db.open_jobs()
@@ -288,10 +460,18 @@ class SlurmScheduler:
         if slurm_job_id is not None:
             jobs = [j for j in jobs if j["slurm_id"] == slurm_job_id]
         # one batched accounting query for the whole candidate set
-        states = self.cluster.sacct_many([j["slurm_id"] for j in jobs if j["slurm_id"] is not None])
+        states = self._retry_slurm(
+            lambda: self.cluster.sacct_many([j["slurm_id"] for j in jobs if j["slurm_id"] is not None]))
+        # a failed parent's afterok dependents were cancelled by the cluster
+        # and will never produce anything: close their rows (releasing their
+        # protection); the failed parent keeps the §5.2 discipline
+        dep_closed = self._close_failed_dependents(jobs, states)
         results: list[FinishResult] = []
         to_commit: list[tuple[dict, str]] = []
         for job in jobs:
+            if job["job_id"] in dep_closed:
+                results.append(FinishResult(job["job_id"], job["slurm_id"] or -1, "CANCELLED", None))
+                continue
             if job["slurm_id"] is None:
                 # a crash between add_jobs and set_slurm_ids left this row
                 # without a submission id: it can be neither queried nor
@@ -311,19 +491,50 @@ class SlurmScheduler:
                 results.append(FinishResult(job["job_id"], job["slurm_id"], state, None))
                 continue
             to_commit.append((job, state))
-        return results + self._commit_jobs_batched(to_commit, use_branch=branches or octopus, octopus=octopus)
+        if not to_commit:
+            return results
+        jh = JournalHandle.begin(self.repo, "finish", {
+            "branch": self.repo.current_branch(),
+            "jobs": [{"job_id": j["job_id"], "slurm_id": j["slurm_id"], "state": st} for j, st in to_commit],
+            # the reference's flags; its engine and data plane are the port's one path
+            "flags": {"branches": branches, "octopus": octopus, "engine": "incremental", "data_plane": "fused",
+                      "close_failed_jobs": close_failed_jobs, "commit_failed_jobs": commit_failed_jobs},
+        })
+        self.repo.crash_point("finish:journal-written")
+        # a failure mid-batch that is no crash leaves the journal: the jobs it
+        # covers are still open, and recover() or the next finish completes
+        # them exactly once
+        results += self._commit_jobs_batched(to_commit, use_branch=branches or octopus, octopus=octopus, journal=jh)
+        jh.done()
+        return results
+
+    def _close_failed_dependents(self, jobs: list[dict], states: dict[int, str]) -> set[int]:
+        """Close (transitively) every open afterok dependent of a job the
+        poll saw terminal but not COMPLETED, as ``cancelled-dependency``.
+        Returns the closed job ids."""
+        frontier = [j["job_id"] for j in jobs if j["slurm_id"] is not None
+                    and states.get(j["slurm_id"]) in S.TERMINAL and states.get(j["slurm_id"]) != S.COMPLETED]
+        closed: set[int] = set()
+        while frontier:
+            parent = frontier.pop()
+            for row in self.db.dependents_of(parent):
+                jid = row["job_id"]
+                if jid in closed or row["status"] != "scheduled":
+                    continue
+                self.db.close_job(jid, status="cancelled-dependency")
+                closed.add(jid)
+                frontier.append(jid)
+        return closed
 
     def _commit_jobs_batched(self, to_commit: list[tuple[dict, str]], use_branch: bool,
-                             octopus: bool) -> list[FinishResult]:
+                             octopus: bool, journal: JournalHandle) -> list[FinishResult]:
         """One commit per job (§5.1: one reproducibility record each), the
         whole batch on one base-tree read. The data plane runs first and
         outside the locks; the ordered metadata phase (record, commit
         chaining, ref publication, job closing) runs under the ref locks, so
         concurrent finishers publish serially. A crash between the phases
         loses nothing: ingested objects are content-addressed and the jobs
-        are still open."""
-        if not to_commit:
-            return []
+        are still open. Each commit is journaled before its ref moves."""
         repo = self.repo
         prepared = []
         for job, state in to_commit:
@@ -332,10 +543,12 @@ class SlurmScheduler:
                              for f in self.cluster.slurm_output_files(job["slurm_id"])]
             prepared.append((job, state, spec, slurm_outputs))
         staged = self._ingest_batch(prepared)
+        repo.crash_point("finish:after-ingest")
         results: list[FinishResult] = []
         new_branches: list[str] = []
         cache_rows: list[dict] = []  # §11: executions to memoize
-        # ref_lock serializes threads; the file lock serializes processes
+        # ref_lock serializes threads; the file lock serializes processes,
+        # and survives its holder's crash as a breakable stale lock
         with repo.ref_lock, repo.file_lock("refs"):
             branch = repo.current_branch()
             base = repo.branch_head(branch)
@@ -352,25 +565,33 @@ class SlurmScheduler:
                 message, spec_json = self._job_record(job, state, spec, slurm_outputs)
                 branch_name = None
                 if use_branch:
-                    # per-job branches all root at the shared base (§5.8)
+                    # per-job branches all root at the shared base (§5.8); a
+                    # branch a crashed finish already created is published again
                     branch_name = f"job/{job['slurm_id']}"
                     if repo.branch_head(branch_name) is None:
                         repo.create_branch(branch_name, at=base)
                     commit, _ = repo.commit_changes(staged[idx], message=message, base_commit=base,
                                                     base_tree=base_tree, spec=spec_json)
-                    repo.set_branch(branch_name, commit)
+                    publish_to = branch_name
                     new_branches.append(branch_name)
                 else:
                     commit, head_tree = repo.commit_changes(staged[idx], message=message, base_commit=head_commit,
                                                             base_tree=head_tree, spec=spec_json)
                     head_commit = commit
-                    # publish before closing the job: a closed job must
-                    # always have its commit reachable
-                    repo.set_branch(branch, commit)
+                    publish_to = branch
+                # journaled BEFORE the ref moves: the replay tells
+                # published from committed-only (exactly once)
+                journal.append({"job_id": job["job_id"], "commit": commit, "job_branch": branch_name})
+                repo.crash_point("finish:before-publish")
+                # publish before closing the job: a closed job must always
+                # have its commit reachable
+                repo.set_branch(publish_to, commit)
+                repo.crash_point("finish:after-publish")
                 ekey = job.get("exec_key")
                 if state == S.COMPLETED and not ekey:
                     # a job submitted with no key (its inputs did not resolve
-                    # then): derive it now that they are on disk
+                    # then, or a pipeline parent was about to write them):
+                    # derive it now that they are on disk
                     ekey = self.cache.execution_key(spec)
                 if state == S.COMPLETED and ekey:
                     entries = staged[idx]
@@ -382,9 +603,13 @@ class SlurmScheduler:
                         "annex_keys": sorted({e["key"] for e in entries.values() if e.get("t") == "annex"}),
                     })
                 self.db.close_job(job["job_id"], status="finished")
+                repo.crash_point("finish:after-close")
                 results.append(FinishResult(job["job_id"], job["slurm_id"], state, commit, branch_name))
             if octopus and new_branches:
-                repo.merge_octopus(new_branches, message=f"octopus merge of {len(new_branches)} slurm jobs")
+                repo.crash_point("finish:before-octopus")
+                merge = repo.merge_octopus(new_branches, message=f"octopus merge of {len(new_branches)} slurm jobs")
+                journal.append({"octopus": merge})
+                repo.crash_point("finish:after-octopus")
         # recorded after publication: a crash before this insert costs a
         # future cache miss, never a wrong hit
         self.db.cache_put(cache_rows)
@@ -429,6 +654,7 @@ class SlurmScheduler:
 
         def ingest_one(task: tuple[int, str, str | None]):
             idx, rel, src = task
+            repo.crash_point("finish:mid-ingest")
             if src is not None:
                 try:
                     return idx, rel, repo.ingest_external_file(src, rel)
@@ -538,13 +764,50 @@ class SlurmScheduler:
         copy of its exact stored spec. Race-safe: ``scancel`` is idempotent
         and reports a job that completed meanwhile as COMPLETED, which is
         left open for a normal ``finish``; returns None then, and when a
-        racing finisher already closed the row."""
+        racing finisher already closed the row.
+
+        Pipeline-aware (§14): the straggler's afterok dependents are first
+        detached and held (so the cancel cannot cascade into them), then
+        rewired onto the replacement's slurm id and released: they run
+        after the replacement, never after the cancelled original. Their
+        ``job_deps`` edges move to the replacement row."""
         job = self.db.get(job_id)
         if job is None:
             raise ScheduleError(f"unknown job {job_id}")
         if job["status"] != "scheduled" or job["slurm_id"] is None:
             return None
-        if self.cluster.scancel(job["slurm_id"]) == S.COMPLETED:
+        # detach held dependents BEFORE cancelling: a cancelled parent would
+        # otherwise cascade-cancel the very jobs to be re-parented
+        dependents = [r for r in self.db.dependents_of(job_id)
+                      if r["status"] == "scheduled" and r["slurm_id"] is not None]
+        detached = [d for d in dependents if self._retry_slurm(
+            lambda d=d: self.cluster.scontrol_update_dependency(d["slurm_id"], remove=[job["slurm_id"]], hold=True))]
+        if self._retry_slurm(lambda: self.cluster.scancel(job["slurm_id"])) == S.COMPLETED:
+            # lost the race: the job finished before the cancel landed; the
+            # afterok edges removed are satisfied by definition
+            for d in detached:
+                self.cluster.scontrol_release(d["slurm_id"])
             return None
         self.db.close_job(job_id, status="cancelled-straggler")
-        return self.submit(job_spec(job).replace(message=f"straggler reschedule of job {job_id}"))
+        try:
+            new_id = self.submit(job_spec(job).replace(message=f"straggler reschedule of job {job_id}"))
+        except BaseException as e:
+            if is_crash(e):
+                raise
+            # no replacement: the dependents' parent is gone, as a failed
+            # parent's would be, so cancel and close them
+            for d in detached:
+                self.cluster.scancel(d["slurm_id"])
+                self.db.close_job(d["job_id"], status="cancelled-dependency")
+            raise
+        new_row = self.db.get(new_id)
+        for d in detached:
+            if new_row["status"] == "scheduled" and new_row["slurm_id"] is not None:
+                self.cluster.scontrol_update_dependency(d["slurm_id"], add=[new_row["slurm_id"]])
+            # a memoized replacement needs no edge: its outputs exist already
+            self.cluster.scontrol_release(d["slurm_id"])
+        # move only the edges of the dependents the cluster detached: one it
+        # could not rewire (already started) still chains to the old job
+        if detached:
+            self.db.replace_dep_parent(job_id, new_id, children=[d["job_id"] for d in detached])
+        return new_id

@@ -18,18 +18,20 @@ drives every execution path of the paper's workflow through declarative
     s.wait()
     s.finish(octopus=True)
     s.reschedule(commitish=...)                    # exact-spec resubmission
+    s.run_pipeline(repro_torch.Pipeline(stages))   # a DAG of specs (§14)
+    s.recover(); s.verify()                        # after a crash (§10)
 
 The scheduler/cluster pair is built lazily, so a Session used only for
-``run``/``rerun`` never starts a thread pool. Methods of later slices (the
-DAG layer, recovery, remote tiers, gc) raise NotImplementedError naming
-their ROADMAP.md item.
+``run``/``rerun`` never starts a thread pool. Methods of later slices
+(remote tiers, gc) raise NotImplementedError naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
 import os
 
 from . import records as R
-from .later import COST_MODEL, DAG, PACKS, RECOVERY, REMOTES, not_ported
+from . import recovery
+from .later import COST_MODEL, PACKS, REMOTES, not_ported
 from .repo import REPRO_DIR, Repository
 from .scheduler import FinishResult, ScheduleError, SlurmScheduler
 from .slurm import LocalSlurmCluster, SlurmCluster
@@ -50,7 +52,7 @@ class Session:
     @property
     def cluster(self) -> SlurmCluster:
         if self._cluster is None:
-            self._cluster = LocalSlurmCluster(max_workers=self._max_workers)
+            self._cluster = LocalSlurmCluster(max_workers=self._max_workers, faults=self.repo.faults)
         return self._cluster
 
     @property
@@ -122,8 +124,29 @@ class Session:
         """Commit results of finished jobs (``slurm-finish``)."""
         return self.scheduler.finish(**kw)
 
-    def run_pipeline(self, pipeline, **kw) -> dict:
-        raise not_ported("run_pipeline", DAG)
+    def run_pipeline(self, pipeline, wait: bool = True, finish: bool = True, timeout: float = 600.0,
+                     **finish_kw) -> dict:
+        """Submit a :class:`~.dag.Pipeline` as one campaign (§14):
+        topologically batched ``submit_many`` calls chained with ``afterok``
+        edges, memoized stages cut out before anything reaches Slurm. With
+        ``wait`` (default) blocks until every real job is terminal; with
+        ``finish`` (default) then commits the results (``finish_kw`` go to
+        ``finish``). A campaign that failed midway is replayed by calling
+        ``run_pipeline`` again: completed stages come back from the run
+        cache and only the failed cone runs.
+
+        Returns ``{"jobs": {stage: job_id}, "results": [FinishResult]}``."""
+        jobs = self.scheduler.submit_pipeline(pipeline)
+        out: dict = {"jobs": dict(jobs), "results": []}
+        if not wait:
+            return out
+        open_ids = [jid for jid in jobs.values()
+                    if (row := self.scheduler.db.get(jid)) and row["status"] == "scheduled"]
+        if open_ids:
+            self.wait(open_ids, timeout=timeout)
+        if finish:
+            out["results"] = self.scheduler.finish(**finish_kw)
+        return out
 
     def reschedule(self, commitish: str | None = None, **kw) -> list[int]:
         """Resubmit from stored specs (``slurm-reschedule``)."""
@@ -174,30 +197,39 @@ class Session:
     def whereis(self, *a, **kw):
         raise not_ported("whereis", REMOTES)
 
-    def recover(self, *a, **kw):
-        raise not_ported("recover", RECOVERY)
+    # ------------------------------------------------------------- recovery
+    def recover(self) -> dict:
+        """Crash recovery (§10): break stale locks, sweep dead-owner tmp
+        files, replay intent journals (exactly-once finish and submit),
+        close orphan rows, release orphan protection. Idempotent; returns a
+        report."""
+        return recovery.recover(self)
 
-    def verify(self, *a, **kw):
-        raise not_ported("verify", RECOVERY)
+    def verify(self, repair: bool = False) -> dict:
+        """fsck: cross-check the job database, refs, object store and annex
+        and report divergence; ``repair=True`` fixes what is safe (§10)."""
+        return recovery.verify(self, repair=repair)
 
 
 def open(root: str, create: bool = False, cluster: SlurmCluster | None = None, max_workers: int = 8,
          profile=None, clock=None, faults=None, net_faults=None, **init_kwargs) -> Session:
     """Open (or with ``create=True``, initialize) a repository at ``root``
     and return a :class:`Session` over it. The §11 run cache is always on.
-    ``profile`` and ``clock`` (the filesystem cost model),
-    ``faults`` and ``net_faults`` belong to later slices and raise."""
+    ``faults`` attaches a :class:`~.faults.FaultPlan` to the repository and
+    the (lazily created) cluster, the fault-injection harness of §10.
+    ``profile`` and ``clock`` (the filesystem cost model) and ``net_faults``
+    (remote tiers) belong to later slices and raise."""
     for name, value, item in (("profile", profile, COST_MODEL), ("clock", clock, COST_MODEL),
-                              ("faults", faults, RECOVERY), ("net_faults", net_faults, REMOTES)):
+                              ("net_faults", net_faults, REMOTES)):
         if value is not None:
             raise not_ported(name, item)
     if os.path.isdir(os.path.join(root, REPRO_DIR)):
         if init_kwargs:
             raise TypeError(f"{sorted(init_kwargs)} only apply when initializing; "
                             f"{root} is already a repository (its stored config wins)")
-        repo = Repository(root)
+        repo = Repository(root, faults=faults)
     elif create:
-        repo = Repository.init(root, **init_kwargs)
+        repo = Repository.init(root, faults=faults, **init_kwargs)
     else:
         raise FileNotFoundError(f"not a repro repository: {root} (pass create=True to initialize)")
     return Session(repo, cluster=cluster, max_workers=max_workers)

@@ -10,12 +10,16 @@ subprocesses, so the whole protocol runs on one machine:
   - array jobs (one submission, many tasks, per-task states; the array is
     COMPLETED only if every task is),
   - the ``log.slurm-<id>.out`` output file and the ``slurm-job-<id>.env.json``
-    metadata file of paper §5.2, in the reference's bytes.
+    metadata file of paper §5.2, in the reference's bytes,
+  - ``afterok`` dependencies (§14): a job waits PENDING for its parents and
+    is cancelled when one ends in another terminal state, as Slurm's
+    ``--kill-on-invalid-dep=yes`` does; ``scontrol`` rewires a pending
+    job's parents and holds or releases it,
+  - a fault plan's Slurm rules and task fates (:mod:`.faults`).
 
 :class:`SubprocessSlurmCluster` shells out to a real ``sbatch``/``sacct``/
-``scancel``. Not ported (ROADMAP.md §A item 2.1, the DAG layer): afterok
-dependencies and their ``scontrol`` rewiring; the reference's simulated
-clock charges and fault injection are not ported either.
+``scancel``/``scontrol``. The reference's simulated clock charges are not
+ported (ROADMAP.md §A item 2.6).
 """
 from __future__ import annotations
 
@@ -27,8 +31,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
+from . import faults as _faults
 from .files import write_atomic
-from .later import DAG, not_ported
 
 # canonical Slurm states we model
 PENDING = "PENDING"
@@ -74,6 +78,9 @@ class SlurmJob:
     submit_time: float = field(default_factory=time.time)
     tasks: list[TaskState] = field(default_factory=list)
     cancelled: bool = False
+    dependency: list[int] = field(default_factory=list)  # afterok parents
+    held: bool = False  # scontrol hold: stay PENDING even with no dependency left
+    started: bool = False  # tasks handed to the pool (at most once)
 
     def aggregate_state(self) -> str:
         states = [t.state for t in self.tasks]
@@ -95,14 +102,23 @@ class SlurmCluster:
     def sbatch(self, script: str, workdir: str, args: str = "", array_n: int = 1,
                time_limit_s: float | None = None, env: dict | None = None,
                dependency: list[int] | None = None) -> int:
+        """Submit a job. ``dependency`` lists parent job ids with ``afterok``
+        semantics: the job stays PENDING until every parent is COMPLETED,
+        and is cancelled if any parent ends in another terminal state."""
         raise NotImplementedError
 
     def scontrol_update_dependency(self, job_id: int, add: list[int] | None = None,
                                    remove: list[int] | None = None, hold: bool = False) -> bool:
-        raise not_ported("an afterok dependency", DAG)
+        """Rewire a *pending* job's afterok parents (``scontrol update
+        Dependency=...``); ``hold`` also holds it, so it does not start even
+        if no parent is left (callers remove+hold, then add+release once the
+        replacement parent exists). False if the job already started or
+        finished."""
+        raise NotImplementedError
 
     def scontrol_release(self, job_id: int) -> None:
-        raise not_ported("an afterok dependency", DAG)
+        """Clear a hold set by :meth:`scontrol_update_dependency`."""
+        raise NotImplementedError
 
     def sacct(self, job_id: int) -> str:
         raise NotImplementedError
@@ -126,32 +142,111 @@ class SlurmCluster:
 
 
 class LocalSlurmCluster(SlurmCluster):
-    def __init__(self, max_workers: int = 8, first_job_id: int = 11_452_000):
+    def __init__(self, max_workers: int = 8, first_job_id: int = 11_452_000, faults=None):
         self.pool = ThreadPoolExecutor(max_workers=max_workers)
+        self.faults = faults  # a FaultPlan: Slurm rules and task fates
         self._jobs: dict[int, SlurmJob] = {}
         self._procs: dict[tuple[int, int], subprocess.Popen] = {}
-        self._lock = threading.Lock()
+        # re-entrant: dependency resolution runs inside _maybe_done, which is
+        # reached with and without the lock held
+        self._lock = threading.RLock()
         self._next_id = first_job_id
         self._done_events: dict[int, threading.Event] = {}
+        self._waiting: dict[int, set[int]] = {}  # held job -> unmet parents
+        self._dependents: dict[int, list[int]] = {}  # parent -> held children
 
     # -- submission ------------------------------------------------------
     def sbatch(self, script: str, workdir: str, args: str = "", array_n: int = 1,
                time_limit_s: float | None = None, env: dict | None = None,
                dependency: list[int] | None = None) -> int:
-        if dependency:
-            raise not_ported("an afterok dependency", DAG)
+        if self.faults is not None:
+            self.faults.on_slurm("sbatch")
         if not os.path.exists(os.path.join(workdir, script)) and not os.path.isabs(script):
             raise FileNotFoundError(f"job script not found: {script} (cwd {workdir})")
+        failed_parent = False
         with self._lock:
+            # validate the whole dependency list before registering the job:
+            # raising mid-registration would leave a never-terminal PENDING
+            # job and stale _dependents entries for earlier parents
+            for p in dependency or []:
+                if p not in self._jobs:
+                    raise KeyError(f"unknown dependency job {p}")
             job_id = self._next_id
             self._next_id += 1
             job = SlurmJob(job_id=job_id, script=script, args=args, workdir=workdir, array_n=array_n,
-                           time_limit_s=time_limit_s, env=env, tasks=[TaskState() for _ in range(array_n)])
+                           time_limit_s=time_limit_s, env=env, tasks=[TaskState() for _ in range(array_n)],
+                           dependency=list(dependency or []))
             self._jobs[job_id] = job
             self._done_events[job_id] = threading.Event()
-        for task_id in range(array_n):
-            self.pool.submit(self._run_task, job, task_id)
+            waiting: set[int] = set()
+            for p in job.dependency:
+                # a parent whose done-event is set has resolved its dependents
+                # already (or is doing so): resolve this edge here, since a
+                # late registration would never be visited
+                if self._done_events[p].is_set():
+                    if self._jobs[p].aggregate_state() != COMPLETED:
+                        failed_parent = True
+                    continue
+                waiting.add(p)
+                self._dependents.setdefault(p, []).append(job_id)
+            if failed_parent:
+                self._detach(job_id)
+            elif waiting:
+                self._waiting[job_id] = waiting
+        if failed_parent:
+            self._cancel_dependent(job)
+        elif not waiting:
+            self._start_tasks(job)
         return job_id
+
+    def _start_tasks(self, job: SlurmJob) -> None:
+        with self._lock:
+            if job.started or job.cancelled:
+                return
+            job.started = True
+        for task_id in range(job.array_n):
+            self.pool.submit(self._run_task, job, task_id)
+
+    def _detach(self, job_id: int) -> None:
+        """Drop every parent -> ``job_id`` registration (lock held)."""
+        self._waiting.pop(job_id, None)
+        for deps in self._dependents.values():
+            while job_id in deps:
+                deps.remove(job_id)
+
+    def _cancel_dependent(self, job: SlurmJob) -> None:
+        """A parent ended non-COMPLETED: the afterok child dies PENDING."""
+        with self._lock:
+            job.cancelled = True
+            for t in job.tasks:
+                if t.state == PENDING:
+                    t.state = CANCELLED
+        self._maybe_done(job)
+
+    def _resolve_dependents(self, job: SlurmJob) -> None:
+        """``job`` is terminal: release or cancel its held children."""
+        state = job.aggregate_state()
+        to_start: list[SlurmJob] = []
+        to_cancel: list[SlurmJob] = []
+        with self._lock:
+            for child_id in self._dependents.pop(job.job_id, []):
+                waiting = self._waiting.get(child_id)
+                if waiting is None:
+                    continue
+                child = self._jobs[child_id]
+                if state == COMPLETED:
+                    waiting.discard(job.job_id)
+                    if not waiting:
+                        del self._waiting[child_id]
+                        if not child.held:
+                            to_start.append(child)
+                else:
+                    self._detach(child_id)
+                    to_cancel.append(child)
+        for child in to_start:
+            self._start_tasks(child)
+        for child in to_cancel:
+            self._cancel_dependent(child)  # cascades through _maybe_done
 
     def _log_path(self, job: SlurmJob, task_id: int) -> str:
         if job.array_n > 1:
@@ -167,6 +262,21 @@ class LocalSlurmCluster(SlurmCluster):
                 return
             task.state = RUNNING
             task.start_time = time.time()
+        if self.faults is not None:
+            # an injected node-level fate (NODE_FAIL / PREEMPTED / TIMEOUT /
+            # FAILED): the task "ran" on a node that died; it never executes,
+            # but accounting reports a terminal state
+            try:
+                fate = self.faults.task_fate()
+            except _faults.CrashInjected:
+                fate = None  # the client died; the compute nodes did not
+            if fate is not None:
+                task.state = fate
+                task.exit_code = -1
+                task.end_time = time.time()
+                self._write_env_json(job)
+                self._maybe_done(job)
+                return
         env = dict(os.environ)
         if job.env:
             env.update(job.env)  # spec env first; SLURM identity vars win
@@ -227,6 +337,7 @@ class LocalSlurmCluster(SlurmCluster):
     def _maybe_done(self, job: SlurmJob) -> None:
         if all(t.state in TERMINAL for t in job.tasks):
             self._done_events[job.job_id].set()
+            self._resolve_dependents(job)
 
     def _job(self, job_id: int) -> SlurmJob:
         job = self._jobs.get(job_id)
@@ -235,13 +346,22 @@ class LocalSlurmCluster(SlurmCluster):
         return job
 
     # -- queries -----------------------------------------------------------
+    def _on_slurm(self, op: str) -> None:
+        if self.faults is not None:
+            self.faults.on_slurm(op)
+
     def sacct(self, job_id: int) -> str:
+        self._on_slurm("sacct")
         return self._job(job_id).aggregate_state()
 
     def sacct_many(self, job_ids: list[int]) -> dict[int, str]:
+        if not job_ids:
+            return {}  # nothing to poll: no accounting query
+        self._on_slurm("sacct")
         return {job_id: self._job(job_id).aggregate_state() for job_id in job_ids}
 
     def sacct_tasks(self, job_id: int) -> list[str]:
+        self._on_slurm("sacct")
         return [t.state for t in self._job(job_id).tasks]
 
     def job_runtime(self, job_id: int) -> float | None:
@@ -262,6 +382,7 @@ class LocalSlurmCluster(SlurmCluster):
         """Idempotent cancel: unknown ids and already-terminal jobs are
         no-ops, so a straggler that completed between being flagged and
         being cancelled keeps its COMPLETED state."""
+        self._on_slurm("scancel")
         with self._lock:
             job = self._jobs.get(job_id)
             if job is None:
@@ -269,6 +390,7 @@ class LocalSlurmCluster(SlurmCluster):
             if all(t.state in TERMINAL for t in job.tasks):
                 return job.aggregate_state()
             job.cancelled = True
+            self._detach(job_id)  # a held job cancelled directly stops waiting
             for t in job.tasks:
                 if t.state == PENDING:
                     t.state = CANCELLED
@@ -277,6 +399,59 @@ class LocalSlurmCluster(SlurmCluster):
             p.kill()
         self._maybe_done(job)
         return job.aggregate_state()
+
+    def scontrol_update_dependency(self, job_id: int, add: list[int] | None = None,
+                                   remove: list[int] | None = None, hold: bool = False) -> bool:
+        self._on_slurm("scontrol")
+        failed_parent = False
+        with self._lock:
+            job = self._jobs.get(job_id)
+            if job is None or job.started or job.cancelled:
+                return False
+            # validate before mutating: a KeyError mid-rewire would leave the
+            # job half-detached and out of _waiting for good
+            for a in add or []:
+                if a not in self._jobs:
+                    raise KeyError(f"unknown dependency job {a}")
+            waiting = self._waiting.pop(job_id, set())
+            for r in remove or []:
+                waiting.discard(r)
+                if r in self._dependents:
+                    while job_id in self._dependents[r]:
+                        self._dependents[r].remove(job_id)
+                if r in job.dependency:
+                    job.dependency.remove(r)
+            for a in add or []:
+                job.dependency.append(a)
+                if self._done_events[a].is_set():
+                    if self._jobs[a].aggregate_state() != COMPLETED:
+                        failed_parent = True
+                    continue
+                waiting.add(a)
+                self._dependents.setdefault(a, []).append(job_id)
+            if hold:
+                job.held = True
+            if failed_parent:
+                self._detach(job_id)
+            elif waiting:
+                self._waiting[job_id] = waiting
+            release_now = not failed_parent and not waiting and not job.held
+        if failed_parent:
+            self._cancel_dependent(job)
+        elif release_now:
+            self._start_tasks(job)
+        return True
+
+    def scontrol_release(self, job_id: int) -> None:
+        self._on_slurm("scontrol")
+        with self._lock:
+            job = self._jobs.get(job_id)
+            if job is None:
+                return
+            job.held = False
+            start = not job.started and not job.cancelled and job_id not in self._waiting
+        if start:
+            self._start_tasks(job)
 
     def wait(self, job_ids: list[int] | None = None, timeout: float = 300.0) -> None:
         ids = job_ids if job_ids is not None else list(self._jobs)
@@ -296,13 +471,17 @@ class SubprocessSlurmCluster(SlurmCluster):
     def sbatch(self, script: str, workdir: str, args: str = "", array_n: int = 1,
                time_limit_s: float | None = None, env: dict | None = None,
                dependency: list[int] | None = None) -> int:
-        if dependency:
-            raise not_ported("an afterok dependency", DAG)
         cmd = ["sbatch", "--parsable"]
         if array_n > 1:
             cmd.append(f"--array=0-{array_n - 1}")
         if time_limit_s:
             cmd.append(f"--time={max(1, int(time_limit_s // 60))}")
+        if dependency:
+            # kill-on-invalid-dep: a failed parent drains the cone instead of
+            # leaving DependencyNeverSatisfied jobs pinning the queue, as the
+            # local cluster's cancel-on-parent-failure does
+            cmd.append("--dependency=afterok:" + ":".join(str(d) for d in dependency))
+            cmd.append("--kill-on-invalid-dep=yes")
         cmd += [script] + ([a for a in args.split() if a] if args else [])
         # spec env goes through the submission environment (sbatch defaults
         # to --export=ALL), not the --export flag: values with commas or '='
@@ -341,6 +520,53 @@ class SubprocessSlurmCluster(SlurmCluster):
         # real scancel is already idempotent on terminal jobs (exit 0)
         subprocess.run(["scancel", str(job_id)], check=True)
         return None
+
+    def scontrol_update_dependency(self, job_id: int, add: list[int] | None = None,
+                                   remove: list[int] | None = None, hold: bool = False) -> bool:
+        # hold first: 'scontrol update Dependency=' replaces the whole
+        # expression, and a job left dependency-free for a moment before a
+        # later hold could start
+        if hold and subprocess.run(["scontrol", "hold", str(job_id)]).returncode != 0:
+            return False
+        ok = self._rewrite_dependency(job_id, add or [], remove or [])
+        if not ok and hold:
+            subprocess.run(["scontrol", "release", str(job_id)])  # no stray hold on a job not rewired
+        return ok
+
+    def _rewrite_dependency(self, job_id: int, add: list[int], remove: list[int]) -> bool:
+        # scontrol REPLACES the Dependency expression: read the current one
+        # and write back current - remove + add, so a remove keeps the job's
+        # other afterok parents and any non-afterok clauses
+        out = subprocess.run(["scontrol", "show", "job", str(job_id)], capture_output=True, text=True)
+        if out.returncode != 0:
+            return False
+        state, expr = "", ""
+        for tok in out.stdout.split():
+            if tok.startswith("JobState="):
+                state = tok.split("=", 1)[1]
+            elif tok.startswith("Dependency="):
+                expr = tok.split("=", 1)[1]
+        if state != PENDING:
+            return False  # a started or finished job cannot be rewired
+        afterok: list[int] = []
+        others: list[str] = []
+        if expr not in ("", "(null)"):
+            for clause in expr.split(","):
+                kind, _, rest = clause.partition(":")
+                if kind == "afterok":
+                    # newer Slurm annotates ids, e.g. afterok:123(unfulfilled)
+                    ids = [p.partition("(")[0] for p in rest.split(":")]
+                    afterok += [int(p) for p in ids if p.isdigit()]
+                else:
+                    others.append(clause)
+        keep = [i for i in afterok if i not in set(remove)]
+        keep += [a for a in add if a not in keep]
+        clauses = others + (["afterok:" + ":".join(str(i) for i in keep)] if keep else [])
+        return subprocess.run(["scontrol", "update", f"JobId={job_id}",
+                               f"Dependency={','.join(clauses)}"]).returncode == 0
+
+    def scontrol_release(self, job_id: int) -> None:
+        subprocess.run(["scontrol", "release", str(job_id)], check=True)
 
     def wait(self, job_ids: list[int] | None = None, timeout: float = 300.0) -> None:
         deadline = time.time() + timeout

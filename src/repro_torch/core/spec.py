@@ -226,17 +226,35 @@ class RunSpec:
         return cls.from_json(json.loads(data))
 
     # ---------------------------------------------------- input resolution
-    def missing_inputs(self, root: str) -> list[str]:
+    @staticmethod
+    def _provided_set(provided) -> set[str]:
+        return {normalize(p) for p in provided} if provided else set()
+
+    @staticmethod
+    def _is_provided(name: str, prov: set[str]) -> bool:
+        """Is ``name`` one of (or nested under) the provided paths?"""
+        if not prov:
+            return False
+        n = normalize(name)
+        return n in prov or any(n.startswith(p + "/") for p in prov)
+
+    def missing_inputs(self, root: str, provided=()) -> list[str]:
         """Non-wildcard inputs that do not exist under ``root``. Wildcard
         inputs are never 'missing': an empty glob is legal, like ``datalad
-        run``. (The reference's ``provided`` paths, an upstream pipeline
-        stage's outputs, belong to the DAG layer, ROADMAP.md §A item 2.1.)"""
-        return [i for i in self.inputs if not has_wildcard(i) and not os.path.exists(os.path.join(root, i))]
+        run``. ``provided`` lists paths an upstream pipeline stage produces:
+        they do not exist *yet* but will by the time an ``afterok``
+        dependency releases this job, so they are not missing."""
+        prov = self._provided_set(provided)
+        return [i for i in self.inputs if not has_wildcard(i) and not os.path.exists(os.path.join(root, i))
+                and not self._is_provided(i, prov)]
 
-    def expand_inputs(self, root: str) -> list[str]:
+    def expand_inputs(self, root: str, provided=()) -> list[str]:
         """Resolve inputs against ``root``: wildcard patterns glob-expand to
         the (sorted) matching paths, literal paths pass through verbatim.
-        Raises FileNotFoundError for a missing literal input."""
+        Raises FileNotFoundError for a missing literal input, unless it is
+        in ``provided`` (an upstream stage creates it before the job starts):
+        then it is skipped, there is nothing to stage yet."""
+        prov = self._provided_set(provided)
         out: list[str] = []
         for i in self.inputs:
             if has_wildcard(i):
@@ -244,6 +262,8 @@ class RunSpec:
                 out.extend(os.path.relpath(m, root) for m in matches)
             elif os.path.exists(os.path.join(root, i)):
                 out.append(i)
+            elif self._is_provided(i, prov):
+                continue
             else:
                 raise FileNotFoundError(f"input does not exist: {i}")
         return out

@@ -18,7 +18,8 @@ restores in the other.
 ``save`` takes tensors on any device (or numpy arrays): each leaf is copied
 to the host once. ``save_async`` takes that copy, then writes and commits
 on a worker thread; a failure there is re-raised from ``wait()`` or the next
-``save_async``. ``restore`` reads, verifies and loads the leaves on a thread
+``save_async``. A save marks the crash points ``ckpt:leaves-written`` and
+``ckpt:after-commit`` of the repository's fault plan. ``restore`` reads, verifies and loads the leaves on a thread
 pool and returns tensors on ``device``.
 
 Sharded state (DTensor leaves, every rank of the process group calling):
@@ -221,14 +222,19 @@ class CheckpointManager:
                                         "key": key, "chunked": chunked}
         self.repo.write_file(f"{reldir}/manifest.json",
                              json.dumps(manifest, indent=1, sort_keys=True).encode())
+        # a crash here leaves published leaves and chunks but no commit:
+        # recovery finds no divergence, and the orphans wait for gc
+        self.repo.crash_point("ckpt:leaves-written")
         cmd = f"checkpoint --step {step}"
         record = RunRecord(cmd=cmd, dsid=self.repo.dsid, outputs=[reldir],
                            extras={"checkpoint_step": step, "data_step": data_step, **(extra or {})})
         msg = message or f"{MARKER} step {step}"
         if MARKER not in msg:
             msg = f"{MARKER} {msg}"
-        return self.repo.save(paths=[reldir], message=record.to_message(msg),
-                              spec=RunSpec(cmd=cmd, outputs=[reldir]).to_json())
+        oid = self.repo.save(paths=[reldir], message=record.to_message(msg),
+                             spec=RunSpec(cmd=cmd, outputs=[reldir]).to_json())
+        self.repo.crash_point("ckpt:after-commit")
+        return oid
 
     # ---------------------------------------------------------- restore
     def _walk(self, head: str, seen: set, old_head: str | None):

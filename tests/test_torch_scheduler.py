@@ -21,7 +21,10 @@ by each package's ``LocalSlurmCluster`` as subprocesses.
 - ``SubprocessSlurmCluster`` against fake ``sbatch``/``sacct``/``scancel``
   on ``PATH``: the same command lines and parsed states as the reference's.
 - Eight threads finishing one batch at once commit each job once;
-  stragglers; the refusals of later slices; ``repro_torch.open``.
+  stragglers; the refusals of later slices (a filesystem fault rule among
+  them); ``repro_torch.open``. (The DAG layer and recovery are held
+  against the reference in ``test_torch_dag.py`` and
+  ``test_torch_recovery.py``.)
 - Two serving jobs of smoke qwen3 from a port checkpoint, with
   ``chip_smoke.py``'s phase-35 script, on the CPU: one octopus merge, and
   each job's tokens equal to ``serve.run``'s in this process.
@@ -396,13 +399,13 @@ def test_subprocess_cluster_runs_the_reference_command_lines(tmp_path, monkeypat
                        env={"X": "a,b=c"})
         states = (c.sacct(jid), c.sacct_many([4242, 4243, 4244]), c.sacct_tasks(4242), c.scancel(4242))
         c.wait([4244], timeout=10)
-        seen[side] = (jid, states, log.read_text())
+        child = c.sbatch("job.sh", workdir=str(tmp_path), dependency=[4240, 4241])
+        seen[side] = (jid, states, child, log.read_text())
     assert seen["port"] == seen["ref"]
-    jid, (one, many, tasks, cancelled), log = seen["port"]
+    jid, (one, many, tasks, cancelled), child, log = seen["port"]
     assert jid == 4242 and one == "CANCELLED" and many == {4242: "FAILED", 4243: "RUNNING", 4244: "COMPLETED"}
     assert "sbatch --parsable --array=0-2 --time=10 job.sh --n 3" in log and "X=a,b=c" in log
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A item 2.1"):
-        S.SubprocessSlurmCluster().sbatch("job.sh", workdir=str(tmp_path), dependency=[1])
+    assert child == 4242 and "sbatch --parsable --dependency=afterok:4240:4241 --kill-on-invalid-dep=yes job.sh" in log
 
 
 # ------------------------------------------------------------------ concurrency
@@ -478,14 +481,14 @@ def test_open_returns_a_session_and_refuses_later_slices(tmp_path):
         repro_torch.open(str(tmp_path / "missing"))
     with pytest.raises(TypeError, match="only apply when initializing"):
         repro_torch.open(str(tmp_path / "r"), annex_threshold=1)
-    later = [lambda: s.gc(), lambda: s.run_pipeline(None), lambda: s.add_remote("x"), lambda: s.push(),
-             lambda: s.pull(), lambda: s.fetch(), lambda: s.drop("x"), lambda: s.whereis(), lambda: s.recover(),
-             lambda: s.verify(), lambda: s.finish(journal=True), lambda: s.finish(push_to="site0"),
-             lambda: s.scheduler.submit_many([], dependencies=[]),
-             lambda: s.cluster.scontrol_release(1), lambda: repro_torch.open(str(tmp_path / "r"), profile="gpfs")]
+    later = [lambda: s.gc(), lambda: s.add_remote("x"), lambda: s.push(),
+             lambda: s.pull(), lambda: s.fetch(), lambda: s.drop("x"), lambda: s.whereis(),
+             lambda: s.finish(push_to="site0"), lambda: repro_torch.open(str(tmp_path / "r"), profile="gpfs")]
     for call in later:
         with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §A item 2\.\d"):
             call()
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §A item 2\.6"):
+        repro_torch.FaultPlan(rules=[repro_torch.FaultRule(op="read")])
     s.close()
     with pytest.raises(OutputConflict):
         JobDB(s.repo.repro_dir).add_jobs([repro_torch.RunSpec(script="a.sh", outputs=["o"]),
