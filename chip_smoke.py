@@ -326,6 +326,40 @@ Phases; any failure exits non-zero before the result lines are printed.
                     stage's submit-to-result and runtime, the finishes, the
                     recover and verify seconds and report, the killed
                     finish's journal bytes and lines, and the launches.
+ 37. remote sites — in phase 28's repository, after phase 36 (nothing timed
+                    on the card beside it): opened on the GPFS cost model
+                    with one ``SimClock``; sites siteA (LAN) and siteB
+                    (WAN) added under a temporary directory. (1) The step-8
+                    checkpoint's annex keys pushed to both under a seeded
+                    ``NetworkFaultModel`` (one transient error and one
+                    mid-stream disconnect on siteB's sends): retries >= 2,
+                    one stranded tmp on siteB, not swept while its session
+                    lives and swept by the next open. (2) A second push, of
+                    fresh content (4 files of 1 MiB) to siteA, killed at
+                    ``remote:push-mid-object``; ``recover()`` must replay
+                    the push journal (``pushes_resumed`` 1), and the
+                    objects sent before and after the kill must add up to
+                    the ones the site lacked, none twice. (3) The params
+                    leaves' local copies dropped under numcopies (fresh
+                    probes), the repository reopened with siteA in an
+                    outage, and pulled: a failover or siteA skipped, every
+                    key from siteB, each file hashing to its key. (4) The
+                    step-8 commit served through ``serve.run(repo=...)`` as
+                    phase 28 served it: equal tokens, 2 flash launches a
+                    prefill. (5) ROADMAP.md §C7: a params leaf dropped
+                    again and ``CheckpointManager``'s restore run with
+                    siteA down: it fetches from siteB (the reference
+                    raises), bit for bit the weights read before. (6)
+                    ``verify()``: no divergence, the location rows checked
+                    against fresh probes, none stale. (7) One CPU Slurm job
+                    (``python3`` with numpy) finished with
+                    ``push_to="siteB"``: its output on siteB and in the
+                    location rows. Prints each step's wall seconds, bytes
+                    and objects per site, retries, failovers, the bytes
+                    the store wrote (its byte counters count real bytes),
+                    and the clock's modelled seconds and metadata
+                    operations, which are a model of GPFS and the links,
+                    not a measurement.
 Phases 3, 4 and 9 also run one backward through each kernel op
 (``ops.flash_attention``, ``ops.rwkv6``, ``ops.mamba_scan``) at a small fp32
 shape and hold its gradients against the plain version's autograd.
@@ -1401,7 +1435,7 @@ def campaign_phase(torch, np, configs, serve, kernels: dict, dev, seed: int, rep
     """Phase 28 (see the module docstring), in the empty directory
     ``repo_dir``. Returns (training launches by wrapper, steps trained,
     serving launches by wrapper, prefills served, the step-8 checkpoint
-    commit)."""
+    commit, the served tokens on the CPU)."""
     from repro_torch.core.records import RunRecord
     from repro_torch.core.repo import Repository
     from repro_torch.launch import campaign
@@ -1523,7 +1557,7 @@ def campaign_phase(torch, np, configs, serve, kernels: dict, dev, seed: int, rep
           f"first of each dataset loads its shards); {len(handed)} batches equal to numpy's; whole run {wall:.3f} s; "
           f"launches {train_launches}")
     print("campaign lineage from the last checkpoint: " + "; ".join(f"{o[:12]} {t}" for o, t in res.lineage))
-    return train_launches, end2, serve_launches, serve_res.prefills, last
+    return train_launches, end2, serve_launches, serve_res.prefills, last, serve_res.tokens.cpu()
 
 
 def serving_job_specs(repo_root: str, commit: str, n: int, *, full: bool, device: str,
@@ -1892,6 +1926,230 @@ def pipeline_phase(torch, np, configs, repo_dir: str, commit: str, seed: int, *,
           f"{served['flash_attention_fwd']} over {served['prefills']} prefill; card: {smi}")
     return {"flash_attention_fwd": served["flash_attention_fwd"], "rwkv6_fwd": 0, "mamba_scan_fwd": 0}, \
         served["prefills"]
+
+
+REMOTE_FRESH = dict(files=4, nbytes=1 << 20)  # phase 37: the killed push's fresh content
+# phase 37's CPU job, run by the local cluster in remote/job/ and finished with push_to="siteB"
+REMOTE_JOB = """#!/bin/bash
+# a CPU job: 256 x 256 float64 from numpy's seeded generator
+python3 - <<'EOF'
+import numpy as np
+np.save("out.npy", np.random.default_rng({seed}).standard_normal((256, 256)))
+EOF
+"""
+
+
+def leaves_of(tree: dict, prefix: str = ""):
+    """(path, tensor) of every leaf of a nested dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from leaves_of(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def remote_phase(torch, np, configs, serve, kernels: dict, dev, seed: int, repo_dir: str, commit: str, want_tokens,
+                 *, full: bool, device: str, overrides: dict | None, smi: str, shape: dict = SERVE):
+    """Phase 37 (see the module docstring) in the repository ``repo_dir``
+    that holds the checkpoint ``commit``, which phase 28 served as
+    ``want_tokens``. Returns (the serve's launches by wrapper, prefills)."""
+    import repro_torch
+    from repro_torch import GPFS, NetFaultRule, NetworkFaultModel, SimClock
+    from repro_torch.core.faults import CrashInjected, kill_token
+    from repro_torch.core.fsio import FS
+    from repro_torch.core.hashing import annex_key_for_file, parse_annex_key
+    from repro_torch.core.records import RunRecord
+    from repro_torch.core.repo import Repository
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    cfg = (configs.get if full else configs.get_smoke)("qwen3_0_6b").replace(**(overrides or {}))
+    clock = SimClock()  # every session of the phase charges this one clock
+    walls, phase_t = {}, time.perf_counter()
+    repo = Repository(repo_dir)
+    step = RunRecord.from_message(repo.objects.get_commit(commit)["message"]).extras["checkpoint_step"]
+    reldir = f"checkpoints/step_{step:08d}"
+    leaves = json.loads(CheckpointManager(repo)._tree_bytes(commit, f"{reldir}/manifest.json"))["leaves"]
+    keys = sorted({m["key"] for m in leaves.values()})  # leaves of equal content share one key
+    params = {f"{reldir}/{m['file']}": m["key"] for p, m in leaves.items() if p.startswith("params/")}
+    ckpt_bytes = sum(parse_annex_key(k)[0] for k in keys)
+    params_bytes = sum(parse_annex_key(k)[0] for k in set(params.values()))
+
+    def outage():  # a rule counts its own calls: each model gets a fresh one
+        return NetworkFaultModel(seed=seed, rules=[NetFaultRule(op="*", remote="siteA", kind="outage", nth=1)])
+
+    sessions = []
+
+    def session(**kw):
+        sessions.append(repro_torch.open(repo_dir, profile=GPFS, clock=clock, **kw))
+        return sessions[-1]
+
+    def end(sess) -> None:
+        """The session's process ends: its incarnations (the repository's
+        and its links to the sites) are dead, so the next open may sweep
+        the tmps they left."""
+        sess.close()
+        for fs in [sess.repo.fs, *(st.fs for st in sess.repo.remote_stores)]:
+            kill_token(fs.token)
+
+    with tempfile.TemporaryDirectory() as sites:
+        try:
+            # 1. on the cost model, two sites; the checkpoint pushed under network faults
+            t = time.perf_counter()
+            s = session(net_faults=NetworkFaultModel(seed=seed, rules=[
+                NetFaultRule(op="send", remote="siteB", kind="error", nth=1, times=1),
+                NetFaultRule(op="send", remote="siteB", kind="disconnect", nth=3, times=1)]))
+            site_a = s.add_remote(f"{sites}/siteA", name="siteA", net="lan")
+            site_b = s.add_remote(f"{sites}/siteB", name="siteB", net="wan")
+            pushed = s.push(keys=keys)
+            walls["push"] = time.perf_counter() - t
+            retries = sum(r["retries"] for r in pushed)
+            stranded = [n for n in os.listdir(site_b.root) if n.startswith("tmp-")]
+            if ([(r["keys_sent"], r["bytes_sent"]) for r in pushed] != [(len(keys), ckpt_bytes)] * 2
+                    or retries < 2 or len(stranded) != 1 or site_b.count_stale_tmps(max_age_s=None) != 0):
+                fail(f"the faulted push: reports {pushed}, siteB's tmps {stranded} (stale while its session lives: "
+                     f"{site_b.count_stale_tmps(max_age_s=None)})")
+            sent = {st.name: (st.bytes_sent, st.transfers) for st in (site_a, site_b)}
+            end(s)
+            # 2. a push of fresh content, killed mid-object, replayed by recover()
+            t = time.perf_counter()
+            rng = np.random.default_rng(seed)
+            fresh = [f"remote/fresh_{i}.bin" for i in range(REMOTE_FRESH["files"])]
+            for rel in fresh:
+                (Path(repo_dir) / rel).parent.mkdir(parents=True, exist_ok=True)
+                (Path(repo_dir) / rel).write_bytes(rng.bytes(REMOTE_FRESH["nbytes"]))
+            s = session(faults=repro_torch.FaultPlan(crash_at={"remote:push-mid-object": 1}))
+            swept = [n for n in os.listdir(s.repo.remote_by_name("siteB").root) if n.startswith("tmp-")]
+            if swept:
+                fail(f"opening the repository again did not sweep siteB's stranded tmp: {swept}")
+            s.save(paths=fresh, message="fresh content for a killed push")
+            fresh_keys = [s.repo.annex_key_at(rel) for rel in fresh]
+            killed_a = s.repo.remote_by_name("siteA")
+            try:
+                s.push(remote="siteA", keys=fresh_keys)
+            except CrashInjected:
+                before = (killed_a.transfers, killed_a.bytes_sent)
+            else:
+                fail("the push with crash point remote:push-mid-object did not crash")
+            end(s)
+            s = session()
+            site_a = s.repo.remote_by_name("siteA")
+            report = s.recover()
+            after = (site_a.transfers, site_a.bytes_sent)
+            walls["killed push and recover"] = time.perf_counter() - t
+            lacked = len(fresh_keys)
+            if (report["pushes_resumed"] != 1 or report["errors"] or before[0] + after[0] != lacked
+                    or before[1] + after[1] != lacked * REMOTE_FRESH["nbytes"] or before[0] < 1
+                    or site_a.has_many(fresh_keys, fresh=True) != set(fresh_keys)):
+                fail(f"the killed push: {before} objects and bytes before the kill, {after} after, of {lacked} "
+                     f"lacked; recover() {report}")
+            # 3. the params' local copies dropped, siteA down, pulled back from siteB
+            t = time.perf_counter()
+            for rel in params:
+                s.drop(rel)
+            if any(s.repo.annex.has(k, fresh=True) for k in params.values()):
+                fail("a dropped params leaf is still in the local annex")
+            s.close()
+            s = session(net_faults=outage())
+            pulled = s.pull(keys=sorted(set(params.values())))
+            site_b = s.repo.remote_by_name("siteB")
+            walls["drop and pull"] = time.perf_counter() - t
+            if (pulled["keys_fetched"] != len(set(params.values())) or set(pulled["sources"].values()) != {"siteB"}
+                    or not (pulled["failovers"] >= 1 or not s.repo.remote_by_name("siteA").available)
+                    or pulled["bytes_received"] != params_bytes
+                    or any(annex_key_for_file(s.repo.annex._path(k)) != k for k in params.values())):
+                fail(f"the pull with siteA down: {pulled}")
+            received = (site_b.bytes_received, site_b.transfers)
+            s.close()
+            # 4. served from the pulled-back checkpoint, as phase 28 served it
+            t = time.perf_counter()
+            for counter in kernels.values():
+                counter.launches = 0
+            res = serve.run("qwen3_0_6b", full=full, device=dev, dtype="bfloat16", seed=seed, overrides=overrides,
+                            repo=repo_dir, commit=commit, **shape)
+            launches = {counter.__name__: counter.launches for counter in kernels.values()}
+            walls["serve"] = time.perf_counter() - t
+            per_prefill = cfg.n_layers if device == "cuda" else 0  # the CPU runs the plain version
+            if (launches["flash_attention_fwd"] != per_prefill * res.prefills
+                    or any(n for name, n in launches.items() if name != "flash_attention_fwd")):
+                fail(f"serving the pulled-back checkpoint launched {launches} over {res.prefills} prefills")
+            if not torch.equal(res.tokens.cpu(), want_tokens.cpu()) or not res.logits_finite:
+                fail("the tokens served from the pulled-back checkpoint differ from phase 28's")
+            # 5. ROADMAP.md §C7: a leaf not local, siteA down: the restore fetches it from siteB
+            t = time.perf_counter()
+            want, _ = CheckpointManager(Repository(repo_dir))._restore(commit, dev, params_only=True)
+            rel0, key0 = next(iter(params.items()))
+            s = session()
+            s.repo.remote_by_name("siteA").mark_unavailable()
+            s.drop(rel0)  # siteB's copy is the one verified
+            s.close()
+            down = Repository(repo_dir, fs=FS(GPFS, clock), net_faults=outage())
+            got, _ = CheckpointManager(down)._restore(commit, dev, params_only=True)
+            walls["restore past siteA"] = time.perf_counter() - t
+            flat_want, flat_got = dict(leaves_of(want)), dict(leaves_of(got))
+            if (down.remote_by_name("siteA").available or not down.annex.has(key0, fresh=True)
+                    or flat_want.keys() != flat_got.keys()
+                    or not all(torch.equal(flat_got[k], v) for k, v in flat_want.items())):
+                fail(f"the restore with siteA down did not fetch the dropped leaf from siteB bit for bit: siteA "
+                     f"available {down.remote_by_name('siteA').available}, leaf local {down.annex.has(key0, fresh=True)}, "
+                     f"leaves equal {[k for k in flat_want if not torch.equal(flat_got.get(k), flat_want[k])]}")
+            del want, got, flat_want, flat_got
+            # 6. fsck: the location rows against fresh probes
+            t = time.perf_counter()
+            s = session()
+            rows = s._db().locations_all()
+            check = s.verify()
+            walls["verify"] = time.perf_counter() - t
+            kinds = sorted({i["kind"] for i in check["issues"]})
+            if check["divergence"] or {"stale-location", "unchecked-location"} & set(kinds) or not rows:
+                fail(f"verify(): divergence {check['divergence']}, issues {check['issues']}")
+            s.close()
+            # 7. one CPU job finished with push_to="siteB"
+            t = time.perf_counter()
+            job_dir = Path(repo_dir) / "remote/job"
+            job_dir.mkdir(parents=True, exist_ok=True)
+            (job_dir / "slurm.sh").write_text(REMOTE_JOB.format(seed=seed))
+            cluster = local_cluster(repo_dir, 1)
+            try:
+                s = session(cluster=cluster)
+                s.save(paths=["remote/job/slurm.sh"], message="the remote phase's CPU job")
+                ids = s.submit_many([repro_torch.RunSpec(script="slurm.sh", pwd="remote/job",
+                                                         inputs=["remote/job/slurm.sh"],
+                                                         outputs=["remote/job/out.npy"],
+                                                         message="a CPU job whose output goes to siteB")])
+                s.wait(ids, timeout=600)
+                finished = s.finish(push_to="siteB")
+                out_key = s.repo.annex_key_at("remote/job/out.npy")
+                if ([r.state for r in finished] != ["COMPLETED"]
+                        or not s.repo.remote_by_name("siteB").has(out_key, fresh=True)
+                        or "siteB" not in s._db().locations_of([out_key])[out_key]
+                        or not np.array_equal(np.load(job_dir / "out.npy"),
+                                              np.random.default_rng(seed).standard_normal((256, 256)))):
+                    fail(f"the finish with push_to=siteB: {finished}")
+            finally:
+                s.close()
+                cluster.shutdown()
+            walls["finish push_to"] = time.perf_counter() - t
+        finally:
+            for sess in sessions:
+                sess.close()
+    print(f"remote sites: qwen3_0_6b ({cfg.n_layers} layers) step-{step} checkpoint {commit[:12]}, {len(keys)} "
+          f"leaves, {ckpt_bytes} bytes ({len(params)} params leaves, {params_bytes} bytes); wall s "
+          f"{ {k: round(v, 3) for k, v in walls.items()} }, phase {time.perf_counter() - phase_t:.3f} s; pushed "
+          f"with a transient error and a disconnect on siteB (site, keys, objects, bytes, retries): "
+          f"{[(r['remote'], r['keys_sent'], r['chunks_sent'], r['bytes_sent'], r['retries']) for r in pushed]}; "
+          f"each site's bytes and objects sent {sent}; killed push of {lacked} fresh objects: {before[0]} sent "
+          f"before the kill, {after[0]} by recover() ({report['pushes_resumed']} push resumed), none twice; pull "
+          f"with siteA down: {pulled['keys_fetched']} keys, {pulled['chunks_fetched']} objects, "
+          f"{pulled['bytes_received']} bytes from siteB, {pulled['failovers']} failovers, {pulled['retries']} "
+          f"retries (siteB's bytes and objects received {received}); served tokens equal to phase 28's, flash "
+          f"launches {launches['flash_attention_fwd']} over {res.prefills} prefills; restore with siteA down "
+          f"fetched {key0[:24]}... from siteB; verify(): divergence {check['divergence']}, {len(rows)} location "
+          f"rows checked against fresh probes, issues {kinds}; finish(push_to=siteB) put {out_key[:24]}... on "
+          f"siteB; the store wrote {clock.bytes_written} bytes ({clock.bytes_written / ckpt_bytes:.2f}x the "
+          f"checkpoint; the FS's byte counters count real bytes); modelled "
+          f"(GPFS / LAN / WAN profile), not measured: {clock.total:.6f} s, {clock.meta_ops} metadata operations, "
+          f"{clock.bytes_read} bytes read, {clock.bytes_written} bytes written; card: {smi}")
+    return launches, res.prefills
 
 
 def train_mfu(flops: float, p50_ms: float) -> float:
@@ -2818,7 +3076,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as campaign_dir:
-        campaign_train_launches, campaign_steps, campaign_serve_launches, campaign_prefills, last = (
+        campaign_train_launches, campaign_steps, campaign_serve_launches, campaign_prefills, last, campaign_tokens = (
             campaign_phase(torch, np, configs, serve, all_kernels, dev, args.seed, campaign_dir))
         print(f"campaign phase {time.perf_counter() - t0:.1f} s")
         # phase 35's jobs serve the step-8 checkpoint while phase 27, which times no work on the card, plans
@@ -2845,6 +3103,15 @@ def main() -> None:
         pipe_launches, pipe_prefills = pipeline_phase(torch, np, configs, campaign_dir, last, args.seed, full=True,
                                                       device="cuda", overrides=CAMPAIGN_CUTS, smi=smi)
         print(f"pipeline phase {time.perf_counter() - t0:.1f} s")
+
+        # ---------------------------------- 37. remote sites, in phase 28's repository
+        t0 = phase("remote sites")
+        gc.collect()
+        torch.cuda.empty_cache()
+        remote_launches, remote_prefills = remote_phase(torch, np, configs, serve, all_kernels, dev, args.seed,
+                                                        campaign_dir, last, campaign_tokens, full=True,
+                                                        device="cuda", overrides=CAMPAIGN_CUTS, smi=smi)
+        print(f"remote sites phase {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------ 29. train rwkv6
     t0 = phase("train rwkv6")
@@ -2906,6 +3173,8 @@ def main() -> None:
                                                                "prefill"),
             "qwen3_0_6b Slurm serving jobs": (jobs_launches, jobs_prefills, "prefill"),
             "qwen3_0_6b pipeline serve stage": (pipe_launches, pipe_prefills, "prefill"),
+            "qwen3_0_6b served from a checkpoint pulled back from a remote site": (remote_launches, remote_prefills,
+                                                                                  "prefill"),
             "rwkv6_1_6b train": (rwkv_train_launches, rwkv_train_steps, "step"),
             f"{JAMBA} train, 8 layers, no experts": (jamba_train_launches, jamba_train_steps, "step"),
             **dense}

@@ -9,15 +9,27 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; they
 never fall back to the CPU on their own.
 
 ``repro_torch.open(root)`` returns a :class:`Session` over a versioned
-repository (the paper's run/rerun and Slurm protocol, pipelines of jobs and
-crash recovery), as ``repro.open`` does.
+repository (the paper's run/rerun and Slurm protocol, pipelines of jobs,
+crash recovery, remote sites and the filesystem cost model), as
+``repro.open`` does.
 """
 from __future__ import annotations
 
 import torch
 
 from .core.dag import Pipeline, PipelineError
-from .core.faults import FaultPlan, FaultRule
+from .core.faults import (
+    CrashInjected,
+    FaultPlan,
+    FaultRule,
+    InjectedIOError,
+    InjectedNetworkError,
+    InjectedSlurmError,
+    RemoteUnavailable,
+    is_crash,
+)
+from .core.fsio import FS, GPFS, LOCAL_XFS, NULL_FS, FSProfile, SimClock
+from .core.remote import LAN, WAN, NetFaultRule, NetProfile, NetworkFaultModel, RemoteStore
 from .core.session import Session, open  # noqa: A004 (module-level `open` is the API)
 from .core.spec import RunSpec, SpecError
 
@@ -33,5 +45,7 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device", "open", "Session", "RunSpec", "SpecError", "Pipeline", "PipelineError", "FaultPlan",
-           "FaultRule"]
+__all__ = ["resolve_device", "open", "Session", "RunSpec", "SpecError", "Pipeline", "PipelineError",
+           "CrashInjected", "FaultPlan", "FaultRule", "InjectedIOError", "InjectedNetworkError", "InjectedSlurmError",
+           "RemoteUnavailable", "is_crash", "FS", "GPFS", "LOCAL_XFS", "NULL_FS", "FSProfile", "SimClock", "LAN",
+           "WAN", "NetFaultRule", "NetProfile", "NetworkFaultModel", "RemoteStore"]

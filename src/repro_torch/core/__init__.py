@@ -1,10 +1,12 @@
 """The version store and the paper's Slurm protocol (port of ``repro.core``).
 
+  fsio.py      — the filesystem cost model: ``FS`` charges a ``SimClock``,
   hashing.py   — sha256 annex keys (``SHA256-s<size>--<hex>``, ``SHA256C-…``),
   chunks.py    — the content-defined cutter of the chunk tier,
   packs.py     — the read side of pack files (a repository that was repacked),
   objects.py   — zlib-framed blobs, trees and commits, loose and packed,
-  annex.py     — pointers, chunk manifests and the local annex store,
+  annex.py     — pointers, chunk manifests and the annex store,
+  remote.py    — remote sites over a simulated network: push, pull, failover,
   repo.py      — refs, branches, staging, incremental commits, octopus merges,
   locks.py     — cross-process lock files,
   conflicts.py — the §5.5 output-conflict checks,
@@ -20,11 +22,29 @@
   session.py   — ``Session`` and ``open``, the entry point.
 
 Every on-disk format is the reference's byte for byte, so a repository, a
-job database and an intent journal that either package wrote open (and
-recover) in the other. What the reference adds around it is not here:
-remote annex tiers, pack writing and gc, clone and checkout, and the
-parallel-filesystem cost model with its filesystem fault rules (ROADMAP.md
-§A items 2.3-2.6). Files are read and written with plain ``open``, and
-whatever a reader may see is published by writing a temporary file and
+remote site, a job database and an intent journal that either package wrote
+open (and recover) in the other. Every filesystem operation goes through one
+``FS`` per repository, charged as the reference's is. Not here yet: pack
+writing and gc, clone and checkout (ROADMAP.md §A items 2.4 and 2.5).
+Whatever a reader may see is published by writing a temporary file and
 renaming it into place.
 """
+from .faults import (
+    CrashInjected,
+    FaultPlan,
+    FaultRule,
+    InjectedIOError,
+    InjectedNetworkError,
+    InjectedSlurmError,
+    RemoteUnavailable,
+    is_crash,
+)
+from .fsio import FS, GPFS, LOCAL_XFS, NULL_FS, FSProfile, SimClock
+from .remote import LAN, WAN, NetFaultRule, NetProfile, NetworkFaultModel, RemoteStore
+
+__all__ = [
+    "CrashInjected", "FaultPlan", "FaultRule", "InjectedIOError", "InjectedNetworkError", "InjectedSlurmError",
+    "RemoteUnavailable", "is_crash",
+    "FS", "GPFS", "LOCAL_XFS", "NULL_FS", "FSProfile", "SimClock",
+    "LAN", "WAN", "NetFaultRule", "NetProfile", "NetworkFaultModel", "RemoteStore",
+]

@@ -13,15 +13,19 @@ NODE_FAIL") and a ``crash_at`` map of named crash points
 ("finish:after-publish" -> crash on the 1st hit). The plan is carried by a
 :class:`~.repo.Repository` and the :class:`~.slurm.LocalSlurmCluster`; the
 scheduler, the annex and the checkpoint manager mark their phase boundaries
-with ``repo.crash_point(name)``. The reference's filesystem rules (EIO on a
-read, a torn write, ...) need its filesystem layer, which the port has not
-(ROADMAP.md §A item 2.6): a plan that carries one is refused.
+with ``repo.crash_point(name)``. Rules on the filesystem ("EIO on every
+50th read", "fail the 3rd rename under objects/", a torn write) are checked
+by :class:`~.fsio.FS` before each operation; a transient one is retried
+there with a backoff charged on the simulated clock. The network's faults
+(:class:`InjectedNetworkError`, :class:`RemoteUnavailable`) are raised by
+:class:`~.remote.NetworkFaultModel`.
 
 Crash semantics
 ---------------
 A fired crash point (or a Slurm rule with ``error="crash"``) raises
 :class:`CrashInjected`, a ``BaseException``, and flips the plan into the
-*crashed* state: every later hook of the plan raises ``CrashInjected`` too,
+*crashed* state: every later hook of the plan raises ``CrashInjected`` too
+(each filesystem operation of an FS that carries the plan among them),
 and the incarnation tokens of every repository the plan is attached to die.
 The port's writers check their token before each effect (``files``,
 ``locks``, the journals), so the dying incarnation writes, unlinks, releases
@@ -39,16 +43,14 @@ this process, and a live owner alike.
 """
 from __future__ import annotations
 
+import fnmatch
 import os
 import random
 import threading
 import uuid
 from dataclasses import dataclass
 
-from .later import COST_MODEL, not_ported
-
-# the reference's filesystem injection sites; they wait for the filesystem layer
-FS_OPS = frozenset({"read", "write", "write-chunk", "rename", "unlink", "listdir", "stat", "exists"})
+BACKOFF_BASE_S = 0.05  # the first transient retry's backoff (filesystem and Slurm); doubles with each retry
 
 # -- liveness token registry -------------------------------------------------
 
@@ -126,6 +128,16 @@ class CrashInjected(BaseException):
     ``BaseException`` re-raise via :func:`is_crash`."""
 
 
+class InjectedIOError(IOError):
+    """A filesystem fault from a :class:`FaultRule` (modelled EIO)."""
+
+    def __init__(self, op: str, path: str, transient: bool = False):
+        super().__init__(5, f"injected {'transient ' if transient else ''}EIO during {op} of {path}")
+        self.op = op
+        self.path = path
+        self.transient = transient
+
+
 class InjectedSlurmError(RuntimeError):
     """A Slurm CLI fault (sbatch/sacct failing under controller load)."""
 
@@ -133,6 +145,34 @@ class InjectedSlurmError(RuntimeError):
         super().__init__(f"injected {'transient ' if transient else ''}slurm failure in {op}")
         self.op = op
         self.transient = transient
+
+
+class InjectedNetworkError(IOError):
+    """A network fault from a :class:`~.remote.NetworkFaultModel`.
+
+    ``reason`` is ``error`` (a request failed), ``timeout`` (a stall passed
+    the transfer's timeout) or ``disconnect`` (the link died mid-stream: the
+    remote-side tmp of the transfer is stranded for the owner-stamped
+    sweep). All three are transient: the bounded retry may issue the
+    transfer again."""
+
+    def __init__(self, op: str, remote: str, reason: str = "error", transient: bool = True):
+        super().__init__(5, f"injected network {reason} during {op} on remote {remote!r}")
+        self.op = op
+        self.remote = remote
+        self.reason = reason
+        self.transient = transient
+
+
+class RemoteUnavailable(RuntimeError):
+    """A whole site is down, not one request: not transient. The caller
+    marks the store unavailable and fails over to the next replica, or
+    raises where the site was the one asked for."""
+
+    def __init__(self, remote: str, why: str = "outage"):
+        super().__init__(f"remote {remote!r} unavailable ({why})")
+        self.remote = remote
+        self.transient = False
 
 
 def is_crash(exc: BaseException) -> bool:
@@ -150,20 +190,22 @@ def is_transient(exc: BaseException) -> bool:
 class FaultRule:
     """One declarative fault. ``op`` is the injection site:
 
+    filesystem  ``read | write | write-chunk | rename | unlink | listdir |
+                stat | exists`` (``write-chunk`` fires mid-stream inside
+                ``FS.write_chunks``: a torn write),
     slurm       ``sbatch | sacct | scancel | scontrol``,
     tasks       ``task``: ``error`` names the injected terminal state
                 (``NODE_FAIL``, ``PREEMPTED``, ``TIMEOUT``, ``FAILED``).
 
-    (The reference's filesystem sites ``read | write | write-chunk | rename
-    | unlink | listdir | stat | exists`` are refused by :class:`FaultPlan`.)
-
     Triggering: ``nth`` fires on exactly the nth matching call; ``every``
     on each k-th; ``p`` with seeded probability; none of the three = every
-    matching call. ``times`` caps the total fires. ``error`` is ``"io"``
-    (default: an :class:`InjectedSlurmError`), ``"crash"``, or a task state
-    name."""
+    matching call. ``times`` caps the total fires. ``path`` is a substring
+    (or fnmatch glob) filter on the touched path. ``error`` is ``"io"``
+    (default: an :class:`InjectedIOError` or :class:`InjectedSlurmError`),
+    ``"crash"``, or a task state name."""
 
     op: str
+    path: str | None = None
     nth: int | None = None
     every: int | None = None
     p: float | None = None
@@ -173,15 +215,26 @@ class FaultRule:
     calls: int = 0
     fires: int = 0
 
+    def _matches_path(self, path: str | None) -> bool:
+        if self.path is None:
+            return True
+        if path is None:
+            return False
+        if any(c in self.path for c in "*?["):
+            return fnmatch.fnmatch(path, self.path)
+        return self.path in path
+
 
 class FaultPlan:
-    """Seeded, declarative fault schedule shared by the repository, the
-    cluster and the scheduler.
+    """Seeded, declarative fault schedule shared by the repository's
+    filesystem, the cluster and the scheduler.
 
     Thread-safe: counters mutate under one lock. ``record_points=True``
     turns the plan into a crash-point recorder: a clean run logs every
     boundary it passes in ``crash_point_log``, which is how the crash-matrix
     tests check that every named point is on the path they kill."""
+
+    max_fs_retries = 4  # transient filesystem faults retried by FS before one propagates
 
     def __init__(
         self,
@@ -191,9 +244,6 @@ class FaultPlan:
         record_points: bool = False,
         max_slurm_retries: int = 4,
     ):
-        fs_rules = sorted({r.op for r in rules if r.op in FS_OPS})
-        if fs_rules:
-            raise not_ported(f"a fault rule on the filesystem ({', '.join(fs_rules)})", COST_MODEL)
         self.rng = random.Random(seed)
         self.rules = list(rules)
         self.crash_at = dict(crash_at or {})
@@ -207,11 +257,16 @@ class FaultPlan:
         self._lock = threading.Lock()
 
     # -- wiring ---------------------------------------------------------
-    def attach(self, owner) -> None:
-        """Tie ``owner``'s incarnation (its ``token``) to this plan: a crash
-        kills it."""
+    def attach_fs(self, owner) -> None:
+        """Tie ``owner``'s incarnation (its ``token``: an :class:`~.fsio.FS`
+        and the repository over it share one) to this plan: a crash kills
+        it."""
         with self._lock:
             self._attached.append(owner)
+
+    def backoff_s(self, attempt: int) -> float:
+        """The backoff charged before transient retry ``attempt``."""
+        return BACKOFF_BASE_S * (2 ** attempt)
 
     # -- firing ---------------------------------------------------------
     def _check_crashed(self) -> None:
@@ -245,6 +300,19 @@ class FaultPlan:
         for owner in dead:
             kill_token(getattr(owner, "token", None))
         raise CrashInjected(origin)
+
+    def on_fs(self, op: str, path: str, fs=None) -> None:
+        """Filesystem hook, called by :class:`~.fsio.FS` before the
+        operation runs."""
+        del fs  # the reference's signature; the plan needs no more than the path
+        self._check_crashed()
+        for rule in self.rules:
+            if rule.op != op or not rule._matches_path(path):
+                continue
+            if self._fire(rule):
+                if rule.error == "crash":
+                    self._do_crash(f"{op}:{path}")
+                raise InjectedIOError(op, path, transient=rule.transient)
 
     def on_slurm(self, op: str) -> None:
         """Slurm CLI injection hook (sbatch/sacct/scancel/scontrol)."""

@@ -1,20 +1,24 @@
 """Whole-file publication: write a temporary file, then rename it into place,
 so a reader sees either no file or all of it, never a partial one.
 
-Temporary files are named ``tmp-<pid>-<token>-<hex>`` (the reference's
-form): ``token`` is the writer's incarnation (:mod:`.faults`), so that a
+Every operation goes through the repository's :class:`~.fsio.FS`, which
+charges it on the simulated clock and checks the fault plan first. Temporary
+files are named ``tmp-<pid>-<token>-<hex>`` (the reference's form):
+``token`` is the writer's incarnation (the FS's, :mod:`.faults`), so that a
 sweep can prove its owner dead. A writer whose incarnation a crash killed
-writes, renames and unlinks nothing more: its tmp file stays behind, as a
-killed process's would, for :func:`sweep_stale_tmps`.
+writes, renames and unlinks nothing more (its FS's plan refuses every
+operation): its tmp file stays behind, as a killed process's would, for
+:func:`sweep_stale_tmps`.
 """
 from __future__ import annotations
 
 import os
 import time
 import uuid
-from collections.abc import Iterable, Iterator
+from collections.abc import Iterable
 
-from .faults import ensure_live, is_crash, owner_is_dead
+from .faults import is_crash, owner_is_dead
+from .fsio import FS
 
 
 def tmp_name(directory: str, token: str | None = None) -> str:
@@ -23,64 +27,23 @@ def tmp_name(directory: str, token: str | None = None) -> str:
     return os.path.join(directory, f"tmp-{os.getpid()}-{token or '0'}-{uuid.uuid4().hex[:12]}")
 
 
-def write_atomic(path: str, blocks: bytes | Iterable[bytes], tmp_dir: str | None = None,
-                 token: str | None = None, fsync: bool = False) -> int:
+def write_atomic(fs: FS, path: str, blocks: bytes | Iterable[bytes], tmp_dir: str | None = None,
+                 fsync: bool = False) -> int:
     """Write ``blocks`` (bytes, or an iterable of byte blocks) to ``path``
     through a temporary file in ``tmp_dir`` (default: ``path``'s directory,
     which must be on the same filesystem). Returns the bytes written."""
     if isinstance(blocks, (bytes, bytearray, memoryview)):
         blocks = (blocks,)
-    ensure_live(token)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp_dir = tmp_dir or os.path.dirname(path)
-    os.makedirs(tmp_dir, exist_ok=True)
-    tmp = tmp_name(tmp_dir, token)
+    tmp = tmp_name(tmp_dir or os.path.dirname(path), fs.token)
     try:
-        n = 0
-        with open(tmp, "wb") as f:
-            for b in blocks:
-                f.write(b)
-                n += len(b)
-            if fsync:
-                f.flush()
-                os.fsync(f.fileno())
-        ensure_live(token)
-        os.replace(tmp, path)
+        n = fs.write_chunks(tmp, blocks, fsync=fsync)
+        fs.rename(tmp, path)
     except BaseException as e:
         if is_crash(e):
             raise  # a dead process runs no cleanup: the tmp leaks
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        fs.unlink(tmp)
         raise
     return n
-
-
-def append_text(path: str, text: str, token: str | None = None) -> None:
-    """Append ``text`` to ``path`` (one write)."""
-    ensure_live(token)
-    with open(path, "a") as f:
-        f.write(text)
-
-
-def unlink(path: str, token: str | None = None) -> None:
-    """Remove ``path`` if it exists."""
-    ensure_live(token)
-    try:
-        os.unlink(path)
-    except FileNotFoundError:
-        pass
-
-
-def file_blocks(path: str, block: int = 1 << 20) -> Iterator[bytes]:
-    """A file's bytes in blocks of ``block``, streamed."""
-    with open(path, "rb") as f:
-        while data := f.read(block):
-            yield data
-
-
-def read_bytes(path: str) -> bytes:
-    with open(path, "rb") as f:
-        return f.read()
 
 
 # -- the crash sweep ----------------------------------------------------------
@@ -95,16 +58,17 @@ def tmp_owner(name: str) -> tuple[int | None, str | None]:
     return None, None
 
 
-def stale_tmps(directory: str, max_age_s: float | None = 3600.0) -> list[str]:
+def stale_tmps(fs: FS, directory: str, max_age_s: float | None = 3600.0) -> list[str]:
     """The ``tmp-*`` files directly in ``directory`` whose writer is provably
     dead (dead pid, dead incarnation) or whose mtime is older than
     ``max_age_s``. With ``max_age_s=None`` ages do not count, but a name
     with no owner stamp, which cannot be proven live, does (the reference's
-    forced sweep)."""
+    forced sweep). The listing is charged; the mtime probes are not, as in
+    the reference's annex sweep."""
     if not os.path.isdir(directory):
         return []
     out = []
-    for name in sorted(os.listdir(directory)):
+    for name in fs.listdir(directory):
         if not name.startswith("tmp-"):
             continue
         path = os.path.join(directory, name)
@@ -122,13 +86,12 @@ def stale_tmps(directory: str, max_age_s: float | None = 3600.0) -> list[str]:
     return out
 
 
-def sweep_stale_tmps(directory: str, max_age_s: float | None = 3600.0, token: str | None = None) -> int:
+def sweep_stale_tmps(fs: FS, directory: str, max_age_s: float | None = 3600.0) -> int:
     """Unlink :func:`stale_tmps` of ``directory``; returns the count swept."""
-    ensure_live(token)
     swept = 0
-    for path in stale_tmps(directory, max_age_s):
+    for path in stale_tmps(fs, directory, max_age_s):
         try:
-            os.unlink(path)
+            fs.unlink(path)
             swept += 1
         except OSError:
             pass  # a racing sweeper got it first

@@ -15,6 +15,20 @@ def sha256_bytes(data: bytes) -> str:
     return hashlib.sha256(data).hexdigest()
 
 
+def sha256_file(path: str, fs=None) -> tuple[str, int]:
+    """(hex digest, size) of a file, streamed in 1 MiB blocks. Given an
+    :class:`~.fsio.FS`, the read is charged on its clock like any other."""
+    if fs is not None:
+        return fs.hash_file(path, 1 << 20)
+    h = hashlib.sha256()
+    size = 0
+    with open(path, "rb") as f:
+        while block := f.read(1 << 20):
+            size += len(block)
+            h.update(block)
+    return h.hexdigest(), size
+
+
 def make_annex_key(hx: str, size: int) -> str:
     return f"SHA256-s{size}--{hx}"
 
@@ -23,8 +37,16 @@ def annex_key_for_bytes(data: bytes) -> str:
     return make_annex_key(sha256_bytes(data), len(data))
 
 
+def annex_key_for_file(path: str, fs=None) -> str:
+    return make_annex_key(*sha256_file(path, fs=fs))
+
+
+def make_chunk_key(hx: str, size: int) -> str:
+    return f"SHA256C-s{size}--{hx}"
+
+
 def chunk_key_for_bytes(data: bytes) -> str:
-    return f"SHA256C-s{len(data)}--{sha256_bytes(data)}"
+    return make_chunk_key(sha256_bytes(data), len(data))
 
 
 def is_chunk_key(key: str) -> bool:

@@ -17,8 +17,10 @@ Every table of the reference is created. ``job_deps`` holds a pipeline's
 afterok edges and ``job_pipeline`` tags each stage's row with its pipeline
 and stage (the DAG layer, §14); rows are read through the reference's join
 on ``job_pipeline``, so a job dict has the same keys in both packages. The
-``annex_locations`` table (remote tiers, ROADMAP.md §A item 2.3) is only
-read, by ``verify``.
+``annex_locations`` table holds the remote tier's location hints: rows
+recorded after a verified push or pull, which ``whereis`` reports and
+``verify`` checks against fresh probes; nothing that decides a drop trusts
+them.
 """
 from __future__ import annotations
 
@@ -343,6 +345,28 @@ class JobDB:
         rows = self._conn().execute(self._JOB_SELECT + " WHERE p.pipeline=? ORDER BY j.job_id",
                                     (pipeline,)).fetchall()
         return {r["stage"]: _to_dict(r) for r in rows if r["stage"]}
+
+    # -- the remote tier's location hints (DESIGN.md §13) --------------
+    def locations_record(self, remote: str, keys: list[str]) -> None:
+        if not keys:
+            return
+        now = time.time()
+        with self._conn() as c:
+            c.executemany("INSERT OR REPLACE INTO annex_locations (key, remote, seen_at) VALUES (?, ?, ?)",
+                          [(k, remote, now) for k in keys])
+
+    def locations_forget(self, remote: str, keys: list[str] | None = None) -> None:
+        with self._conn() as c:
+            if keys is None:
+                c.execute("DELETE FROM annex_locations WHERE remote=?", (remote,))
+            else:
+                c.executemany("DELETE FROM annex_locations WHERE key=? AND remote=?", [(k, remote) for k in keys])
+
+    def locations_of(self, keys: list[str]) -> dict[str, list[str]]:
+        """key -> sorted names of the sites last seen holding it."""
+        c = self._conn()
+        return {k: [r[0] for r in c.execute("SELECT remote FROM annex_locations WHERE key=? ORDER BY remote", (k,))]
+                for k in keys}
 
     def locations_all(self) -> list[tuple[str, str]]:
         """Every (key, remote) row of the remote tier's location hints."""

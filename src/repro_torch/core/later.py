@@ -3,9 +3,7 @@ ROADMAP.md item that queues each, and the error their entry points raise
 until then."""
 from __future__ import annotations
 
-REMOTES = "ROADMAP.md §A item 2.3, remote tiers"
 PACKS = "ROADMAP.md §A item 2.4, pack writing and gc"
-COST_MODEL = "ROADMAP.md §A item 2.6, the filesystem cost model"
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:

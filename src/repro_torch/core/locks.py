@@ -8,12 +8,14 @@ A lock whose owner is provably dead (dead pid, or a dead incarnation of
 this process), whose payload does not parse (torn by a crash), or whose
 heartbeat is older than ``ttl_s`` (the cross-host fallback) is stale and
 is broken on acquire, so a crashed holder cannot wedge the repository.
+Every operation goes through an :class:`~.fsio.FS` (the repository's, for
+its locks), charged as the reference's are.
 Across processes either package's holder excludes the other's. Inside one
 process it does not: each package keeps its own set of live incarnations
 (:func:`~.faults.owner_is_dead`), so each takes the other's lock there for
 a dead one and breaks it. A holder whose incarnation a crash killed
-releases nothing: its lock stays for ``recover`` or the next acquire to
-break.
+releases nothing (its FS's plan refuses every operation): its lock stays
+for ``recover`` or the next acquire to break.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ import os
 import socket
 import time
 
-from .faults import CrashInjected, ensure_live, owner_is_dead
+from .faults import CrashInjected, owner_is_dead
+from .fsio import FS
 
 LOCKS_DIR = "locks"
 
@@ -38,10 +41,13 @@ class FileLock:
 
     _GONE = object()  # sentinel: the lock file vanished between probe and read
 
-    def __init__(self, path: str, ttl_s: float | None = 600.0, token: str | None = None):
+    def __init__(self, path: str, ttl_s: float | None = 600.0, token: str | None = None, fs: FS | None = None):
         self.path = path
         self.ttl_s = ttl_s
-        self.token = token
+        # the repository's FS stamps its own incarnation; a bare lock (no FS
+        # given) is stamped with ``token``, or with none
+        self.fs = fs if fs is not None else FS()
+        self.token = fs.token if fs is not None and token is None else token
         self._held = False
 
     def _payload(self) -> bytes:
@@ -54,8 +60,7 @@ class FileLock:
 
     def read_info(self):
         try:
-            with open(self.path, "rb") as f:
-                data = f.read()
+            data = self.fs.read_bytes(self.path)
         except FileNotFoundError:
             return self._GONE
         try:
@@ -77,26 +82,13 @@ class FileLock:
         return False
 
     def break_lock(self) -> None:
-        try:
-            os.unlink(self.path)
-        except FileNotFoundError:
-            pass
-
-    def _create(self) -> None:
-        os.makedirs(os.path.dirname(self.path), exist_ok=True)
-        fd = os.open(self.path, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
-        try:
-            os.write(fd, self._payload())
-            os.fsync(fd)
-        finally:
-            os.close(fd)
+        self.fs.unlink(self.path)
 
     def acquire(self, wait_s: float = 30.0, poll_s: float = 0.02) -> "FileLock":
         deadline = time.monotonic() + wait_s
         while True:
-            ensure_live(self.token)
             try:
-                self._create()
+                self.fs.create_exclusive(self.path, self._payload())
                 self._held = True
                 return self
             except FileExistsError:
@@ -115,7 +107,6 @@ class FileLock:
         :class:`~.faults.CrashInjected` and leaves it, as a dead process
         would."""
         if self._held:
-            ensure_live(self.token)
             self._held = False
             self.break_lock()
 

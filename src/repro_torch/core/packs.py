@@ -4,7 +4,10 @@ A pack is ``objects/pack/pack-<id>.pack``, the concatenated loose-file
 bytes (zlib-compressed ``<kind> <len>\\0<payload>`` frames) of many objects,
 with ``pack-<id>.idx``, ``{"version": 1, "objects": {oid: [offset,
 length]}}``. A pack exists once its index does. The port reads packs that
-the JAX package's ``ObjectStore.repack`` wrote; it writes none.
+the JAX package's ``ObjectStore.repack`` wrote; it writes none. Reads go
+through the store's :class:`~.fsio.FS` and are charged as the reference's
+are (a load: one ``isdir``, one ``listdir`` and one read per index; an
+object: one ranged read).
 """
 from __future__ import annotations
 
@@ -12,6 +15,8 @@ import bisect
 import json
 import os
 import threading
+
+from .fsio import FS
 
 PACK_DIR = "pack"
 INDEX_VERSION = 1
@@ -25,8 +30,9 @@ class PackManager:
     """In-memory index over every published pack under ``objects/pack/``,
     loaded on first use and reloaded when the directory changes."""
 
-    def __init__(self, root: str):
+    def __init__(self, root: str, fs: FS):
         self.root = root  # .../objects/pack
+        self.fs = fs
         self._lock = threading.Lock()
         self._loaded = False
         self._where: dict[str, tuple[str, int, int]] = {}  # oid -> (data path, offset, length)
@@ -46,13 +52,12 @@ class PackManager:
                 return
             mtime = self._mtime()  # before the scan: a racing publish then rescans once
             where: dict[str, tuple[str, int, int]] = {}
-            if os.path.isdir(self.root):
-                for name in os.listdir(self.root):
+            if self.fs.isdir(self.root):
+                for name in self.fs.listdir(self.root):
                     if not name.endswith(".idx"):
                         continue
                     pack_id = name[len("pack-"):-len(".idx")]
-                    with open(os.path.join(self.root, name), "rb") as f:
-                        index = json.loads(f.read())
+                    index = json.loads(self.fs.read_bytes(os.path.join(self.root, name)))
                     if index.get("version") != INDEX_VERSION:
                         raise PackError(f"unsupported pack index version in pack-{pack_id}")
                     data = os.path.join(self.root, f"pack-{pack_id}.pack")
@@ -62,8 +67,13 @@ class PackManager:
             self._mtime_at_load, self._loaded = mtime, True
 
     def maybe_reload(self) -> bool:
-        """Rescan only if the pack directory changed since the last load."""
-        if self._mtime() == self._mtime_at_load:
+        """Rescan only if the pack directory changed since the last load (one
+        charged stat)."""
+        try:
+            current = self.fs.stat_mtime(self.root)
+        except OSError:
+            return False
+        if current == self._mtime_at_load:
             return False
         self.load(force=True)
         return True
@@ -81,12 +91,7 @@ class PackManager:
         if loc is None:
             raise KeyError(f"object {oid} is not packed")
         path, off, length = loc
-        with open(path, "rb") as f:
-            f.seek(off)
-            data = f.read(length)
-        if len(data) != length:
-            raise IOError(f"short read: wanted [{off}:{off + length}) of {path}")
-        return data
+        return self.fs.read_range(path, off, length)
 
     def oids_with_prefix(self, prefix: str) -> list[str]:
         self.load()

@@ -23,17 +23,20 @@ Intent journals
     guarantee.
 
 ``recover(session)``
-    Break stale locks (``locks.FileLock``), sweep dead-owner tmp files,
-    replay journals, close unsubmitted orphan rows, release orphaned output
-    protection. A push or pull journal (remote tiers, ROADMAP.md §A item
-    2.3, which only the reference writes) is left in place and named in the
-    report's ``errors``.
+    Break stale locks (``locks.FileLock``), sweep dead-owner tmp files (the
+    repository's and its sites'), replay journals (a push or pull journal of
+    the remote tier by running the transfer again: its presence pass sends
+    only what is missing), close unsubmitted orphan rows, release orphaned
+    output protection.
 
 ``verify(session)``
-    fsck: cross-checks refs, the object store, the annex and the job
-    database, and reports divergence (broken refs, missing annex objects,
-    duplicate Slurm records, orphan rows and protection); ``repair=True``
-    fixes what can be fixed without inventing data.
+    fsck: cross-checks refs, the object store, the annex, the sites and the
+    job database, and reports divergence (broken refs, missing annex
+    objects or chunks, a site's manifest that disagrees with the local one,
+    duplicate Slurm records, orphan rows and protection); the sites'
+    location hints are checked against fresh probes (a stale hint is a
+    warning). ``repair=True`` fixes what can be fixed without inventing
+    data.
 """
 from __future__ import annotations
 
@@ -42,8 +45,8 @@ import os
 import time
 from typing import TYPE_CHECKING
 
-from .files import append_text, read_bytes, unlink, write_atomic
-from .later import REMOTES
+from .faults import InjectedNetworkError, RemoteUnavailable
+from .files import write_atomic
 from .locks import LOCKS_DIR, FileLock
 
 if TYPE_CHECKING:  # typing only: session imports this module
@@ -64,14 +67,14 @@ class JournalHandle:
     atomically (fsynced tmp and rename) *before* any effect of the batch
     lands; per-step lines are appended as each effect is applied;
     :meth:`done` retires the journal. A journal file present means a batch
-    possibly interrupted. Every write is stamped with the writer's
-    incarnation ``token``: a killed writer's journal stays."""
+    possibly interrupted. Every write goes through the repository's FS: a
+    killed writer's journal stays."""
 
     _seq = 0
 
-    def __init__(self, path: str, token: str | None = None):
+    def __init__(self, fs, path: str):
+        self.fs = fs
         self.path = path
-        self.token = token
 
     @classmethod
     def begin(cls, repo, kind: str, header: dict) -> "JournalHandle":
@@ -79,36 +82,38 @@ class JournalHandle:
         name = f"{kind}-{int(time.time() * 1000):013d}-{os.getpid()}-{cls._seq:04d}.jsonl"
         path = os.path.join(_journal_dir(repo.repro_dir), name)
         line = json.dumps({"kind": kind, **header}, sort_keys=True) + "\n"
-        write_atomic(path, line.encode(), token=repo.token, fsync=True)
-        return cls(path, repo.token)
+        write_atomic(repo.fs, path, line.encode(), fsync=True)
+        return cls(repo.fs, path)
 
     def append(self, record: dict) -> None:
-        append_text(self.path, json.dumps(record, sort_keys=True) + "\n", token=self.token)
+        self.fs.append_text(self.path, json.dumps(record, sort_keys=True) + "\n")
 
     def append_many(self, records: list[dict]) -> None:
         """All of a batch's lines in one write: the memoize replay assumes
         they land together or not at all."""
         if records:
-            append_text(self.path, "".join(json.dumps(r, sort_keys=True) + "\n" for r in records),
-                        token=self.token)
+            self.fs.append_text(self.path, "".join(json.dumps(r, sort_keys=True) + "\n" for r in records))
 
     def done(self) -> None:
-        unlink(self.path, token=self.token)
+        self.fs.unlink(self.path)
 
 
-def list_journals(repro_dir: str) -> list[str]:
+def list_journals(repro_dir: str, fs=None) -> list[str]:
+    """The journal files under ``repro_dir`` (the listing is charged on
+    ``fs`` when one is given)."""
     d = _journal_dir(repro_dir)
     if not os.path.isdir(d):
         return []
-    return [os.path.join(d, n) for n in os.listdir(d) if n.endswith(".jsonl")]
+    names = fs.listdir(d) if fs is not None else os.listdir(d)
+    return [os.path.join(d, n) for n in names if n.endswith(".jsonl")]
 
 
-def read_journal(path: str) -> tuple[dict | None, list[dict]]:
+def read_journal(fs, path: str) -> tuple[dict | None, list[dict]]:
     """(header, entries). A torn trailing line (the crash interrupted an
     append) is skipped: its effect never happened or is derived again. A
     torn or missing header returns (None, [])."""
     try:
-        raw = read_bytes(path)
+        raw = fs.read_bytes(path)
     except FileNotFoundError:
         return None, []
     records = []
@@ -131,9 +136,9 @@ def _stale_locks(repo) -> list[FileLock]:
     if not os.path.isdir(locks_dir):
         return []
     out = []
-    for name in sorted(os.listdir(locks_dir)):
+    for name in repo.fs.listdir(locks_dir):
         if name.endswith(".lock"):
-            lock = FileLock(os.path.join(locks_dir, name))
+            lock = FileLock(os.path.join(locks_dir, name), fs=repo.fs)
             info = lock.read_info()
             if info is not FileLock._GONE and lock.is_stale(info):
                 out.append(lock)
@@ -146,8 +151,7 @@ def _stale_locks(repo) -> list[FileLock]:
 def recover(session: "Session") -> dict:
     """Bring the repository back to a consistent state after a crash.
     Idempotent, and cheap when there is nothing to do. Returns a report with
-    the reference's keys (``pushes_resumed``, ``pulls_resumed`` and
-    ``remote_keys_resent`` stay 0: the port has no remote tier)."""
+    the reference's keys."""
     repo = session.repo
     db = session.scheduler.db
     report = {
@@ -171,12 +175,14 @@ def recover(session: "Session") -> dict:
     for lock in _stale_locks(repo):
         lock.break_lock()
         report["locks_broken"] += 1
-    # 2. the tmp files of dead writers
+    # 2. the tmp files of dead writers, here and on the sites
     report["stale_tmps_swept"] += repo.sweep_stale_tmps()
+    for store in repo._remotes:
+        report["stale_tmps_swept"] += store.sweep_stale_tmps()
     # 3. journals in name order, but ``dag`` journals last: every submit
     # journal must have recovered its level's slurm ids and closed its dead
     # rows before a pipeline's levels are read back from their rows
-    journals = [(path, *read_journal(path)) for path in sorted(list_journals(repo.repro_dir))]
+    journals = [(path, *read_journal(repo.fs, path)) for path in sorted(list_journals(repo.repro_dir, repo.fs))]
     ordered = ([j for j in journals if (j[1] or {}).get("kind") != "dag"]
                + [j for j in journals if (j[1] or {}).get("kind") == "dag"])
     for path, header, entries in ordered:
@@ -190,13 +196,13 @@ def recover(session: "Session") -> dict:
             ok = _replay_memoize(session, header, entries, report)
         elif kind == "dag":
             ok = _replay_dag(session, header, entries, report)
-        elif kind in ("push", "pull"):
-            report["errors"].append(f"{kind} journal {os.path.basename(path)} left in place: replaying it needs "
-                                    f"the remote tier ({REMOTES})")
-            ok = False
+        elif kind == "push":
+            ok = _replay_push(session, header, entries, report)
+        elif kind == "pull":
+            ok = _replay_pull(session, header, report)
         # a missing header (it never landed) means the batch had no effects
         if ok:
-            unlink(path, token=repo.token)
+            repo.fs.unlink(path)
             report["journals_replayed"] += 1
     # 4. orphan rows no journal covered (a crash before the journal)
     for row in db.unsubmitted_open_jobs():
@@ -373,6 +379,50 @@ def _replay_memoize(session: "Session", header: dict, entries: list[dict], repor
     return True
 
 
+def _replay_push(session: "Session", header: dict, entries: list[dict], report: dict) -> bool:
+    """Exactly-once push replay (DESIGN.md §13). The journal holds the site
+    and the key list, then one entry per key that landed (manifest bound
+    last). Replay runs the push over the whole list again: its fresh
+    presence pass skips every landed key and, for the key the crash cut,
+    every chunk that landed, so only what the site lacks is sent. Returns
+    False (journal kept) when the site is unreachable now; a site gone from
+    the config retires the journal with an error."""
+    from .remote import push_keys
+
+    repo = session.repo
+    keys = list(header.get("keys", ()))
+    done = {e["key"] for e in entries if "key" in e}
+    try:
+        store = repo.remote_by_name(header.get("remote"))
+    except KeyError:
+        report["errors"].append(f"push replay: remote {header.get('remote')!r} no longer configured")
+        return True
+    try:
+        r = push_keys(repo, store, keys, journal=False, db=session.scheduler.db)
+    except (InjectedNetworkError, RemoteUnavailable) as e:
+        report["errors"].append(f"push replay to {store.name}: {e}")
+        return False
+    report["pushes_resumed"] += 1
+    report["remote_keys_resent"] += max(0, r["keys_sent"] - (len(keys) - len(done)))
+    return True
+
+
+def _replay_pull(session: "Session", header: dict, report: dict) -> bool:
+    """Exactly-once pull replay: the pull over the journaled keys again;
+    keys already local are skipped by its missing-only filter, chunks
+    already local by its presence pass. Returns False (journal kept) when
+    no site can serve a key now."""
+    from .remote import pull_keys
+
+    try:
+        pull_keys(session.repo, list(header.get("keys", ())), journal=False, db=session.scheduler.db)
+    except (InjectedNetworkError, RemoteUnavailable, FileNotFoundError) as e:
+        report["errors"].append(f"pull replay: {e}")
+        return False
+    report["pulls_resumed"] += 1
+    return True
+
+
 def _replay_dag(session: "Session", header: dict, entries: list[dict], report: dict) -> bool:
     """Exactly-once replay of a pipeline submission (§14). The header
     carries the whole pipeline (stage specs and edges), so the DAG is built
@@ -464,12 +514,13 @@ def verify(session: "Session", repair: bool = False) -> dict:
     pending journals are warnings: ``recover`` owns those). ``repair=True``
     fixes what is safe: ingests a missing annex object again from an intact
     worktree copy, closes orphan rows, releases orphan protection, evicts
-    broken cache rows, sweeps dead tmps, breaks stale locks. It never
-    invents data. The remote tier's location hints cannot be checked here
-    (ROADMAP.md §A item 2.3); they are reported as ``unchecked-location``,
-    as hints never divergence."""
-    from .files import file_blocks
+    broken cache rows, forgets stale location hints, sweeps dead tmps,
+    breaks stale locks, sends a site the chunks it lacks and binds a site's
+    diverging manifest to the local one. It never invents data. Presence
+    is probed fresh throughout (the reference's fsck trusts the known-key
+    sets, so it misses content lost behind a store's back)."""
     from .records import RunRecord
+    from .remote import RemoteStore
     from .runcache import RunCache
 
     repo = session.repo
@@ -532,38 +583,72 @@ def verify(session: "Session", repair: bool = False) -> dict:
         abspath = os.path.join(repo.root, path)
         if not os.path.isfile(abspath) or repo.hash_path_entry(path).get("key") != key:
             return False
-        return repo.annex.put_stream(file_blocks(abspath), chunked=chunked) == key
+        return repo.annex.ingest_file(abspath, chunked=chunked) == key
 
     # -- annex presence ------------------------------------------------------
     if annex_keys:
-        where = repo.whereis_many(sorted(annex_keys))
+        where = repo.whereis_many(sorted(annex_keys), fresh=True)
         for key, path in sorted(annex_keys.items()):
             if where.get(key):
                 continue
             rec = issue("missing-annex", f"no store holds {key} ({path})", key=key, path=path)
             if repair:
                 try:
-                    if ingest_again(path, key, repo._should_chunk(os.path.getsize(os.path.join(repo.root, path)))):
+                    if ingest_again(path, key, repo._should_chunk(repo.fs.stat_size(os.path.join(repo.root, path)))):
                         fixed(rec)
                 except Exception:
                     pass
 
-    # -- chunk tier (§12): a store holding a manifest must hold its chunks
-    if annex_keys and repo.annex.chunk_params is not None:
+    # -- chunk tier (§12): a store holding a manifest must hold its chunks,
+    # and a site's manifest must be the local one (same key, same cutter)
+    if annex_keys and repo.annex.chunk_aware:
+        stores = [st for st in [repo.annex, *repo._remotes] if getattr(st, "available", True)]
         for key, path in sorted(annex_keys.items()):
-            if not repo.annex.has(key):
-                continue
-            try:
-                chunks = repo.annex.manifest_of(key)
-            except (OSError, ValueError) as e:
-                issue("broken-manifest", f"{key} in local: {e}", key=key, store="local")
-                continue
-            for ck in sorted(set(chunks or ()) - repo.annex.has_many(chunks or ())):
-                rec = issue("missing-chunk", f"local lacks chunk {ck} of {key} ({path})", key=key, chunk=ck,
-                            store="local", path=path)
-                if repair:
+            truth: list[str] | None = None
+            if repo.annex.has(key, fresh=True):
+                try:
+                    truth = repo.annex.manifest_of(key)
+                except (OSError, ValueError):
+                    pass  # reported as broken-manifest below
+            for store in stores:
+                if not store.has(key, fresh=True):
+                    continue
+                try:
+                    chunks = store.manifest_of(key)
+                except (OSError, ValueError) as e:
+                    issue("broken-manifest", f"{key} in {store.name}: {e}", key=key, store=store.name)
+                    continue
+                if store is not repo.annex and chunks is not None and truth is not None and chunks != truth:
+                    rec = issue("remote-manifest-divergence",
+                                f"{store.name} manifest for {key} disagrees with local truth "
+                                f"({len(chunks)} vs {len(truth)} chunks)", key=key, store=store.name)
+                    if repair:
+                        try:
+                            for ck in truth:
+                                if not store.has(ck):
+                                    store.receive_file(ck, repo.annex.fs, repo.annex._path(ck))
+                            store.drop(key)
+                            store.put_manifest(key, truth)
+                            fixed(rec)
+                            chunks = truth
+                        except Exception:
+                            pass
+                for ck in sorted(set(chunks or ()) - store.has_many(chunks or (), fresh=True)):
+                    rec = issue("missing-chunk", f"{store.name} lacks chunk {ck} of {key} ({path})", key=key,
+                                chunk=ck, store=store.name, path=path)
+                    if not repair:
+                        continue
+                    # copy the chunk from a store that has it, else cut an
+                    # intact worktree copy again (its key proves the content)
                     try:
-                        if ingest_again(path, key, True):
+                        src = next((o for o in stores if o is not store and o.has(ck)), None)
+                        if src is repo.annex:
+                            store.receive_file(ck, src.fs, src._path(ck))
+                            fixed(rec)
+                        elif src is not None:
+                            src.fetch_into(ck, store)
+                            fixed(rec)
+                        elif store is repo.annex and ingest_again(path, key, True):
                             fixed(rec)
                     except Exception:
                         pass
@@ -590,23 +675,46 @@ def verify(session: "Session", repair: bool = False) -> dict:
             db.cache_evict([row["exec_key"]])
             fixed(rec)
 
-    # -- the remote tier's location hints: not checkable here (item 2.3) ----
-    remotes: dict[str, int] = {}
-    for _, rname in db.locations_all():
-        remotes[rname] = remotes.get(rname, 0) + 1
-    for rname, n in sorted(remotes.items()):
-        issue("unchecked-location", f"{n} location rows for remote {rname!r} not checked ({REMOTES})",
-              remote=rname, count=n)
+    # -- the sites' location hints: checked against fresh probes. They are
+    # hints (nothing that decides a drop trusts them), so a stale one is a
+    # warning and repair forgets it
+    by_remote: dict[str, list[str]] = {}
+    for key, rname in db.locations_all():
+        by_remote.setdefault(rname, []).append(key)
+    store_names = {st.name for st in repo._remotes}
+    for rname, loc_keys in sorted(by_remote.items()):
+        if rname not in store_names:
+            rec = issue("stale-location", f"{len(loc_keys)} location rows for unknown remote {rname!r}",
+                        remote=rname, count=len(loc_keys))
+            if repair:
+                db.locations_forget(rname)
+                fixed(rec)
+            continue
+        store = repo.remote_by_name(rname)
+        if isinstance(store, RemoteStore) and not store.available:
+            continue  # a site that is down cannot be checked; its hints stay
+        try:
+            present = store.has_many(loc_keys, fresh=True)
+        except (InjectedNetworkError, RemoteUnavailable):
+            continue  # unreachable now: leave the hints alone
+        gone = sorted(set(loc_keys) - present)
+        if gone:
+            rec = issue("stale-location", f"{rname} no longer holds {len(gone)} recorded key(s)", remote=rname,
+                        count=len(gone))
+            if repair:
+                db.locations_forget(rname, gone)
+                fixed(rec)
 
     # -- crash litter (warnings: recover() owns these) ---------------------
-    for path in list_journals(repo.repro_dir):
+    for path in list_journals(repo.repro_dir, repo.fs):
         issue("pending-journal", f"unreplayed journal {os.path.basename(path)}", path=path)
-    n = repo.count_stale_tmps()
-    if n:
-        rec = issue("stale-tmp", f"{n} dead-owner tmp files in local", store="local", count=n)
-        if repair:
-            repo.sweep_stale_tmps(max_age_s=None)
-            fixed(rec)
+    for name, owner in [("local", repo), *((st.name, st) for st in repo._remotes)]:
+        n = owner.count_stale_tmps()
+        if n:
+            rec = issue("stale-tmp", f"{n} dead-owner tmp files in {name}", store=name, count=n)
+            if repair:
+                owner.sweep_stale_tmps(max_age_s=None)
+                fixed(rec)
     for lock in _stale_locks(repo):
         rec = issue("stale-lock", f"dead-owner lock {os.path.basename(lock.path)}",
                     lock=os.path.basename(lock.path))

@@ -14,35 +14,46 @@ for the same content.
 the reference's do. For the scheduler: per-job branches and the octopus
 merge of paper §5.8, the read-only ``hash_path_entry`` that ``rerun`` and
 the run cache compare with, ``ingest_external_file`` for ``--alt-dir``
-outputs, ``annex_get`` and ``whereis_many`` over the local store,
-``lock``/``unlock`` and the cross-process ``file_lock``.
+outputs, ``lock``/``unlock`` and the cross-process ``file_lock``.
+
+Every filesystem operation goes through one :class:`~.fsio.FS` per
+repository, so the parallel-filesystem cost model (``init(profile=,
+clock=)``) charges the whole stack. The remote annex tier (DESIGN.md §13,
+:mod:`.remote`): ``add_remote`` registers a site, persisted in
+``config.json``'s ``remotes`` as ``{"name", "root", "net"}`` and rebuilt on
+open; ``whereis_many``, ``verified_copies`` (fresh probes only),
+``annex_drop`` under ``numcopies``, and ``annex_fetch_key``/``annex_get``,
+which fetch a key that is not local from the first site that holds it and
+fail over past a site that is down or errors past its retries (the
+reference's ``annex_fetch_key`` raises there instead: ROADMAP.md §C7).
 
 For recovery (:mod:`.recovery`): a repository is one incarnation of its
-writer, with a ``token`` (:mod:`.faults`) stamped on its tmp files and lock
-files, and an optional fault plan whose named crash points it marks
-(``crash_point``); ``sweep_stale_tmps`` removes the tmp files a killed
-incarnation left. Not ported (ROADMAP.md §A item 2): remote annex tiers,
-clone, checkout and switch, pack writing, gc and the filesystem cost model.
+writer, with the ``token`` of its FS (:mod:`.faults`) stamped on its tmp
+files and lock files, and an optional fault plan whose named crash points it
+marks (``crash_point``); ``sweep_stale_tmps`` removes the tmp files a killed
+incarnation left (opening the repository does not: a sweep never runs
+beside the other package's writes in one process). Not ported (ROADMAP.md
+§A items 2.4 and 2.5): clone, checkout and switch, pack writing and gc.
 """
 from __future__ import annotations
 
 import errno
 import fnmatch
-import hashlib
 import json
 import os
-import shutil
 import threading
 import time
 import uuid
 
 from .annex import POINTER_MAX, AnnexStore, make_pointer, parse_pointer_full
 from .chunks import ChunkParams
-from .faults import new_token
-from .files import file_blocks, read_bytes, stale_tmps, sweep_stale_tmps, write_atomic
+from .faults import InjectedNetworkError, RemoteUnavailable
+from .files import stale_tmps, sweep_stale_tmps, write_atomic
+from .fsio import FS, NULL_FS, FSProfile, SimClock
 from .hashing import annex_key_for_bytes, make_annex_key
 from .locks import LOCKS_DIR, FileLock
 from .objects import ObjectStore
+from .remote import NetworkFaultModel, RemoteStore, coerce_net, fetch_one, net_retry
 
 REPRO_DIR = ".repro"
 DEFAULT_ANNEX_THRESHOLD = 64 * 1024  # bytes; files >= this are annexed
@@ -53,42 +64,65 @@ class ConflictError(Exception):
 
 
 class Repository:
-    def __init__(self, root: str, faults=None):
+    def __init__(self, root: str, fs: FS | None = None, net_faults: NetworkFaultModel | None = None):
+        """Open the repository at ``root`` on ``fs`` (default: an uncharged
+        FS; a fault plan rides on the FS); ``net_faults`` is the network
+        fault model of its remote sites."""
         self.root = os.path.abspath(root)
         self.repro_dir = os.path.join(self.root, REPRO_DIR)
         cfg_path = os.path.join(self.repro_dir, "config.json")
         if not os.path.exists(cfg_path):
             raise FileNotFoundError(f"not a repro repository: {root}")
-        # this incarnation: its token stamps tmp and lock files, and dies
-        # with it when the fault plan crashes
-        self.token = new_token()
-        self.faults = faults
-        if faults is not None:
-            faults.attach(self)
+        self.fs = fs if fs is not None else FS(NULL_FS)
+        # this incarnation: its FS's token stamps tmp and lock files, and
+        # dies with it when the fault plan crashes
+        self.faults = self.fs.faults
+        self.token = self.fs.token
+        self.net_faults = net_faults
         # serialises a ref's read-modify-publish among threads of this process
         self.ref_lock = threading.RLock()
-        self.config = json.loads(read_bytes(cfg_path))
-        self.objects = ObjectStore(os.path.join(self.repro_dir, "objects"), token=self.token)
+        self.config = json.loads(self.fs.read_bytes(cfg_path))
+        self.objects = ObjectStore(os.path.join(self.repro_dir, "objects"), self.fs)
         cp = self.config.get("chunk_params")
         self._chunk_params = ChunkParams.from_json(cp) if cp else None
         self._chunk_threshold = self.config.get("chunk_threshold")
-        self.annex = AnnexStore(os.path.join(self.repro_dir, "annex", "objects"),
-                                chunk_params=self._chunk_params,
-                                chunk_threshold=self._chunk_threshold, token=self.token, faults=faults)
+        self.annex = AnnexStore(os.path.join(self.repro_dir, "annex", "objects"), self.fs, sweep_on_open=False,
+                                **self._store_kw())
+        # co-located stores (a reference clone's origin) and the network
+        # sites, on their own charged links sharing this clock and plan;
+        # opening a site sweeps the tmps a killed push left there
+        self._remotes: list[AnnexStore] = [
+            AnnexStore(p, self.fs, name=f"remote{i}", **self._store_kw())
+            for i, p in enumerate(self.config.get("annex_remotes", []))]
+        self._remotes.extend(self._site(r["root"], r["name"], r.get("net")) for r in self.config.get("remotes", []))
+
+    def _store_kw(self) -> dict:
+        return {"chunk_params": self._chunk_params, "chunk_threshold": self._chunk_threshold}
+
+    def _site(self, root: str, name: str, net) -> RemoteStore:
+        return RemoteStore(root, clock=self.fs.clock, name=name, net=net, fault_model=self.net_faults,
+                           faults=self.faults, **self._store_kw())
 
     @classmethod
     def init(
         cls,
         root: str,
+        profile: FSProfile = NULL_FS,
+        clock: SimClock | None = None,
         annex_threshold: int = DEFAULT_ANNEX_THRESHOLD,
+        faults=None,
         chunk_threshold: int | None = None,
         chunk_params: ChunkParams | dict | None = None,
-        faults=None,
+        numcopies: int = 1,
+        net_faults: NetworkFaultModel | None = None,
     ) -> "Repository":
-        """A new repository at ``root``. ``chunk_threshold`` turns the chunk
-        tier on for content of at least that many bytes (default cutter
-        parameters unless ``chunk_params`` is given). ``faults`` is the
-        returned incarnation's fault plan."""
+        """A new repository at ``root`` on an FS of ``profile`` charging
+        ``clock``. ``chunk_threshold`` turns the chunk tier on for content of
+        at least that many bytes (default cutter parameters unless
+        ``chunk_params`` is given); ``numcopies`` is how many verified
+        copies elsewhere a drop needs. ``faults`` is the returned
+        incarnation's fault plan, ``net_faults`` its sites' network faults."""
+        fs = FS(profile, clock, faults=faults)
         root = os.path.abspath(root)
         repro_dir = os.path.join(root, REPRO_DIR)
         for sub in ("objects", os.path.join("refs", "heads"), os.path.join("annex", "objects")):
@@ -103,13 +137,13 @@ class Repository:
             "annex_patterns": [],
             "annex_remotes": [],
             "remotes": [],
-            "numcopies": 1,
+            "numcopies": numcopies,
             "chunk_threshold": chunk_threshold,
             "chunk_params": chunk_params.to_json() if chunk_params else None,
         }
-        write_atomic(os.path.join(repro_dir, "config.json"), json.dumps(cfg).encode())
-        write_atomic(os.path.join(repro_dir, "HEAD"), b"main")
-        return cls(root, faults=faults)
+        write_atomic(fs, os.path.join(repro_dir, "config.json"), json.dumps(cfg).encode())
+        write_atomic(fs, os.path.join(repro_dir, "HEAD"), b"main")
+        return cls(root, fs, net_faults=net_faults)
 
     @property
     def dsid(self) -> str:
@@ -118,18 +152,20 @@ class Repository:
     def write_file(self, relpath: str, data: bytes) -> None:
         """Publish a worktree file whole (its temporary file lies in
         ``.repro/``, where no staging sees it)."""
-        write_atomic(os.path.join(self.root, relpath), data, tmp_dir=self.repro_dir, token=self.token)
+        write_atomic(self.fs, os.path.join(self.root, relpath), data, tmp_dir=self.repro_dir)
+
+    def _save_config(self) -> None:
+        write_atomic(self.fs, os.path.join(self.repro_dir, "config.json"), json.dumps(self.config).encode())
 
     def file_lock(self, name: str, ttl_s: float = 600.0) -> FileLock:
         """Cross-process advisory lock ``.repro/locks/<name>.lock``; a stale
         (dead-owner) lock is broken on acquire."""
-        return FileLock(os.path.join(self.repro_dir, LOCKS_DIR, f"{name}.lock"), ttl_s=ttl_s, token=self.token)
+        return FileLock(os.path.join(self.repro_dir, LOCKS_DIR, f"{name}.lock"), ttl_s=ttl_s, fs=self.fs)
 
     # -- crash points and the crash sweep ----------------------------------
     def crash_point(self, name: str) -> None:
         """A named phase boundary of the fault plan (no-op without one)."""
-        if self.faults is not None:
-            self.faults.crash_point(name)
+        self.fs.crash_point(name)
 
     def _tmp_dirs(self) -> list[str]:
         """Where this package's writers put tmp files: the annex store, the
@@ -139,25 +175,25 @@ class Repository:
                 os.path.join(self.repro_dir, "journal"), os.path.join(self.repro_dir, LOCKS_DIR)]
 
     def count_stale_tmps(self) -> int:
-        return sum(len(stale_tmps(d)) for d in self._tmp_dirs())
+        return sum(len(stale_tmps(self.fs, d)) for d in self._tmp_dirs())
 
     def sweep_stale_tmps(self, max_age_s: float | None = 3600.0) -> int:
         """Unlink the tmp files of dead writers (dead pid or incarnation),
         or older than ``max_age_s``; returns the count swept."""
-        return sum(sweep_stale_tmps(d, max_age_s, token=self.token) for d in self._tmp_dirs())
+        return sum(sweep_stale_tmps(self.fs, d, max_age_s) for d in self._tmp_dirs())
 
     # -- refs ------------------------------------------------------------
     def _ref_path(self, branch: str) -> str:
         return os.path.join(self.repro_dir, "refs", "heads", branch)
 
     def current_branch(self) -> str:
-        return read_bytes(os.path.join(self.repro_dir, "HEAD")).decode().strip()
+        return self.fs.read_bytes(os.path.join(self.repro_dir, "HEAD")).decode().strip()
 
     def branch_head(self, branch: str) -> str | None:
         p = self._ref_path(branch)
-        if not os.path.exists(p):
+        if not self.fs.exists(p):
             return None
-        return read_bytes(p).decode().strip()
+        return self.fs.read_bytes(p).decode().strip()
 
     def branches(self) -> list[str]:
         d = os.path.join(self.repro_dir, "refs", "heads")
@@ -168,19 +204,19 @@ class Repository:
         return self.branch_head(self.current_branch())
 
     def set_branch(self, branch: str, oid: str) -> None:
-        write_atomic(self._ref_path(branch), oid.encode(), tmp_dir=self.repro_dir, token=self.token)
+        write_atomic(self.fs, self._ref_path(branch), oid.encode(), tmp_dir=self.repro_dir)
 
     def create_branch(self, branch: str, at: str | None = None) -> None:
         at = at or self.head_commit()
         if at is None:
             raise ValueError("cannot branch from an empty repository")
-        if os.path.exists(self._ref_path(branch)):
+        if self.fs.exists(self._ref_path(branch)):
             raise ValueError(f"branch exists: {branch}")
         self.set_branch(branch, at)
 
     def resolve(self, commitish: str) -> str:
         """Branch name, full oid, or unique oid prefix (>= 4 hex) -> full oid."""
-        if os.path.exists(self._ref_path(commitish)):
+        if self.fs.exists(self._ref_path(commitish)):
             return self.branch_head(commitish)  # type: ignore[return-value]
         if self.objects.has(commitish):
             return commitish
@@ -328,27 +364,25 @@ class Repository:
         return {"t": "blob", "oid": self.objects.put_blob(data)}
 
     def _hash_working_file(self, relpath: str) -> dict:
-        """Stage one worktree file: annex-sized files stream into the annex,
-        the rest are read whole."""
+        """Stage one worktree file: one stat decides; annex-sized files are
+        ingested in one pass (hashed while written), the rest read whole."""
         abspath = os.path.join(self.root, relpath)
-        size = os.path.getsize(abspath)
+        size = self.fs.stat_size(abspath)
         if size > POINTER_MAX and self._should_annex(relpath, size):
             chunked = self._should_chunk(size)
-            return self._annex_entry(self.annex.put_stream(file_blocks(abspath), chunked=chunked), chunked)
-        return self._entry_for_data(relpath, read_bytes(abspath))
+            return self._annex_entry(self.annex.ingest_file(abspath, chunked=chunked), chunked)
+        return self._entry_for_data(relpath, self.fs.read_bytes(abspath))
 
     def hash_path_entry(self, relpath: str) -> dict:
         """The tree entry staging ``relpath`` would produce, computed
         read-only: no blob, no annex object is written (``rerun``'s bitwise
         check and the run cache's input keys)."""
         abspath = os.path.join(self.root, relpath)
-        size = os.path.getsize(abspath)
+        size = self.fs.stat_size(abspath)
         if size > POINTER_MAX and self._should_annex(relpath, size):
-            h = hashlib.sha256()
-            for block in file_blocks(abspath):
-                h.update(block)
-            return self._annex_entry(make_annex_key(h.hexdigest(), size), self._should_chunk(size))
-        data = read_bytes(abspath)
+            hx, sz = self.fs.hash_file(abspath)
+            return self._annex_entry(make_annex_key(hx, sz), self._should_chunk(sz))
+        data = self.fs.read_bytes(abspath)
         parsed = parse_pointer_full(data)
         if parsed is not None:
             return self._annex_entry(*parsed)
@@ -361,21 +395,20 @@ class Repository:
         repository at ``relpath``: its content is staged from ``src``, then
         ``src`` itself is renamed into the worktree (copied and unlinked
         across devices). Returns the tree entry."""
-        size = os.path.getsize(src)
+        size = self.fs.stat_size(src)
         if size > POINTER_MAX and self._should_annex(relpath, size):
             chunked = self._should_chunk(size)
-            entry = self._annex_entry(self.annex.put_stream(file_blocks(src), chunked=chunked), chunked)
+            entry = self._annex_entry(self.annex.ingest_file(src, chunked=chunked), chunked)
         else:
-            entry = self._entry_for_data(relpath, read_bytes(src))
+            entry = self._entry_for_data(relpath, self.fs.read_bytes(src))
         dst = os.path.join(self.root, relpath)
-        os.makedirs(os.path.dirname(dst), exist_ok=True)
         try:
-            os.replace(src, dst)
+            self.fs.rename(src, dst)
         except OSError as e:
             if e.errno != errno.EXDEV:  # only cross-device falls back
                 raise
-            shutil.copyfile(src, dst)
-            os.unlink(src)
+            self.fs.copy_file(src, dst)
+            self.fs.unlink(src)
         return entry
 
     def _expand_paths(self, paths) -> list[str]:
@@ -529,12 +562,6 @@ class Repository:
         yield from commits
 
     # -- annex -----------------------------------------------------------
-    def whereis_many(self, keys: list[str]) -> dict[str, list[str]]:
-        """{key: names of the stores holding it}; the port has the local
-        store (``"local"``) alone."""
-        present = self.annex.has_many(keys)
-        return {key: ["local"] if key in present else [] for key in keys}
-
     def annex_key_at(self, path: str, commitish: str | None = None) -> str:
         oid = self.resolve(commitish) if commitish else self.head_commit()
         if oid is None:
@@ -544,32 +571,125 @@ class Repository:
             raise KeyError(f"{path} is not an annexed file")
         return entry["key"]
 
-    def annex_get(self, path: str) -> bool:
-        """Give the worktree file at ``path`` its content if it is a pointer
-        (datalad get), from the local store. Returns True if it was one."""
-        parsed = parse_pointer_full(read_bytes(os.path.join(self.root, path)))
-        if parsed is None:
-            return False  # already content
-        key, _ = parsed
-        self.annex_fetch_key(key).copy_to(key, os.path.join(self.root, path), tmp_dir=self.repro_dir)
-        return True
+    def whereis_many(self, keys: list[str], fresh: bool = False) -> dict[str, list[str]]:
+        """{key: names of the stores holding it}: one ``has_many`` per store
+        (the known-key sets first, unless ``fresh``), never a listing. A
+        site marked unavailable is skipped: it can neither confirm nor deny
+        a copy."""
+        stores = [s for s in [self.annex, *self._remotes] if getattr(s, "available", True)]
+        present = {s.name: s.has_many(keys, fresh=fresh) for s in stores}
+        return {key: [s.name for s in stores if key in present[s.name]] for key in keys}
 
     def annex_fetch_key(self, key: str) -> AnnexStore:
-        """The local store, which must hold ``key``: fetching from another
-        store is not ported."""
-        if self.annex.has(key):
+        """The local store, after fetching ``key`` into it if it is not
+        there (a fresh probe: a key dropped behind this store's back is
+        fetched, not read from a stale cache). A chunked object moves as a
+        delta: only the chunks the local store lacks. The sites are asked in
+        order; one that is down or errors past its retries is marked
+        unavailable and the next is asked (ROADMAP.md §C7: the reference
+        raises there). Raises when no site can serve the key."""
+        if self.annex.has(key, fresh=True):
             return self.annex
-        raise FileNotFoundError(
-            f"{key} is not in the local annex, and fetching from a remote store is not ported "
-            f"(ROADMAP.md §A item 2)")
+        if fetch_one(self, key, self._remotes, {"retries": 0, "failovers": 0, "chunks_fetched": 0}) is None:
+            raise FileNotFoundError(f"no store has {key}")
+        return self.annex
+
+    def annex_get(self, path: str) -> bool:
+        """Give the worktree file at ``path`` its content if it is a pointer
+        (datalad get), fetching the key from a site if it is not local.
+        Returns True if it was a pointer."""
+        parsed = parse_pointer_full(self.fs.read_bytes(os.path.join(self.root, path)))
+        if parsed is None:
+            return False  # already content
+        key = parsed[0]
+        self.annex_fetch_key(key)
+        self.annex.copy_to(key, os.path.join(self.root, path), tmp_dir=self.repro_dir)
+        return True
+
+    # -- remote sites (DESIGN.md §13) -------------------------------------
+    def add_remote(self, store_root: str, name: str | None = None, net=None) -> RemoteStore:
+        """Register a remote site: an annex store at ``store_root`` reached
+        over a link (``"lan"``, ``"wan"``, a :class:`~.remote.NetProfile` or
+        its dict). Persisted in the config, so every later session rebuilds
+        the same list of sites."""
+        store_root = os.path.abspath(store_root)
+        net = coerce_net(net)
+        existing = {r["name"] for r in self.config.setdefault("remotes", [])}
+        if name is None:
+            i = len(existing)
+            while f"site{i}" in existing:
+                i += 1
+            name = f"site{i}"
+        elif name in existing:
+            raise ValueError(f"remote {name!r} already configured")
+        self.config["remotes"].append({"name": name, "root": store_root, "net": net.to_json()})
+        self._save_config()
+        store = self._site(store_root, name, net)
+        self._remotes.append(store)
+        return store
+
+    def remote_by_name(self, name: str) -> AnnexStore:
+        for s in self._remotes:
+            if s.name == name:
+                return s
+        raise KeyError(f"no remote named {name!r}")
+
+    @property
+    def remote_stores(self) -> list[RemoteStore]:
+        """The network sites (not the co-located stores, which never fault)."""
+        return [s for s in self._remotes if isinstance(s, RemoteStore)]
+
+    @property
+    def numcopies(self) -> int:
+        """How many verified copies elsewhere a drop of the local copy needs."""
+        return int(self.config.get("numcopies", 1))
+
+    def verified_copies(self, key: str) -> list[str]:
+        """The sites holding ``key`` by a fresh probe now (one batched round
+        trip each, never the known-key set: a cached positive can be stale).
+        A site that is unavailable or errors past its retries confirms
+        nothing."""
+        confirmed = []
+        for s in self._remotes:
+            if isinstance(s, RemoteStore) and not s.available:
+                continue
+            try:
+                if key in net_retry(s, lambda s=s: s.has_many([key], fresh=True)):
+                    confirmed.append(s.name)
+            except (InjectedNetworkError, RemoteUnavailable):
+                continue
+        return confirmed
+
+    def annex_drop(self, path: str, force: bool = False) -> None:
+        """Replace the worktree file at ``path`` by its pointer and drop the
+        local copy; refused unless ``numcopies`` sites hold it by
+        :meth:`verified_copies` (or ``force``)."""
+        abspath = os.path.join(self.root, path)
+        data = self.fs.read_bytes(abspath)
+        parsed = parse_pointer_full(data)
+        key = parsed[0] if parsed is not None else annex_key_for_bytes(data)
+        need = self.numcopies
+        others = self.verified_copies(key)
+        if len(others) < need and not force:
+            raise RuntimeError(
+                f"refusing to drop {path} ({key}): {len(others)} verified "
+                f"cop{'y' if len(others) == 1 else 'ies'} elsewhere "
+                f"({', '.join(others) or 'none'}), numcopies={need}; use force=True")
+        chunked = False
+        if self.annex.chunk_aware and self.annex.has(key):
+            chunked = self.annex.manifest_of(key) is not None
+        self.write_file(path, make_pointer(key, chunked=chunked))
+        if self.annex.has(key):
+            # a chunked drop removes the manifest; its chunks stay (gc)
+            self.annex.drop(key)
 
     # -- lock/unlock -----------------------------------------------------
     def unlock(self, path: str) -> None:
         abspath = os.path.join(self.root, path)
         if os.path.exists(abspath):
-            os.chmod(abspath, 0o644)
+            self.fs.chmod_readonly(abspath, readonly=False)
 
     def lock(self, path: str) -> None:
         abspath = os.path.join(self.root, path)
         if os.path.exists(abspath):
-            os.chmod(abspath, 0o444)
+            self.fs.chmod_readonly(abspath, readonly=True)

@@ -29,34 +29,32 @@ Crash safety (§10, :mod:`.recovery`): ``submit_many``, ``finish``, the
 memoized publication and ``submit_pipeline`` write intent journals and mark
 their phase boundaries as named crash points (``repo.crash_point``), so that
 ``Session.recover()`` completes an interrupted batch exactly once; transient
-Slurm failures are retried with a bounded backoff.
+Slurm failures are retried with a bounded backoff, charged on the
+repository's simulated clock. ``finish(push_to=)`` pushes a batch's annexed
+outputs to remote sites.
 
-Not ported: pushing to remotes after finish (ROADMAP.md §A item 2.3),
-repacking after finish (item 2.4), and the simulated clock's CLI charges
-(item 2.6). Commits are written loose, not as the reference's one pack per
-memoized batch.
+Not ported: repacking after finish (ROADMAP.md §A item 2.4) and the
+reference's per-command CLI start-up charge (``cli_startup_s``). Commits
+are written loose, not as the reference's one pack per memoized batch.
 """
 from __future__ import annotations
 
 import os
 import shutil
 import statistics
-import time
 import uuid
 from dataclasses import dataclass
 
 from . import slurm as S
 from .dag import Pipeline
-from .faults import is_crash, is_transient
+from .faults import BACKOFF_BASE_S, is_crash, is_transient
 from .jobdb import JobDB, job_spec
-from .later import REMOTES, not_ported
 from .records import TITLE_SLURM, RunRecord, spec_of
 from .recovery import JournalHandle
 from .repo import REPRO_DIR, Repository
 from .runcache import RunCache
 from .spec import RunSpec, SpecError
 
-SLURM_BACKOFF_S = 0.05  # the first retry's wait; doubles with each retry (the reference's backoff_base_s)
 
 
 class ScheduleError(SpecError):
@@ -84,7 +82,8 @@ class SlurmScheduler:
     def _retry_slurm(self, fn):
         """Run one Slurm CLI interaction, retrying *transient* failures (a
         flaky slurmctld or accounting database, §10) with exponential
-        backoff; permanent errors and crashes propagate at once, and the
+        backoff charged on the repository's simulated clock, as the
+        reference's; permanent errors and crashes propagate at once, and the
         retry budget is bounded, so a dead controller still surfaces."""
         plan = self.repo.faults
         retries = plan.max_slurm_retries if plan is not None else 3
@@ -95,7 +94,7 @@ class SlurmScheduler:
             except BaseException as e:
                 if is_crash(e) or not is_transient(e) or attempt >= retries:
                     raise
-                time.sleep(SLURM_BACKOFF_S * (2 ** attempt))
+                self.repo.fs.clock.charge(BACKOFF_BASE_S * (2 ** attempt))
                 attempt += 1
 
     # ------------------------------------------------------------- submit
@@ -447,10 +446,12 @@ class SlurmScheduler:
         anywhere in it is replayed exactly once by ``Session.recover()``
         (§10); ``job_ids`` restricts the batch to
         those rows (recovery re-finishes precisely the jobs a crashed batch
-        left open). ``push_to`` belongs to a later slice and raises
-        NotImplementedError."""
-        if push_to is not None:
-            raise not_ported("pushing to a remote", REMOTES)
+        left open).
+
+        ``push_to`` names one or more configured sites (DESIGN.md §13):
+        after the commits land, every annex key the batch introduced is
+        pushed there, journaled and resumable like any push (a crash
+        mid-push leaves the commits intact and the push to replay)."""
         jobs = self.db.open_jobs()
         if job_id is not None:
             jobs = [j for j in jobs if j["job_id"] == job_id]
@@ -506,7 +507,28 @@ class SlurmScheduler:
         # them exactly once
         results += self._commit_jobs_batched(to_commit, use_branch=branches or octopus, octopus=octopus, journal=jh)
         jh.done()
+        if push_to is not None and any(r.commit for r in results):
+            self._auto_push(push_to, results)
         return results
+
+    def _auto_push(self, push_to: str | list[str], results: list[FinishResult]) -> list[dict]:
+        """Push the annex keys the batch's commits introduced (each commit
+        against its first parent) to every site named in ``push_to``."""
+        from .remote import push_keys
+
+        names = [push_to] if isinstance(push_to, str) else list(push_to)
+        keys: set[str] = set()
+        for r in results:
+            if r.commit is None:
+                continue
+            commit = self.repo.objects.get_commit(r.commit)
+            parents = commit.get("parents", [])
+            base = self.repo.objects.get_commit(parents[0])["tree"] if parents else None
+            keys.update(e["key"] for e in self.repo._diff_trees(base, commit["tree"]).values()
+                        if e is not None and e.get("t") == "annex")
+        if not keys:
+            return []
+        return [push_keys(self.repo, self.repo.remote_by_name(n), sorted(keys), db=self.db) for n in names]
 
     def _close_failed_dependents(self, jobs: list[dict], states: dict[int, str]) -> set[int]:
         """Close (transitively) every open afterok dependent of a job the
@@ -652,6 +674,17 @@ class SlurmScheduler:
                 if os.path.exists(os.path.join(repo.root, rel)):
                     expand(idx, rel, repo.root, False)
 
+        # readdirplus prime: every task opens with one charged stat_size.
+        # Where several files share a directory, one scan_dir enumeration
+        # primes all their sizes, so N stat RPCs become one listdir-cost op
+        by_dir: dict[str, int] = {}
+        for idx, rel, src in tasks:
+            d = os.path.dirname(src if src is not None else os.path.join(repo.root, rel))
+            by_dir[d] = by_dir.get(d, 0) + 1
+        for d, n in by_dir.items():
+            if n > 1 and os.path.isdir(d):
+                repo.fs.scan_dir(d)
+
         def ingest_one(task: tuple[int, str, str | None]):
             idx, rel, src = task
             repo.crash_point("finish:mid-ingest")
@@ -664,8 +697,14 @@ class SlurmScheduler:
                     pass
             return idx, rel, repo._hash_working_file(rel)
 
+        try:
+            done = [ingest_one(t) for t in tasks]
+        finally:
+            # job payloads are written by processes the FS layer never sees:
+            # no primed size may outlive this batch
+            repo.fs.stat_cache_clear()
         staged: list[dict] = [{} for _ in prepared]
-        for idx, rel, entry in map(ingest_one, tasks):
+        for idx, rel, entry in done:
             staged[idx][rel] = entry
         return staged
 

@@ -19,11 +19,13 @@ drives every execution path of the paper's workflow through declarative
     s.finish(octopus=True)
     s.reschedule(commitish=...)                    # exact-spec resubmission
     s.run_pipeline(repro_torch.Pipeline(stages))   # a DAG of specs (§14)
+    s.add_remote("/archive/siteA", name="siteA", net="wan")
+    s.push(); s.drop("big.dat"); s.pull()          # remote sites (§13)
     s.recover(); s.verify()                        # after a crash (§10)
 
 The scheduler/cluster pair is built lazily, so a Session used only for
-``run``/``rerun`` never starts a thread pool. Methods of later slices
-(remote tiers, gc) raise NotImplementedError naming their ROADMAP.md item.
+``run``/``rerun`` never starts a thread pool. ``gc`` (ROADMAP.md §A item
+2.4) raises NotImplementedError naming its item.
 """
 from __future__ import annotations
 
@@ -31,7 +33,10 @@ import os
 
 from . import records as R
 from . import recovery
-from .later import COST_MODEL, PACKS, REMOTES, not_ported
+from .fsio import FS, NULL_FS, FSProfile, SimClock
+from .jobdb import JobDB
+from .later import PACKS, not_ported
+from .remote import RemoteStore, head_annex_keys, pull_keys, push_keys
 from .repo import REPRO_DIR, Repository
 from .scheduler import FinishResult, ScheduleError, SlurmScheduler
 from .slurm import LocalSlurmCluster, SlurmCluster
@@ -52,7 +57,8 @@ class Session:
     @property
     def cluster(self) -> SlurmCluster:
         if self._cluster is None:
-            self._cluster = LocalSlurmCluster(max_workers=self._max_workers, faults=self.repo.faults)
+            self._cluster = LocalSlurmCluster(max_workers=self._max_workers, clock=self.repo.fs.clock,
+                                              faults=self.repo.faults)
         return self._cluster
 
     @property
@@ -178,24 +184,61 @@ class Session:
         """Open jobs with their live Slurm state (``--list-open-jobs``)."""
         return [{**job, "slurm_state": state} for job, state in self.scheduler.list_open_jobs()]
 
-    # ---------------------------------------------------- later slices
-    def add_remote(self, *a, **kw):
-        raise not_ported("add_remote", REMOTES)
+    # ------------------------------------------------------ remote sites
+    def _db(self) -> JobDB:
+        """The job database (for the location hints), without starting a
+        cluster."""
+        return self._scheduler.db if self._scheduler is not None else JobDB(self.repo.repro_dir)
 
-    def push(self, *a, **kw):
-        raise not_ported("push", REMOTES)
+    def add_remote(self, store_root: str, name: str | None = None, net=None) -> RemoteStore:
+        """Register a simulated remote site (DESIGN.md §13): an annex store
+        reached over a link (``"lan"``, ``"wan"``, a
+        :class:`~.remote.NetProfile` or its dict), persisted in the config.
+        Returns its :class:`~.remote.RemoteStore`."""
+        return self.repo.add_remote(store_root, name=name, net=net)
 
-    def pull(self, *a, **kw):
-        raise not_ported("pull", REMOTES)
+    def push(self, remote: str | None = None, keys: list[str] | None = None) -> list[dict]:
+        """Chunk-level resumable push of ``keys`` (default: every annex key
+        HEAD references) to ``remote`` (a name; default: every available
+        site), journaled, recorded in the location hints. One report per
+        site."""
+        stores = ([self.repo.remote_by_name(remote)] if remote is not None
+                  else [st for st in self.repo.remote_stores if st.available])
+        if not stores:
+            raise ValueError("no (available) remotes configured")
+        db = self._db()
+        return [push_keys(self.repo, st, keys, db=db) for st in stores]
 
-    def fetch(self, *a, **kw):
-        raise not_ported("fetch", REMOTES)
+    def pull(self, paths: list[str] | None = None, keys: list[str] | None = None) -> dict:
+        """Chunk-level resumable pull into the local annex, failing over
+        between sites. ``paths`` name worktree files (their HEAD keys),
+        ``keys`` keys; neither: every annex key HEAD references. Keys that
+        are local never move."""
+        if paths is not None:
+            keys = list(keys or []) + [self.repo.annex_key_at(p) for p in paths]
+        return pull_keys(self.repo, keys, db=self._db())
 
-    def drop(self, *a, **kw):
-        raise not_ported("drop", REMOTES)
+    def fetch(self) -> dict:
+        """Pull every annex key HEAD references that is not local (a cold
+        restore)."""
+        return self.pull()
 
-    def whereis(self, *a, **kw):
-        raise not_ported("whereis", REMOTES)
+    def drop(self, path: str, force: bool = False) -> None:
+        """Drop the local copy of an annexed file, leaving its pointer;
+        refused unless ``numcopies`` sites hold it by a fresh probe, unless
+        ``force``."""
+        self.repo.annex_drop(path, force=force)
+
+    def whereis(self, paths: list[str] | None = None, fresh: bool = False) -> dict[str, dict]:
+        """``{key: {"stores": [...], "recorded": [...]}}`` for ``paths``
+        (default: every annex key HEAD references): ``stores`` by live
+        probes of the local store and the available sites (``fresh``
+        bypasses the known-key sets), ``recorded`` from the location
+        hints."""
+        keys = [self.repo.annex_key_at(p) for p in paths] if paths is not None else head_annex_keys(self.repo)
+        recorded = self._db().locations_of(keys)
+        stores = self.repo.whereis_many(keys, fresh=fresh)
+        return {k: {"stores": stores[k], "recorded": recorded.get(k, [])} for k in keys}
 
     # ------------------------------------------------------------- recovery
     def recover(self) -> dict:
@@ -212,24 +255,23 @@ class Session:
 
 
 def open(root: str, create: bool = False, cluster: SlurmCluster | None = None, max_workers: int = 8,
-         profile=None, clock=None, faults=None, net_faults=None, **init_kwargs) -> Session:
+         profile: FSProfile = NULL_FS, clock: SimClock | None = None, faults=None, net_faults=None,
+         **init_kwargs) -> Session:
     """Open (or with ``create=True``, initialize) a repository at ``root``
     and return a :class:`Session` over it. The §11 run cache is always on.
-    ``faults`` attaches a :class:`~.faults.FaultPlan` to the repository and
-    the (lazily created) cluster, the fault-injection harness of §10.
-    ``profile`` and ``clock`` (the filesystem cost model) and ``net_faults``
-    (remote tiers) belong to later slices and raise."""
-    for name, value, item in (("profile", profile, COST_MODEL), ("clock", clock, COST_MODEL),
-                              ("net_faults", net_faults, REMOTES)):
-        if value is not None:
-            raise not_ported(name, item)
+    ``profile`` and ``clock`` put the repository on the filesystem cost
+    model (every operation charged on ``clock``); ``faults`` attaches a
+    :class:`~.faults.FaultPlan` to its FS and the (lazily created) cluster,
+    the fault-injection harness of §10; ``net_faults`` attaches a
+    :class:`~.remote.NetworkFaultModel` to every remote site (§13)."""
     if os.path.isdir(os.path.join(root, REPRO_DIR)):
         if init_kwargs:
             raise TypeError(f"{sorted(init_kwargs)} only apply when initializing; "
                             f"{root} is already a repository (its stored config wins)")
-        repo = Repository(root, faults=faults)
+        repo = Repository(root, fs=FS(profile, clock, faults=faults), net_faults=net_faults)
     elif create:
-        repo = Repository.init(root, faults=faults, **init_kwargs)
+        repo = Repository.init(root, profile=profile, clock=clock, faults=faults, net_faults=net_faults,
+                               **init_kwargs)
     else:
         raise FileNotFoundError(f"not a repro repository: {root} (pass create=True to initialize)")
     return Session(repo, cluster=cluster, max_workers=max_workers)

@@ -18,8 +18,10 @@ subprocesses, so the whole protocol runs on one machine:
   - a fault plan's Slurm rules and task fates (:mod:`.faults`).
 
 :class:`SubprocessSlurmCluster` shells out to a real ``sbatch``/``sacct``/
-``scancel``/``scontrol``. The reference's simulated clock charges are not
-ported (ROADMAP.md §A item 2.6).
+``scancel``/``scontrol``. The local cluster charges each ``sbatch`` and
+each accounting query (one a poll, however many jobs it covers) on a
+simulated clock, as the reference's does (the repository's clock, when a
+``Session`` builds it).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from dataclasses import dataclass, field
 
 from . import faults as _faults
 from .files import write_atomic
+from .fsio import FS, SimClock
 
 # canonical Slurm states we model
 PENDING = "PENDING"
@@ -142,9 +145,15 @@ class SlurmCluster:
 
 
 class LocalSlurmCluster(SlurmCluster):
-    def __init__(self, max_workers: int = 8, first_job_id: int = 11_452_000, faults=None):
+    SBATCH_COST_S = 0.05  # the simulated clock's charge for one sbatch (the reference's default)
+    SACCT_COST_S = 0.02  # and for one accounting query
+
+    def __init__(self, max_workers: int = 8, clock: SimClock | None = None, first_job_id: int = 11_452_000,
+                 faults=None):
         self.pool = ThreadPoolExecutor(max_workers=max_workers)
+        self.clock = clock or SimClock()
         self.faults = faults  # a FaultPlan: Slurm rules and task fates
+        self._fs = FS()  # the compute nodes' own writes: uncharged, never faulted
         self._jobs: dict[int, SlurmJob] = {}
         self._procs: dict[tuple[int, int], subprocess.Popen] = {}
         # re-entrant: dependency resolution runs inside _maybe_done, which is
@@ -161,6 +170,7 @@ class LocalSlurmCluster(SlurmCluster):
                dependency: list[int] | None = None) -> int:
         if self.faults is not None:
             self.faults.on_slurm("sbatch")
+        self.clock.charge(self.SBATCH_COST_S)
         if not os.path.exists(os.path.join(workdir, script)) and not os.path.isabs(script):
             raise FileNotFoundError(f"job script not found: {script} (cwd {workdir})")
         failed_parent = False
@@ -332,7 +342,7 @@ class LocalSlurmCluster(SlurmCluster):
             "Elapsed": [(t.end_time - t.start_time) if t.start_time and t.end_time else None for t in job.tasks],
         }
         path = os.path.join(job.workdir, f"slurm-job-{job.job_id}.env.json")
-        write_atomic(path, json.dumps(meta, indent=1, sort_keys=True).encode())
+        write_atomic(self._fs, path, json.dumps(meta, indent=1, sort_keys=True).encode())
 
     def _maybe_done(self, job: SlurmJob) -> None:
         if all(t.state in TERMINAL for t in job.tasks):
@@ -350,18 +360,23 @@ class LocalSlurmCluster(SlurmCluster):
         if self.faults is not None:
             self.faults.on_slurm(op)
 
-    def sacct(self, job_id: int) -> str:
+    def _sacct(self) -> None:
+        """One accounting query: the fault plan, then its charge."""
         self._on_slurm("sacct")
+        self.clock.charge(self.SACCT_COST_S)
+
+    def sacct(self, job_id: int) -> str:
+        self._sacct()
         return self._job(job_id).aggregate_state()
 
     def sacct_many(self, job_ids: list[int]) -> dict[int, str]:
         if not job_ids:
             return {}  # nothing to poll: no accounting query
-        self._on_slurm("sacct")
+        self._sacct()
         return {job_id: self._job(job_id).aggregate_state() for job_id in job_ids}
 
     def sacct_tasks(self, job_id: int) -> list[str]:
-        self._on_slurm("sacct")
+        self._sacct()
         return [t.state for t in self._job(job_id).tasks]
 
     def job_runtime(self, job_id: int) -> float | None:

@@ -132,13 +132,21 @@ def test_dataset_refusals(shards_repo, tmp_path):
             cls(r, commits[4], prefix="data/none")
     with pytest.raises(ValueError, match="does not split into 3 shards"):
         RepoTokenDataset(repo, commits[4], seq_len=SEQ, global_batch=BATCH).shard_batch_at(0, 0, 3)
-    # an annexed shard whose key is not in the local annex: fetching is not ported
+    # an annexed shard whose key is not in the local annex: with no site holding
+    # it, the reference's error; once a site holds it, it is fetched from there
     copy = str(tmp_path / "copy")
     shutil.copytree(root, copy)
-    entry = Repository(copy).entry_at(commits[1], SHARDS[0][0])
-    os.remove(Repository(copy).annex._path(entry["key"]))
-    with pytest.raises(FileNotFoundError, match="ROADMAP.md §A item 2"):
+    key = Repository(copy).entry_at(commits[1], SHARDS[0][0])["key"]
+    path, held = Repository(copy).annex._path(key), str(tmp_path / "held")
+    os.rename(path, held)
+    with pytest.raises(FileNotFoundError, match=f"no store has {key}"):
         RepoTokenDataset(Repository(copy), commits[1], seq_len=SEQ).global_batch_at(0)
+    site = Repository(copy).add_remote(str(tmp_path / "site"), name="site")
+    os.makedirs(os.path.dirname(site._path(key)))
+    os.rename(held, site._path(key))
+    np.testing.assert_array_equal(RepoTokenDataset(Repository(copy), commits[1], seq_len=SEQ).global_batch_at(0),
+                                  RepoTokenDataset(repo, commits[1], seq_len=SEQ).global_batch_at(0))
+    assert os.path.exists(path)  # fetched into the local annex
 
 
 def test_dataset_resolves_a_branch_and_a_short_oid(shards_repo):

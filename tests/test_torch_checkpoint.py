@@ -219,13 +219,22 @@ def test_cutter_cuts_the_same_chunks_as_the_reference(params):
 
 
 def test_a_key_that_is_not_local_raises_naming_the_roadmap(tmp_path):
-    repo = Repository.init(str(tmp_path))
+    """A leaf whose key is not in the local annex: with no site holding it,
+    the reference's error (fetching from a site was ROADMAP.md §A item 2.3);
+    once a site holds it, restore fetches it from there."""
+    repo = Repository.init(str(tmp_path / "repo"))
     ckpt = CheckpointManager(repo)
     oid = ckpt.save(1, {"w": torch.ones(100_000)}, {})
     key = repo.entry_at(oid, "checkpoints/step_00000001/params.w.npy")["key"]
-    os.unlink(repo.annex._path(key))
-    with pytest.raises(FileNotFoundError, match=r"ROADMAP.md §A item 2"):
+    held = str(tmp_path / "held")
+    os.rename(repo.annex._path(key), held)
+    with pytest.raises(FileNotFoundError, match=f"no store has {key}"):
         ckpt.restore(device="cpu")
+    site = repo.add_remote(str(tmp_path / "site"), name="site")
+    os.makedirs(os.path.dirname(site._path(key)))
+    os.rename(held, site._path(key))
+    state, _ = ckpt.restore(device="cpu")
+    assert torch.equal(state["params"]["w"], torch.ones(100_000)) and repo.annex.has(key, fresh=True)
 
 
 def test_async_save_failure_is_reraised(tmp_path):

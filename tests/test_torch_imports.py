@@ -21,6 +21,8 @@ _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+# the port's own copies of the reference's jax-free cost model and remote tier
+assert {"repro_torch.core.fsio", "repro_torch.core.remote"} <= set(names)
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules

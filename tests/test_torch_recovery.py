@@ -517,23 +517,66 @@ def test_seeded_rules_are_deterministic_and_filesystem_rules_are_refused():
         except jfaults.InjectedSlurmError:
             ref_fires.append(1)
     assert fires(11) == fires(11) == ref_fires and fires(11) != fires(12)
-    for op in ("read", "write", "write-chunk", "rename", "unlink", "listdir", "stat", "exists"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §A item 2\.6"):
-            FaultPlan(rules=[FaultRule(op=op)])
+
+
+@pytest.mark.parametrize("op", ["read", "write", "write-chunk", "rename", "unlink", "listdir", "stat", "exists"])
+def test_filesystem_rules_fire_as_the_reference_does(tmp_path, op):
+    """Each filesystem rule (once refused, ROADMAP.md §A item 2.6) fires on
+    the same operation of each package's FS with the same error, leaves the
+    same files, and lets the next call through."""
+    from repro_torch.core.fsio import FS as PFS
+
+    calls = {
+        "read": lambda fs, d: fs.read_bytes(f"{d}/a"),
+        "write": lambda fs, d: fs.write_bytes(f"{d}/new", b"n"),
+        "write-chunk": lambda fs, d: fs.write_chunks(f"{d}/torn", [b"first", b"second"]),
+        "rename": lambda fs, d: fs.rename(f"{d}/a", f"{d}/b"),
+        "unlink": lambda fs, d: fs.unlink(f"{d}/a"),
+        "listdir": lambda fs, d: fs.listdir(d),
+        "stat": lambda fs, d: fs.stat_size(f"{d}/a"),
+        "exists": lambda fs, d: fs.exists(f"{d}/a"),
+    }
+    rule = {"write-chunk": dict(nth=2)}.get(op, dict(nth=1))  # the torn write: the second chunk fails
+    out = {}
+    for side, (fs_cls, plan_cls, rule_cls, err) in {
+            "port": (PFS, FaultPlan, FaultRule, repro_torch.InjectedIOError),
+            "ref": (FS, jfaults.FaultPlan, jfaults.FaultRule, jfaults.InjectedIOError)}.items():
+        d = str(tmp_path / side)
+        os.makedirs(d)
+        write(d, "a", "content")
+        fs = fs_cls(NULL_FS if side == "ref" else repro_torch.NULL_FS,
+                    faults=plan_cls(seed=1, rules=[rule_cls(op=op, **rule)]))
+        with pytest.raises(err) as e:
+            calls[op](fs, d)
+        calls[op](fs, d)  # nth fired once: the retry goes through
+        out[side] = (str(e.value).replace(d, "D"), sorted(os.listdir(d)), e.value.transient)
+    assert out["port"] == out["ref"]
 
 
 def test_push_journal_is_left_for_the_reference(tmp_path):
-    """A journal of the remote tier, which the port cannot replay, stays in
-    place and is named in the report."""
-    s = repro_torch.open(str(tmp_path / "proj"), create=True)
-    jdir = os.path.join(s.repo.repro_dir, "journal")
-    os.makedirs(jdir)
-    path = os.path.join(jdir, "push-0000000000001-1-0001.jsonl")
-    write(s.repo.root, os.path.relpath(path, s.repo.root), json.dumps({"kind": "push", "keys": []}) + "\n")
-    rep = s.recover()
-    assert rep["journals_replayed"] == 0 and os.path.exists(path)
-    assert len(rep["errors"]) == 1 and "ROADMAP.md §A item 2.3" in rep["errors"][0]
-    assert "pending-journal" in {i["kind"] for i in s.verify()["issues"]}
+    """A push journal the reference's killed push left (ROADMAP.md §A item
+    2.3, once left in place) is replayed by the port's recover(): the push
+    resumes, sends only what the site lacks, and the journal is retired."""
+    root = str(tmp_path / "proj")
+    os.makedirs(root)
+    s = repro.open(root, create=True, annex_threshold=64, faults=jfaults.FaultPlan(
+        crash_at={"remote:push-mid-object": 1}))
+    write(root, "a.dat", "a" * 500)
+    write(root, "b.dat", "b" * 700)
+    s.save(message="seed")
+    s.add_remote(str(tmp_path / "siteA"), name="siteA", net="lan")
+    with pytest.raises(jfaults.CrashInjected):
+        s.push()
+    assert [os.path.basename(p).split("-")[0] for p in list_journals(os.path.join(root, ".repro"))] == ["push"]
+    s2 = Session(Repository(root))
+    site = s2.repo.remote_by_name("siteA")
+    sent0 = site.bytes_sent
+    rep = s2.recover()
+    assert rep["pushes_resumed"] == 1 and rep["journals_replayed"] == 1 and rep["errors"] == []
+    assert site.bytes_sent - sent0 == 700  # a.dat landed before the kill: only b.dat moves
+    keys = {s2.repo.annex_key_at(p) for p in ("a.dat", "b.dat")}
+    assert site.has_many(keys, fresh=True) == keys and list_journals(os.path.join(root, ".repro")) == []
+    assert s2.verify()["divergence"] == 0
 
 
 # ------------------------------------------------------- the checkpoint matrix

@@ -21,8 +21,9 @@ by each package's ``LocalSlurmCluster`` as subprocesses.
 - ``SubprocessSlurmCluster`` against fake ``sbatch``/``sacct``/``scancel``
   on ``PATH``: the same command lines and parsed states as the reference's.
 - Eight threads finishing one batch at once commit each job once;
-  stragglers; the refusals of later slices (a filesystem fault rule among
-  them); ``repro_torch.open``. (The DAG layer and recovery are held
+  stragglers; ``repro_torch.open``: ``gc`` refused (pack writing), and the
+  remote tier, ``finish(push_to=)``, the cost model and a filesystem fault
+  rule working. (The DAG layer and recovery are held
   against the reference in ``test_torch_dag.py`` and
   ``test_torch_recovery.py``.)
 - Two serving jobs of smoke qwen3 from a port checkpoint, with
@@ -474,21 +475,41 @@ def test_straggler_is_cancelled_and_resubmitted(template, tmp_path):
 
 # -------------------------------------------------------------- the package
 def test_open_returns_a_session_and_refuses_later_slices(tmp_path):
-    s = repro_torch.open(str(tmp_path / "r"), create=True, annex_threshold=4096)
+    root = str(tmp_path / "r")
+    s = repro_torch.open(root, create=True, annex_threshold=4096)
     assert isinstance(s, repro_torch.Session) and s.repo.config["annex_threshold"] == 4096
     assert repro_torch.RunSpec is repro_torch.core.spec.RunSpec and issubclass(repro_torch.SpecError, ValueError)
     with pytest.raises(FileNotFoundError):
         repro_torch.open(str(tmp_path / "missing"))
     with pytest.raises(TypeError, match="only apply when initializing"):
-        repro_torch.open(str(tmp_path / "r"), annex_threshold=1)
-    later = [lambda: s.gc(), lambda: s.add_remote("x"), lambda: s.push(),
-             lambda: s.pull(), lambda: s.fetch(), lambda: s.drop("x"), lambda: s.whereis(),
-             lambda: s.finish(push_to="site0"), lambda: repro_torch.open(str(tmp_path / "r"), profile="gpfs")]
-    for call in later:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §A item 2\.\d"):
-            call()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §A item 2\.6"):
-        repro_torch.FaultPlan(rules=[repro_torch.FaultRule(op="read")])
+        repro_torch.open(root, annex_threshold=1)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §A item 2\.4"):
+        s.gc()
+    # the remote tier (item 2.3): add_remote, push, whereis, drop, pull, fetch and finish(push_to=)
+    site = s.add_remote(str(tmp_path / "site0"))
+    assert site.name == "site0" and s.repo.config["remotes"][0]["name"] == "site0"
+    _write(root, "big.dat", "b" * 5000)
+    _write(root, "job.sh", "head -c 6000 /dev/zero | tr '\\0' 'y' > out.dat\n")
+    s.save(message="seed")
+    key = s.repo.annex_key_at("big.dat")
+    assert s.push()[0]["keys_sent"] == 1 and s.whereis()[key] == {"stores": ["local", "site0"], "recorded": ["site0"]}
+    s.drop("big.dat")
+    assert s.whereis(fresh=True)[key]["stores"] == ["site0"] and s.fetch()["keys_fetched"] == 1
+    assert s.pull()["keys"] == 0
+    ids = s.submit_many([repro_torch.RunSpec(script="job.sh", outputs=["out.dat"])])
+    s.wait(ids, timeout=WAIT)
+    assert [r.state for r in s.finish(push_to="site0")] == ["COMPLETED"]
+    out = s.repo.annex_key_at("out.dat")
+    assert site.has(out, fresh=True) and s.scheduler.db.locations_of([out]) == {out: ["site0"]}
+    s.close()
+    # the cost model (item 2.6): every operation of the reopened repository is charged
+    clock = repro_torch.SimClock()
+    assert repro_torch.open(root, profile=repro_torch.GPFS, clock=clock).head() == s.head()
+    assert clock.meta_ops > 0 and clock.bytes_read > 0 and clock.total > 0
+    # and a filesystem fault rule fires (item 2.6): the first read is config.json's
+    plan = repro_torch.FaultPlan(rules=[repro_torch.FaultRule(op="read", nth=1)])
+    with pytest.raises(repro_torch.InjectedIOError, match="config.json"):
+        repro_torch.open(root, faults=plan)
     s.close()
     with pytest.raises(OutputConflict):
         JobDB(s.repo.repro_dir).add_jobs([repro_torch.RunSpec(script="a.sh", outputs=["o"]),
