@@ -360,6 +360,38 @@ Phases; any failure exits non-zero before the result lines are printed.
                     and the clock's modelled seconds and metadata
                     operations, which are a model of GPFS and the links,
                     not a measurement.
+ 38. gc and clone — in phase 28's repository, after phase 37 (nothing timed
+                    on the card beside it): opened on the GPFS cost model
+                    with one ``SimClock``, each FS seeded with the real
+                    shard entry counts plus, until gc packs them, the
+                    modelled loose files of a 100,000-file campaign
+                    repository (390 entries a shard, past GPFS's 192:
+                    ``FOOTPRINT_FILES``). (1) The loose objects counted and a
+                    repack killed at ``repack:mid-unlink``; ``recover()``
+                    must break the dead repack lock, ``verify()`` show no
+                    divergence, and every commit of every branch read
+                    back. (2) One fixed small save (the probe), then
+                    ``gc()``: it packs the loose objects the killed repack
+                    had not packed, unlinks every loose file and purges
+                    the modelled ones (no shard holds an entry after it),
+                    and the step-8 commit's tree
+                    read from the pack equals the one read before; then
+                    the probe again. (3) ``Repository.clone`` into a fresh
+                    directory: no annex key local, siteA, siteB,
+                    numcopies and the origin's annex as ``remote0`` in its
+                    config; a branch at the step-8 checkpoint switched to,
+                    whose annexed files are pointers; each params leaf
+                    fetched with ``annex_get`` from ``remote0`` and hashing
+                    to its key. (4) The step-8 commit served from the
+                    clone through ``serve.run(repo=<clone>)`` as phase 28
+                    served it: equal tokens, 2 flash launches a prefill.
+                    Prints each step's wall seconds, the objects, bytes and
+                    packs written, whether phases 28 and 35-37 auto-repacked
+                    (a pack holding anything but commits), the clone's
+                    bytes copied and fetched, and gc's, the probe's (with
+                    the degradation term it pays) and the phase's modelled
+                    (GPFS) seconds and metadata operations, which are a
+                    model, not a measurement.
 Phases 3, 4 and 9 also run one backward through each kernel op
 (``ops.flash_attention``, ``ops.rwkv6``, ``ops.mamba_scan``) at a small fp32
 shape and hold its gradients against the plain version's autograd.
@@ -372,6 +404,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import collections
 import dataclasses
 import gc
 import json
@@ -2152,6 +2185,239 @@ def remote_phase(torch, np, configs, serve, kernels: dict, dev, seed: int, repo_
     return launches, res.prefills
 
 
+# Phase 38's modelled footprint: the loose files of a campaign repository on
+# GPFS past the point where finish degrades. The GPFS profile's threshold of
+# 192 entries a shard is the paper's ~50,000-file onset (core/fsio.py);
+# benchmarks/bench_finish.py and its --check-finish gate measure at 100,000
+# files, seeded 100,000 // 256 = 390 entries to each shard, as here.
+FOOTPRINT_FILES = 100_000
+
+
+def seed_shard_pressure(repo, phantom: int = 0) -> int:
+    """Seed ``repo``'s FS with each loose shard's real entry count (a fresh
+    FS models only the files it makes) plus ``phantom`` modelled entries
+    with no file behind them, and return the largest."""
+    for shard in repo.objects._shard_dirs():
+        real = len(os.listdir(shard)) if os.path.isdir(shard) else 0
+        if real or phantom:
+            repo.fs.preload_dir_entries(shard, real + phantom)
+    return repo.objects.loose_pressure()
+
+
+def loose_objects(repo) -> dict[str, int]:
+    """{oid: bytes} of the object store's loose files."""
+    out = {}
+    for shard in repo.objects._shard_dirs():
+        if os.path.isdir(shard):
+            for f in os.listdir(shard):
+                out[os.path.basename(shard) + f] = os.path.getsize(os.path.join(shard, f))
+    return out
+
+
+def gc_clone_phase(torch, configs, serve, kernels: dict, dev, seed: int, repo_dir: str, commit: str, want_tokens,
+                   *, full: bool, device: str, overrides: dict | None, smi: str, shape: dict = SERVE):
+    """Phase 38 (see the module docstring) in the repository ``repo_dir``
+    that holds the checkpoint ``commit``, which phase 28 served as
+    ``want_tokens``, after phase 37. Returns (the serve's launches by
+    wrapper, prefills)."""
+    import zlib
+
+    import repro_torch
+    from repro_torch import GPFS, SimClock
+    from repro_torch.core.faults import CrashInjected, kill_token
+    from repro_torch.core.fsio import FS
+    from repro_torch.core.hashing import annex_key_for_file, parse_annex_key
+    from repro_torch.core.records import RunRecord
+    from repro_torch.core.repo import Repository
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    cfg = (configs.get if full else configs.get_smoke)("qwen3_0_6b").replace(**(overrides or {}))
+    clock = SimClock()  # every session of the phase charges this one clock
+    walls, phase_t = {}, time.perf_counter()
+    repo = Repository(repo_dir)
+    step = RunRecord.from_message(repo.objects.get_commit(commit)["message"]).extras["checkpoint_step"]
+    reldir = f"checkpoints/step_{step:08d}"
+    leaves = json.loads(CheckpointManager(repo)._tree_bytes(commit, f"{reldir}/manifest.json"))["leaves"]
+    params = {f"{reldir}/{m['file']}": m["key"] for p, m in leaves.items() if p.startswith("params/")}
+    params_bytes = sum(parse_annex_key(k)[0] for k in set(params.values()))
+    step_tree = repo.tree_of(commit)
+    # phases 28 and 35-37 ran with the "auto" threshold: an auto-repack leaves
+    # a pack holding trees or blobs; a memoized batch's pack holds commits only
+    auto_packs = [pid for pid in repo.objects.packs.pack_ids()
+                  if any(not zlib.decompress(frame).startswith(b"commit ")
+                         for _, frame in repo.objects.packs.read_pack_objects(pid))]
+    packs_before = len(repo.objects.packs.pack_ids())
+    sessions = []
+    # the modelled footprint's entries a shard: until gc packs them, every
+    # session's FS holds them beside the real files
+    phantom = [FOOTPRINT_FILES // 256]
+
+    def session(**kw):
+        sessions.append(repro_torch.open(repo_dir, profile=GPFS, clock=clock, **kw))
+        seed_shard_pressure(sessions[-1].repo, phantom[0])
+        return sessions[-1]
+
+    def end(sess) -> None:
+        """The session's process ends: its incarnation is dead."""
+        sess.close()
+        kill_token(sess.repo.fs.token)
+
+    def probe(tag: str) -> tuple[float, int, float, dict]:
+        """One fixed small save (a new 4 KiB file at the top: a blob, the
+        root tree and a commit) on a fresh session: its modelled seconds,
+        metadata operations, the seconds of those that the shards'
+        degradation term adds (the total less the operations at
+        ``meta_op_s`` and the bytes at the profile's rates), and its
+        operations by directory (the loose shards as one, and how many of
+        theirs met more than the profile's threshold of entries)."""
+        rel = f"gc_probe_{tag}.txt"
+        (Path(repo_dir) / rel).write_bytes((tag.encode() * 4096)[:4096])
+        s = session()
+        fs, by_dir = s.repo.fs, collections.Counter()
+        charge, shards = fs._charge_meta, {os.path.abspath(d) for d in s.repo.objects._shard_dirs()}
+
+        def tallied(n: int, dirpath: str) -> None:
+            if dirpath in shards:
+                by_dir["loose shards"] += n
+                if fs.dir_entry_count(dirpath) > GPFS.degrade_threshold:
+                    by_dir["loose shards past the threshold"] += n
+            else:
+                by_dir[os.path.relpath(dirpath, repo_dir) if dirpath else "none"] += n
+            charge(n, dirpath)
+
+        fs._charge_meta = tallied
+        before = (clock.total, clock.meta_ops, clock.bytes_read, clock.bytes_written)
+        s.save(paths=[rel], message=f"the gc phase's probe, {tag} gc")
+        s.close()
+        secs, ops, nread, nwritten = (now - then for now, then in zip(
+            (clock.total, clock.meta_ops, clock.bytes_read, clock.bytes_written), before))
+        fs._charge_meta = charge
+        degrade = secs - ops * GPFS.meta_op_s - nread / GPFS.read_bw - nwritten / GPFS.write_bw
+        return secs, ops, degrade, dict(sorted(by_dir.items()))
+
+    with tempfile.TemporaryDirectory() as clones:
+        try:
+            # 1. a repack killed mid-unlink; recover() and verify() after it
+            t = time.perf_counter()
+            loose = loose_objects(repo)
+            s = session(faults=repro_torch.FaultPlan(crash_at={"repack:mid-unlink": 1}))
+            pressure = s.repo.objects.loose_pressure()
+            fullest = max(collections.Counter(oid[:2] for oid in loose).values())
+            w0 = clock.bytes_written
+            try:
+                s.repo.objects.repack()
+            except CrashInjected:
+                killed_written = clock.bytes_written - w0
+            else:
+                fail("the repack with crash point repack:mid-unlink did not crash")
+            end(s)
+            s = session()
+            report = s.recover()
+            check = s.verify()
+            try:  # log() reads every commit it walks
+                commits = {oid for b in s.repo.branches() for oid, _ in s.repo.log(s.repo.branch_head(b))}
+            except (OSError, ValueError) as e:
+                fail(f"a commit did not read back after the killed repack: {e!r}")
+            walls["killed repack, recover, verify"] = time.perf_counter() - t
+            if (report["locks_broken"] != 1 or report["errors"] or check["divergence"]
+                    or os.path.exists(os.path.join(repo_dir, ".repro", "locks", "repack.lock"))):
+                fail(f"after the killed repack: recover() {report}, verify() {check['issues']}")
+            s.close()
+            # 2. the probe, gc, the probe again
+            probe_before = probe("before")
+            t = time.perf_counter()
+            s = session()
+            dup = [oid for oid in loose_objects(s.repo) if s.repo.objects.packs.has(oid)]
+            n_loose = len(loose_objects(s.repo))
+            w0, gc_t0, gc_ops0 = clock.bytes_written, clock.total, clock.meta_ops
+            stats = s.gc()
+            gc_written, gc_modelled = clock.bytes_written - w0, (clock.total - gc_t0, clock.meta_ops - gc_ops0)
+            walls["gc"] = time.perf_counter() - t
+            fresh = Repository(repo_dir, fs=FS(GPFS, clock))
+            if (stats["objects_packed"] != n_loose - len(dup) or stats["loose_unlinked"] != n_loose
+                    or stats["phantom_entries_purged"] != 256 * phantom[0] or s.repo.objects.loose_pressure()
+                    or loose_objects(fresh) or fresh.tree_of(commit) != step_tree
+                    or "cache_evicted" not in stats):
+                fail(f"gc(): {stats} of {n_loose} loose objects, {len(dup)} already packed, {256 * phantom[0]} "
+                     f"modelled entries; the fullest shard after it {s.repo.objects.loose_pressure()} entries, "
+                     f"loose files {len(loose_objects(fresh))}; step-{step} tree equal "
+                     f"{fresh.tree_of(commit) == step_tree}")
+            phantom[0] = 0  # packed: the footprint is gone from the shards
+            s.close()
+            probe_after = probe("after")
+            packs_after = fresh.objects.packs.pack_ids()
+            # 3. a clone; a branch at the checkpoint; the params fetched from the origin's annex
+            t = time.perf_counter()
+            src = Repository(repo_dir, fs=FS(GPFS, clock))
+            w0 = clock.bytes_written
+            clone = Repository.clone(src, f"{clones}/clone", fs=FS(GPFS, clock))
+            cloned = clock.bytes_written - w0
+            walls["clone"] = time.perf_counter() - t
+            if (clone.annex.keys() or {r["name"] for r in clone.config["remotes"]} != {"siteA", "siteB"}
+                    or clone.config["numcopies"] != src.config["numcopies"]
+                    or clone.config["annex_remotes"] != [src.annex.root]
+                    or clone.remote_by_name("remote0").root != src.annex.root
+                    or loose_objects(clone) != loose_objects(src) or clone.objects.packs.pack_ids() != packs_after):
+                fail(f"the clone: local keys {len(clone.annex.keys())}, config {clone.config}, "
+                     f"packs {clone.objects.packs.pack_ids()} (origin's {packs_after})")
+            t = time.perf_counter()
+            clone.create_branch("gc-phase/checkpoint", at=commit)
+            clone.switch("gc-phase/checkpoint")
+            annexed = [p for p, e in clone.tree_of(commit).items() if p.startswith(reldir) and e["t"] == "annex"]
+            not_pointers = [p for p in annexed
+                            if not (Path(clone.root) / p).read_bytes().startswith(b"#%REPRO-ANNEX%#")]
+            where = clone.whereis_many(sorted(set(params.values())))
+            w0 = clock.bytes_written
+            got = [clone.annex_get(rel) for rel in params]
+            fetched = clock.bytes_written - w0
+            walls["switch and annex_get"] = time.perf_counter() - t
+            if (clone.current_branch() != "gc-phase/checkpoint" or not annexed or not_pointers or not all(got)
+                    or any(v != ["remote0"] for v in where.values())
+                    or any(annex_key_for_file(str(Path(clone.root) / rel)) != k for rel, k in params.items())):
+                fail(f"the clone's checkout: branch {clone.current_branch()}, {len(not_pointers)} of {len(annexed)} "
+                     f"annexed files not pointers, whereis {where}, annex_get {got}")
+            # 4. served from the clone, as phase 28 served it
+            t = time.perf_counter()
+            for counter in kernels.values():
+                counter.launches = 0
+            res = serve.run("qwen3_0_6b", full=full, device=dev, dtype="bfloat16", seed=seed, overrides=overrides,
+                            repo=clone.root, commit=commit, **shape)
+            launches = {counter.__name__: counter.launches for counter in kernels.values()}
+            walls["serve"] = time.perf_counter() - t
+            per_prefill = cfg.n_layers if device == "cuda" else 0  # the CPU runs the plain version
+            if (launches["flash_attention_fwd"] != per_prefill * res.prefills
+                    or any(n for name, n in launches.items() if name != "flash_attention_fwd")):
+                fail(f"serving from the clone launched {launches} over {res.prefills} prefills")
+            if not torch.equal(res.tokens.cpu(), want_tokens.cpu()) or not res.logits_finite:
+                fail("the tokens served from the clone differ from phase 28's")
+        finally:
+            for sess in sessions:
+                sess.close()
+    print(f"gc and clone: qwen3_0_6b ({cfg.n_layers} layers) step-{step} checkpoint {commit[:12]}; wall s "
+          f"{ {k: round(v, 3) for k, v in walls.items()} }, phase {time.perf_counter() - phase_t:.3f} s; "
+          f"auto-repacks in phases 28 and 35-37: {len(auto_packs)} (packs before: {packs_before}, all memoized "
+          f"batches' but {len(auto_packs)}); {len(loose)} loose objects ({sum(loose.values())} bytes, the fullest "
+          f"shard {fullest} files, {pressure} entries with the modelled footprint of {FOOTPRINT_FILES} files) "
+          f"before the killed repack, which wrote {killed_written} bytes; recover() broke "
+          f"{report['locks_broken']} lock, verify() divergence {check['divergence']}, {len(commits)} commits read "
+          f"back; gc(): {stats['objects_packed']} objects packed ({len(dup)} loose duplicates of the killed "
+          f"repack's pack), {stats['loose_unlinked']} loose files unlinked, {stats['garbage_swept']} garbage, "
+          f"chunks swept {stats.get('chunks_swept')}, cache rows evicted {stats['cache_evicted']}, "
+          f"{stats['phantom_entries_purged']} modelled entries purged, {gc_written} bytes written, "
+          f"{len(packs_after)} packs after; clone: {cloned} bytes copied, "
+          f"{len(annexed)} annexed checkpoint files as pointers, {len(params)} params leaves "
+          f"({params_bytes} bytes) fetched from remote0 ({fetched} bytes written: the annex's copy and the "
+          f"worktree's); served tokens equal to "
+          f"phase 28's, flash launches {launches['flash_attention_fwd']} over {res.prefills} prefills; "
+          f"modelled (GPFS profile), not measured: gc {gc_modelled[0]:.6f} s and {gc_modelled[1]} metadata "
+          f"operations; the probe save before gc {probe_before[0]:.6f} s, {probe_before[1]} metadata operations "
+          f"{probe_before[3]}, degradation term {probe_before[2]:.6f} s; after gc {probe_after[0]:.6f} s, "
+          f"{probe_after[1]} operations {probe_after[3]}, degradation term {probe_after[2]:.6f} s; "
+          f"the phase {clock.total:.6f} s, {clock.meta_ops} metadata operations, {clock.bytes_read} bytes read, "
+          f"{clock.bytes_written} bytes written; card: {smi}")
+    return launches, res.prefills
+
+
 def train_mfu(flops: float, p50_ms: float) -> float:
     return flops / (p50_ms / 1e3) / H100_FLOPS["bfloat16"]
 
@@ -3113,6 +3379,15 @@ def main() -> None:
                                                         device="cuda", overrides=CAMPAIGN_CUTS, smi=smi)
         print(f"remote sites phase {time.perf_counter() - t0:.1f} s")
 
+        # ----------------------------------- 38. gc and clone, in phase 28's repository
+        t0 = phase("gc and clone")
+        gc.collect()
+        torch.cuda.empty_cache()
+        clone_launches, clone_prefills = gc_clone_phase(torch, configs, serve, all_kernels, dev, args.seed,
+                                                        campaign_dir, last, campaign_tokens, full=True,
+                                                        device="cuda", overrides=CAMPAIGN_CUTS, smi=smi)
+        print(f"gc and clone phase {time.perf_counter() - t0:.1f} s")
+
     # ------------------------------------------------------ 29. train rwkv6
     t0 = phase("train rwkv6")
     gc.collect()
@@ -3175,6 +3450,7 @@ def main() -> None:
             "qwen3_0_6b pipeline serve stage": (pipe_launches, pipe_prefills, "prefill"),
             "qwen3_0_6b served from a checkpoint pulled back from a remote site": (remote_launches, remote_prefills,
                                                                                   "prefill"),
+            "qwen3_0_6b served from a clone of the repacked repository": (clone_launches, clone_prefills, "prefill"),
             "rwkv6_1_6b train": (rwkv_train_launches, rwkv_train_steps, "step"),
             f"{JAMBA} train, 8 layers, no experts": (jamba_train_launches, jamba_train_steps, "step"),
             **dense}

@@ -61,6 +61,12 @@ def make_pointer(key: str, chunked: bool = False) -> bytes:
     return POINTER_PREFIX + b" " + key.encode() + flag + b"\n"
 
 
+def parse_pointer(data: bytes) -> str | None:
+    """The annex key if ``data`` is a pointer file, else None."""
+    parsed = parse_pointer_full(data)
+    return None if parsed is None else parsed[0]
+
+
 def parse_pointer_full(data: bytes) -> tuple[str, bool] | None:
     """``(key, chunked)`` if ``data`` is a pointer file (v1 or v2), else None."""
     if len(data) > POINTER_MAX or not data.startswith(POINTER_PREFIX):
@@ -401,3 +407,30 @@ class AnnexStore:
         """Remove ``key`` (a chunked key's manifest; its chunks stay)."""
         self._forget(key)
         self.fs.unlink(self._path(key))
+
+    def sweep_orphan_chunks(self) -> int:
+        """Drop the chunks no manifest in this store references: what a
+        crashed chunked ingest (chunks publish before the manifest) or the
+        drop of a chunked key leaves. A charged listing of every shard and
+        one stat per whole-content key, so it runs in ``Session.gc()``,
+        quiesced, never on the ingest path. Returns the count swept."""
+        names = self.keys()
+        chunk_keys = {k for k in names if is_chunk_key(k)}
+        if not chunk_keys:
+            return 0
+        referenced: set[str] = set()
+        for k in names:
+            if is_chunk_key(k):
+                continue
+            try:
+                referenced.update(self.manifest_of(k) or ())
+            except (OSError, ValueError):
+                continue  # a corrupt or foreign entry: verify()'s to report
+        swept = 0
+        for ck in chunk_keys - referenced:
+            try:
+                self.drop(ck)
+                swept += 1
+            except OSError:
+                pass  # a racing sweeper got it first
+        return swept

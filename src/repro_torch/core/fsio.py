@@ -37,7 +37,8 @@ threads lose no charge.
 
 ``FS`` tracks directory entry counts as it creates and removes files;
 :meth:`FS.preload_dir_entries` seeds them for a repository with a large
-accumulated footprint.
+accumulated footprint, and :meth:`FS.purge_phantom_entries` charges the
+unlinks that empty such a seeded directory.
 """
 from __future__ import annotations
 
@@ -267,6 +268,33 @@ class FS:
         with self._stats_lock:
             n = self._dir_entries.get(dirpath, 0) + delta
             self._dir_entries[dirpath] = max(0, n)
+
+    def purge_phantom_entries(self, dirpath: str) -> int:
+        """Drop every *modelled* entry of ``dirpath`` that has no file behind
+        it (a footprint seeded by :meth:`preload_dir_entries`), charging the
+        unlink storm as if each were really unlinked: the i-th at the entry
+        count it would have seen, in closed form. ``repack`` calls it after
+        unlinking what exists. Returns the number purged (0 whenever the
+        modelled count is the real one)."""
+        d = os.path.abspath(dirpath)
+        real = len(os.listdir(d)) if os.path.isdir(d) else 0
+        with self._stats_lock:
+            modeled = self._dir_entries.get(d, 0)
+            phantom = modeled - real
+            if phantom <= 0:
+                return 0
+            self._dir_entries[d] = real
+            self.n_files = max(0, self.n_files - phantom)
+        p = self.profile
+        total = phantom * p.meta_op_s
+        if p.dir_degrade:
+            def tri(n: int) -> int:  # 1 + 2 + ... + n
+                return n * (n + 1) // 2 if n > 0 else 0
+
+            # the entry counts seen: modeled, modeled - 1, ..., real + 1
+            total += p.dir_degrade * (tri(modeled - p.degrade_threshold) - tri(real - p.degrade_threshold))
+        self.clock.charge_meta(phantom, total)
+        return phantom
 
     # -- cost charging -------------------------------------------------
     def _charge_meta(self, n: int, dirpath: str) -> None:

@@ -108,7 +108,18 @@ class FileLock:
         would."""
         if self._held:
             self._held = False
-            self.break_lock()
+            try:
+                self.break_lock()
+            except CrashInjected:
+                raise
+            except Exception:
+                # the charged unlink failed while an error unwinds: unlink
+                # uncharged rather than mask that error or leave a live
+                # lock that wedges the next holder until its ttl
+                try:
+                    os.unlink(self.path)
+                except OSError:
+                    pass
 
     def __enter__(self) -> "FileLock":
         return self.acquire()

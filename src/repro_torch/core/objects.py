@@ -11,8 +11,19 @@ Tree entries: ``{"t": "blob", "oid": ...}``, ``{"t": "tree", "oid": ...}``,
 
 Writes land loose, published through a tmp and a rename (two metadata
 operations more than the reference's direct write, which a crash can tear);
-reads ask the pack index first, then the loose file. Every operation goes
-through the repository's :class:`~.fsio.FS`.
+reads ask the pack index first, then the loose file, and a read that loses
+a race with another process's repack reloads the index and tries both
+again. Every operation goes through the repository's :class:`~.fsio.FS`.
+
+Packs (DESIGN.md §8, :mod:`.packs`): ``repack`` moves every loose object
+into one pack, publishes it, and only then unlinks the loose files, so a
+crash leaves duplicates, never a missing object; it folds the smaller half
+of the packs into the new one once there are ``max_packs``. One repack runs
+at a time: a thread lock, and across processes (and crashes) the
+:class:`~.locks.FileLock` ``.repro/locks/repack.lock``, which a killed
+repack leaves for ``recover()`` or the next acquire to break.
+``put_commits_packed`` writes a batch of commits as one pack (the memoized
+publication of §11).
 
 Caching (DESIGN.md §4), as the reference's: objects are immutable, so a
 *known-oid set* answers ``put``/``has`` of an oid written or seen before
@@ -31,6 +42,7 @@ from collections import OrderedDict
 from .files import write_atomic
 from .fsio import FS
 from .hashing import sha256_bytes
+from .locks import LOCKS_DIR, FileLock
 from .packs import PACK_DIR, PackManager
 
 KINDS = ("blob", "tree", "commit")
@@ -57,6 +69,8 @@ class ObjectStore:
         self.fs = fs
         self.packs = PackManager(os.path.join(root, PACK_DIR), fs)
         self._lock = threading.Lock()
+        self._repack_lock = threading.Lock()  # one repack at a time in this process
+        self._repack_lock_path = os.path.join(os.path.dirname(root), LOCKS_DIR, "repack.lock")
         self._known: set[str] = set()
         # oid -> canonical payload; parsed per hit, so no dict is shared
         self._tree_cache: OrderedDict[str, bytes] = OrderedDict()
@@ -200,6 +214,32 @@ class ObjectStore:
         self._cache_put(self._commit_cache, oid, payload, DEFAULT_COMMIT_CACHE)
         return oid
 
+    def put_commits_packed(self, commits: list[dict]) -> list[str]:
+        """Write a batch of commits as ONE pack instead of N loose files (the
+        memoized publication of §11): one data write and one index publish
+        whatever N, and no loose-shard pressure. Commits already stored are
+        skipped; the presence check is uncharged (the known-oid set and the
+        pack index only): fresh commits are timestamp-unique, so a loose
+        probe would be a metadata operation that always misses. Returns the
+        oids in input order."""
+        oids: list[str] = []
+        frames: list[tuple[str, bytes]] = []
+        seen: set[str] = set()
+        for commit in commits:
+            framed = _frame("commit", canonical_json(commit))
+            oid = sha256_bytes(framed)
+            oids.append(oid)
+            if oid in seen:
+                continue
+            seen.add(oid)
+            if not self._is_known(oid) and not self.packs.has(oid):
+                frames.append((oid, zlib.compress(framed, 1)))
+        if frames:
+            self.packs.add_pack(iter(frames))
+            for oid, _ in frames:
+                self._mark_known(oid)
+        return oids
+
     def get_blob(self, oid: str) -> bytes:
         with self._lock:
             cached = self._blob_cache.get(oid)
@@ -223,3 +263,88 @@ class ObjectStore:
             payload = self._get_kind(oid, "commit")
             self._cache_put(self._commit_cache, oid, payload, DEFAULT_COMMIT_CACHE)
         return json.loads(payload)
+
+    # -- compaction (DESIGN.md §8) -------------------------------------------
+    def _shard_dirs(self) -> list[str]:
+        """All 256 shard paths, also those that exist only as modelled entry
+        counts (a seeded footprint)."""
+        return [os.path.join(self.root, f"{i:02x}") for i in range(256)]
+
+    def loose_pressure(self) -> int:
+        """The largest modelled entry count of the 256 loose shards (free
+        bookkeeping reads): what the auto-repack threshold is held against."""
+        return max(self.fs.dir_entry_count(d) for d in self._shard_dirs())
+
+    def repack(self, max_packs: int | None = 48) -> dict:
+        """Move every loose object into one new pack, publish it, then unlink
+        the loose files and charge the unlinks of any seeded phantom entries
+        (:meth:`~.fsio.FS.purge_phantom_entries`). Once
+        there are ``max_packs`` packs, the smaller half (or more, as the
+        bound needs) is folded into the new one and their files removed
+        after it is live, so the pack directory stays near ``2 * max_packs``
+        entries (``None``: never fold). Crash points ``repack:planned``,
+        ``repack:pack-published`` and, after the first unlink,
+        ``repack:mid-unlink``. Returns the stats."""
+        with self._repack_lock, FileLock(self._repack_lock_path, fs=self.fs):
+            return self._repack_locked(max_packs)
+
+    def _repack_locked(self, max_packs: int | None) -> dict:
+        fs, packs = self.fs, self.packs
+        swept = packs.sweep_garbage()  # crash leftovers count against the pack dir's bound
+        to_pack: list[tuple[str, str]] = []  # (oid, loose path) not packed yet
+        loose_paths: list[str] = []
+        real_shards = set(fs.listdir(self.root)) if os.path.isdir(self.root) else set()
+        for shard in self._shard_dirs():
+            name = os.path.basename(shard)
+            if name not in real_shards:
+                continue
+            for f in fs.listdir(shard):
+                path = os.path.join(shard, f)
+                if not packs.has(name + f):  # else a duplicate a crashed repack left
+                    to_pack.append((name + f, path))
+                loose_paths.append(path)
+        consolidated: list[str] = []
+        if max_packs is not None:
+            ids = packs.pack_ids()
+            if len(ids) >= max_packs:
+                # fold the smaller half (or what the bound needs): big old
+                # packs are not copied again on every fold
+                n_fold = max(len(ids) + 1 - max_packs, (len(ids) + 1) // 2)
+
+                def size_of(pid: str) -> int:
+                    try:
+                        return packs.pack_data_size(pid)
+                    except OSError:
+                        return 0  # another process dropped it: fold the ghost away
+                consolidated = sorted(ids, key=size_of)[:n_fold]
+
+        def frames():  # one loose file or one old pack in memory at a time
+            for oid, path in to_pack:
+                yield oid, fs.read_bytes(path)
+            for pid in consolidated:
+                yield from packs.read_pack_objects(pid)
+
+        fs.crash_point("repack:planned")
+        pack_id = packs.add_pack(frames()) if to_pack or consolidated else None
+        # the pack is live: losing the loose and folded copies loses nothing now
+        fs.crash_point("repack:pack-published")
+        unlinked = phantoms = 0
+        for path in loose_paths:
+            fs.unlink(path)
+            unlinked += 1
+            if unlinked == 1:
+                fs.crash_point("repack:mid-unlink")
+        for shard in self._shard_dirs():
+            phantoms += fs.purge_phantom_entries(shard)
+        for pid in consolidated:
+            if pid != pack_id:  # the same content packed again in place
+                packs.drop_pack_files(pid)
+        return {
+            "pack_id": pack_id,
+            "objects_packed": len(to_pack),
+            "packs_consolidated": len(consolidated),
+            "garbage_swept": swept,
+            "loose_unlinked": unlinked,
+            "phantom_entries_purged": phantoms,
+            "packed_total": packs.n_packed(),
+        }

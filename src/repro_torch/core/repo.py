@@ -1,6 +1,5 @@
-"""Repository: working tree + object store + annex + branches (port of the
-part of ``repro.core.repo`` that checkpoints and the Slurm protocol go
-through).
+"""Repository: working tree + object store + annex + branches (port of
+``repro.core.repo``).
 
 ``.repro/config.json`` holds the reference's keys in its order, ``HEAD``
 names the current branch and ``refs/heads/<branch>`` holds its tip.
@@ -11,7 +10,14 @@ unchanged subtrees keep their oid. Both packages give the same tree oids
 for the same content.
 
 ``tree_of`` flattens a commit's tree and ``log`` walks the commit DAG, as
-the reference's do. For the scheduler: per-job branches and the octopus
+the reference's do. ``checkout(commitish, paths=None)`` writes a commit's
+files (or those at and below ``paths``) to the worktree: annexed content
+where the *local* annex holds it, else its pointer file; ``switch`` moves
+HEAD to a branch and checks it out. ``Repository.clone`` copies the objects
+(loose and packed), the refs and HEAD, registers the origin's annex as the
+co-located store ``remote0``, carries ``numcopies`` and the remote sites
+over and checks out HEAD; annexed content stays behind until ``annex_get``
+(paper §2.3). For the scheduler: per-job branches and the octopus
 merge of paper §5.8, the read-only ``hash_path_entry`` that ``rerun`` and
 the run cache compare with, ``ingest_external_file`` for ``--alt-dir``
 outputs, ``lock``/``unlock`` and the cross-process ``file_lock``.
@@ -32,8 +38,12 @@ writer, with the ``token`` of its FS (:mod:`.faults`) stamped on its tmp
 files and lock files, and an optional fault plan whose named crash points it
 marks (``crash_point``); ``sweep_stale_tmps`` removes the tmp files a killed
 incarnation left (opening the repository does not: a sweep never runs
-beside the other package's writes in one process). Not ported (ROADMAP.md
-§A items 2.4 and 2.5): clone, checkout and switch, pack writing and gc.
+beside the other package's writes in one process).
+
+The port publishes every file it writes (a loose object, a ref, HEAD, the
+config, a worktree file, each file a clone copies) through a tmp and a
+rename: two metadata operations more per file than the reference's direct
+write, which a crash can tear.
 """
 from __future__ import annotations
 
@@ -47,12 +57,12 @@ import uuid
 
 from .annex import POINTER_MAX, AnnexStore, make_pointer, parse_pointer_full
 from .chunks import ChunkParams
-from .faults import InjectedNetworkError, RemoteUnavailable
-from .files import stale_tmps, sweep_stale_tmps, write_atomic
+from .faults import InjectedNetworkError, RemoteUnavailable, is_crash
+from .files import stale_tmps, sweep_stale_tmps, tmp_name, write_atomic
 from .fsio import FS, NULL_FS, FSProfile, SimClock
 from .hashing import annex_key_for_bytes, make_annex_key
 from .locks import LOCKS_DIR, FileLock
-from .objects import ObjectStore
+from .objects import ObjectStore, canonical_json
 from .remote import NetworkFaultModel, RemoteStore, coerce_net, fetch_one, net_retry
 
 REPRO_DIR = ".repro"
@@ -110,6 +120,8 @@ class Repository:
         profile: FSProfile = NULL_FS,
         clock: SimClock | None = None,
         annex_threshold: int = DEFAULT_ANNEX_THRESHOLD,
+        annex_patterns: tuple[str, ...] = (),
+        dsid: str | None = None,
         faults=None,
         chunk_threshold: int | None = None,
         chunk_params: ChunkParams | dict | None = None,
@@ -119,9 +131,11 @@ class Repository:
         """A new repository at ``root`` on an FS of ``profile`` charging
         ``clock``. ``chunk_threshold`` turns the chunk tier on for content of
         at least that many bytes (default cutter parameters unless
-        ``chunk_params`` is given); ``numcopies`` is how many verified
-        copies elsewhere a drop needs. ``faults`` is the returned
-        incarnation's fault plan, ``net_faults`` its sites' network faults."""
+        ``chunk_params`` is given); ``annex_patterns`` are globs of paths
+        annexed whatever their size; ``dsid`` names the dataset (default a
+        new uuid); ``numcopies`` is how many verified copies elsewhere a
+        drop needs. ``faults`` is the returned incarnation's fault plan,
+        ``net_faults`` its sites' network faults."""
         fs = FS(profile, clock, faults=faults)
         root = os.path.abspath(root)
         repro_dir = os.path.join(root, REPRO_DIR)
@@ -132,9 +146,9 @@ class Repository:
         if chunk_threshold is not None and chunk_params is None:
             chunk_params = ChunkParams()
         cfg = {
-            "dsid": str(uuid.uuid4()),
+            "dsid": dsid or str(uuid.uuid4()),
             "annex_threshold": annex_threshold,
-            "annex_patterns": [],
+            "annex_patterns": list(annex_patterns),
             "annex_remotes": [],
             "remotes": [],
             "numcopies": numcopies,
@@ -144,6 +158,61 @@ class Repository:
         write_atomic(fs, os.path.join(repro_dir, "config.json"), json.dumps(cfg).encode())
         write_atomic(fs, os.path.join(repro_dir, "HEAD"), b"main")
         return cls(root, fs, net_faults=net_faults)
+
+    @classmethod
+    def clone(cls, src: "Repository", dst_root: str, fs: FS | None = None) -> "Repository":
+        """A clone of ``src`` at ``dst_root`` on ``fs`` (default: uncharged):
+        the objects, loose and packed, the refs and HEAD; the origin's annex
+        registered as ``remote0``, ``numcopies`` and the remote sites
+        carried over; HEAD checked out. Annexed content stays behind: its
+        files are pointers until ``annex_get`` (paper §2.3). Setting up the
+        new repository is uncharged; every copy after it is charged on
+        ``fs``, as the reference's clone is."""
+        repo = cls.init(dst_root, annex_threshold=src.config["annex_threshold"],
+                        annex_patterns=tuple(src.config.get("annex_patterns", ())), dsid=src.config["dsid"],
+                        chunk_threshold=src.config.get("chunk_threshold"),
+                        chunk_params=src.config.get("chunk_params"))
+        if fs is not None:
+            repo._rebind(fs)
+        # every file through a tmp outside the shards and refs, where no
+        # listing of objects or branches sees it
+        for dirpath, _, files in os.walk(src.objects.root):
+            rel = os.path.relpath(dirpath, src.objects.root)
+            for f in files:
+                repo._copy_in(os.path.join(dirpath, f), os.path.join(repo.objects.root, rel, f),
+                              repo.objects.root)
+        refs_src = os.path.join(src.repro_dir, "refs", "heads")
+        for dirpath, _, files in os.walk(refs_src):
+            for f in files:
+                rel = os.path.relpath(os.path.join(dirpath, f), refs_src)
+                repo._copy_in(os.path.join(dirpath, f), repo._ref_path(rel), repo.repro_dir)
+        repo._copy_in(os.path.join(src.repro_dir, "HEAD"), os.path.join(repo.repro_dir, "HEAD"), repo.repro_dir)
+        repo.add_annex_remote(src.annex.root)
+        repo.config["numcopies"] = src.config.get("numcopies", 1)
+        repo._save_config()
+        for r in src.config.get("remotes", []):
+            repo.add_remote(r["root"], name=r["name"], net=r.get("net"))
+        head = repo.head_commit()
+        if head:
+            repo.checkout(head)
+        return repo
+
+    def _rebind(self, fs: FS) -> None:
+        """Move a new repository (no remote yet) and its stores onto ``fs``:
+        a clone is set up uncharged and charged from then on."""
+        self.fs, self.faults, self.token = fs, fs.faults, fs.token
+        self.objects.fs = self.objects.packs.fs = self.annex.fs = fs
+
+    def _copy_in(self, src: str, dst: str, tmp_dir: str) -> None:
+        """Copy ``src`` to ``dst`` through a tmp in ``tmp_dir`` and a rename."""
+        tmp = tmp_name(tmp_dir, self.fs.token)
+        try:
+            self.fs.copy_file(src, tmp)
+            self.fs.rename(tmp, dst)
+        except BaseException as e:
+            if not is_crash(e):
+                self.fs.unlink(tmp)
+            raise
 
     @property
     def dsid(self) -> str:
@@ -156,6 +225,16 @@ class Repository:
 
     def _save_config(self) -> None:
         write_atomic(self.fs, os.path.join(self.repro_dir, "config.json"), json.dumps(self.config).encode())
+
+    def add_annex_remote(self, store_root: str) -> None:
+        """Register a co-located annex store (a clone's origin) as
+        ``remote<i>``, persisted in the config's ``annex_remotes``."""
+        store_root = os.path.abspath(store_root)
+        if store_root not in self.config["annex_remotes"]:
+            self.config["annex_remotes"].append(store_root)
+            self._save_config()
+            self._remotes.append(AnnexStore(store_root, self.fs, name=f"remote{len(self._remotes)}",
+                                            **self._store_kw()))
 
     def file_lock(self, name: str, ttl_s: float = 600.0) -> FileLock:
         """Cross-process advisory lock ``.repro/locks/<name>.lock``; a stale
@@ -213,6 +292,15 @@ class Repository:
         if self.fs.exists(self._ref_path(branch)):
             raise ValueError(f"branch exists: {branch}")
         self.set_branch(branch, at)
+
+    def switch(self, branch: str) -> None:
+        """Make ``branch`` the current one and check out its tip."""
+        if not self.fs.exists(self._ref_path(branch)):
+            raise ValueError(f"no such branch: {branch}")
+        write_atomic(self.fs, os.path.join(self.repro_dir, "HEAD"), branch.encode())
+        head = self.head_commit()
+        if head:
+            self.checkout(head)
 
     def resolve(self, commitish: str) -> str:
         """Branch name, full oid, or unique oid prefix (>= 4 hex) -> full oid."""
@@ -446,12 +534,15 @@ class Repository:
         base_tree: str | None = None,
         spec: dict | None = None,
         allow_empty: bool = False,
+        defer: list | None = None,
     ) -> tuple[str, str | None]:
         """Apply ``changes`` on top of ``base_tree`` and write a commit whose
         parent is ``base_commit``; moves no ref. Returns ``(commit oid, tree
         oid)``, or the base commit when nothing changed and ``allow_empty``
         is false. ``spec`` (a RunSpec JSON dict) becomes the commit's
-        ``spec`` field."""
+        ``spec`` field. With ``defer`` the commit is appended there instead
+        of written: the caller writes the batch with
+        ``objects.put_commits_packed`` before any ref names it."""
         tree_oid = self._update_tree(base_tree, changes)
         if tree_oid == base_tree and base_commit is not None and not allow_empty:
             return base_commit, base_tree
@@ -464,6 +555,9 @@ class Repository:
         }
         if spec is not None:
             commit["spec"] = spec
+        if defer is not None:
+            defer.append(commit)
+            return self.objects.oid_for("commit", canonical_json(commit)), tree_oid
         return self.objects.put_commit(commit), tree_oid
 
     def save(self, paths=None, message: str = "", spec: dict | None = None) -> str:
@@ -525,9 +619,48 @@ class Repository:
             }
             oid = self.objects.put_commit(commit)
             self.set_branch(branch, oid)
-            for path, entry in sorted(merged.items()):
-                self.materialize(path, entry)
+            if merged:
+                self.checkout(oid, paths=sorted(merged))
             return oid
+
+    # -- checkout --------------------------------------------------------
+    def _collect_tree_paths(self, tree_oid: str, prefix: str, targets: list[str], out: dict[str, dict]) -> None:
+        """Collect ``{relpath: entry}`` of every file at or below one of
+        ``targets``, descending only into directories on a target's spine
+        (targets grouped by their first component at each level)."""
+        whole: set[str] = set()  # names whose whole subtree is targeted
+        groups: dict[str, list[str]] = {}  # name -> the deeper targets within it
+        for t in targets:
+            name, sep, rest = t.partition("/")
+            if sep:
+                groups.setdefault(name, []).append(rest)
+            else:
+                whole.add(name)
+        collect_all = "" in whole  # this whole subtree is targeted
+        for name, entry in self.objects.get_tree(tree_oid).items():
+            p = prefix + name
+            if entry["t"] == "tree":
+                if collect_all or name in whole:
+                    self._collect_tree_paths(entry["oid"], p + "/", [""], out)
+                elif name in groups:
+                    self._collect_tree_paths(entry["oid"], p + "/", groups[name], out)
+            elif collect_all or name in whole:
+                out[p] = entry
+
+    def checkout(self, commitish: str, paths: list[str] | None = None) -> None:
+        """Write a commit's files (or those at and below ``paths``) to the
+        worktree: blobs, annexed content where the local annex holds it,
+        else pointer files (content on a remote needs ``annex_get``)."""
+        oid = self.resolve(commitish)
+        if paths is None:
+            targets = self.tree_of(oid)
+        else:
+            targets = {}
+            tree_oid = self._tree_oid_of(oid)
+            if tree_oid:
+                self._collect_tree_paths(tree_oid, "", [t.rstrip("/") for t in paths], targets)
+        for relpath, entry in targets.items():
+            self.materialize(relpath, entry)
 
     def materialize(self, relpath: str, entry: dict) -> None:
         """Write one tree entry to the worktree: a blob's bytes, annexed

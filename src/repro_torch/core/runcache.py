@@ -117,3 +117,11 @@ class RunCache:
             if lost:
                 broken.append((r, f"missing annex objects: {lost}"))
         return broken
+
+    def evict_missing(self, db) -> list[str]:
+        """Drop ``db``'s rows whose recorded commit or annex objects no longer
+        exist (``Session.gc``), so the cache never serves a hit it cannot
+        materialise. Returns the evicted keys."""
+        bad = [r["exec_key"] for r, _ in self.check(db)]
+        db.cache_evict(bad)
+        return bad

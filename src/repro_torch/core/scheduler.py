@@ -33,9 +33,11 @@ Slurm failures are retried with a bounded backoff, charged on the
 repository's simulated clock. ``finish(push_to=)`` pushes a batch's annexed
 outputs to remote sites.
 
-Not ported: repacking after finish (ROADMAP.md §A item 2.4) and the
-reference's per-command CLI start-up charge (``cli_startup_s``). Commits
-are written loose, not as the reference's one pack per memoized batch.
+Object-store pressure (DESIGN.md §8): a memoized batch's commits are
+written as one pack, and with ``auto_repack_threshold`` a finish batch
+repacks the store once its refs are published and a loose shard holds more
+entries than the threshold (``maybe_repack``). Not ported: the reference's
+per-command CLI start-up charge (``cli_startup_s``).
 """
 from __future__ import annotations
 
@@ -73,9 +75,12 @@ class FinishResult:
 
 
 class SlurmScheduler:
-    def __init__(self, repo: Repository, cluster: S.SlurmCluster):
+    def __init__(self, repo: Repository, cluster: S.SlurmCluster, auto_repack_threshold: int | None = None):
         self.repo = repo
         self.cluster = cluster
+        # the largest loose-shard entry count a finish batch leaves before it
+        # repacks; None never repacks (measurements that want the slope)
+        self.auto_repack_threshold = auto_repack_threshold
         self.db = JobDB(repo.repro_dir)
         self.cache = RunCache(repo)  # §11 run cache
 
@@ -327,16 +332,20 @@ class SlurmScheduler:
             repo.crash_point("memoize:journal-written")
             head_commit, head_tree = base, repo._tree_oid_of(base)
             lines: list[dict] = []
+            deferred: list[dict] = []
             for job_id, spec, key, row in hits:
                 message, spec_json = self._memoized_record(spec, row, key)
                 # allow_empty: a warm worktree leaves the tree identical to
-                # the base, but each hit still gets its provenance commit
+                # the base, but each hit still gets its provenance commit;
+                # defer: the chain lands as one pack below
                 head_commit, head_tree = repo.commit_changes(
                     self._materialize_cached(row, base), message=message, base_commit=head_commit,
-                    base_tree=head_tree, allow_empty=True, spec=spec_json)
+                    base_tree=head_tree, allow_empty=True, spec=spec_json, defer=deferred)
                 lines.append({"job_id": job_id, "commit": head_commit})
-            # durability order: commit objects, then the journal lines that
-            # name them, then the ref that makes them reachable
+            # durability order: the commit objects (one pack), then the
+            # journal lines that name them, then the ref that makes them
+            # reachable
+            repo.objects.put_commits_packed(deferred)
             jh.append_many(lines)
             repo.crash_point("memoize:before-publish")
             repo.set_branch(branch, head_commit)
@@ -507,9 +516,20 @@ class SlurmScheduler:
         # them exactly once
         results += self._commit_jobs_batched(to_commit, use_branch=branches or octopus, octopus=octopus, journal=jh)
         jh.done()
+        self.maybe_repack()
         if push_to is not None and any(r.commit for r in results):
             self._auto_push(push_to, results)
         return results
+
+    def maybe_repack(self) -> dict | None:
+        """Repack once a loose shard holds more entries than
+        ``auto_repack_threshold`` (DESIGN.md §8), after a finish batch's refs
+        are published; crash-safe by the pack-before-unlink order. Returns
+        the repack's stats, or None."""
+        thr = self.auto_repack_threshold
+        if thr is None or self.repo.objects.loose_pressure() <= thr:
+            return None
+        return self.repo.objects.repack()
 
     def _auto_push(self, push_to: str | list[str], results: list[FinishResult]) -> list[dict]:
         """Push the annex keys the batch's commits introduced (each commit

@@ -22,10 +22,13 @@ drives every execution path of the paper's workflow through declarative
     s.add_remote("/archive/siteA", name="siteA", net="wan")
     s.push(); s.drop("big.dat"); s.pull()          # remote sites (§13)
     s.recover(); s.verify()                        # after a crash (§10)
+    s.gc()                                         # pack the loose objects (§8)
 
 The scheduler/cluster pair is built lazily, so a Session used only for
-``run``/``rerun`` never starts a thread pool. ``gc`` (ROADMAP.md §A item
-2.4) raises NotImplementedError naming its item.
+``run``/``rerun`` never starts a thread pool. ``auto_repack_threshold``
+(default ``"auto"``: the profile's ``degrade_threshold`` where it degrades,
+else off) makes each finish batch repack once a loose shard holds more
+entries than that.
 """
 from __future__ import annotations
 
@@ -35,9 +38,9 @@ from . import records as R
 from . import recovery
 from .fsio import FS, NULL_FS, FSProfile, SimClock
 from .jobdb import JobDB
-from .later import PACKS, not_ported
 from .remote import RemoteStore, head_annex_keys, pull_keys, push_keys
 from .repo import REPRO_DIR, Repository
+from .runcache import RunCache
 from .scheduler import FinishResult, ScheduleError, SlurmScheduler
 from .slurm import LocalSlurmCluster, SlurmCluster
 from .spec import RunSpec
@@ -46,12 +49,20 @@ from .spec import RunSpec
 class Session:
     """A repository plus (lazily) a cluster and a scheduler, driven by specs."""
 
-    def __init__(self, repo: Repository, cluster: SlurmCluster | None = None, max_workers: int = 8):
+    def __init__(self, repo: Repository, cluster: SlurmCluster | None = None, max_workers: int = 8,
+                 auto_repack_threshold: int | None | str = "auto"):
         self.repo = repo
         self._max_workers = max_workers
         self._cluster = cluster
         self._scheduler: SlurmScheduler | None = None
         self._owns_cluster = cluster is None
+        if isinstance(auto_repack_threshold, str) and auto_repack_threshold != "auto":
+            raise ValueError(f"auto_repack_threshold must be an int, None, or 'auto'; got {auto_repack_threshold!r}")
+        if auto_repack_threshold == "auto":
+            # repack once a loose shard would pay the profile's degradation
+            p = repo.fs.profile
+            auto_repack_threshold = p.degrade_threshold if p.dir_degrade > 0 else None
+        self.auto_repack_threshold = auto_repack_threshold
 
     # ------------------------------------------------------------ plumbing
     @property
@@ -64,7 +75,7 @@ class Session:
     @property
     def scheduler(self) -> SlurmScheduler:
         if self._scheduler is None:
-            self._scheduler = SlurmScheduler(self.repo, self.cluster)
+            self._scheduler = SlurmScheduler(self.repo, self.cluster, auto_repack_threshold=self.auto_repack_threshold)
         return self._scheduler
 
     @property
@@ -91,8 +102,18 @@ class Session:
     def head(self) -> str | None:
         return self.repo.head_commit()
 
-    def gc(self, **kw) -> dict:
-        raise not_ported("gc", PACKS)
+    def gc(self) -> dict:
+        """Compact the object store (DESIGN.md §8): move the loose objects
+        into a pack, published before any loose file is unlinked; drop the
+        chunks no manifest references (§12) and the run-cache rows whose
+        commit or annex objects are gone (§11). Returns the repack's stats,
+        plus ``chunks_swept`` (a chunk-aware annex only) and
+        ``cache_evicted``."""
+        stats = dict(self.repo.objects.repack())
+        if self.repo.annex.chunk_aware:
+            stats["chunks_swept"] = self.repo.annex.sweep_orphan_chunks()
+        stats["cache_evicted"] = len(RunCache(self.repo).evict_missing(self._db()))
+        return stats
 
     # ------------------------------------------------------------ execution
     @staticmethod
@@ -255,8 +276,7 @@ class Session:
 
 
 def open(root: str, create: bool = False, cluster: SlurmCluster | None = None, max_workers: int = 8,
-         profile: FSProfile = NULL_FS, clock: SimClock | None = None, faults=None, net_faults=None,
-         **init_kwargs) -> Session:
+         profile: FSProfile = NULL_FS, clock: SimClock | None = None, faults=None, net_faults=None, **init_kwargs) -> Session:
     """Open (or with ``create=True``, initialize) a repository at ``root``
     and return a :class:`Session` over it. The §11 run cache is always on.
     ``profile`` and ``clock`` put the repository on the filesystem cost

@@ -21,8 +21,8 @@ _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
-# the port's own copies of the reference's jax-free cost model and remote tier
-assert {"repro_torch.core.fsio", "repro_torch.core.remote"} <= set(names)
+# the port's own copies of the reference's jax-free cost model, remote tier and packs
+assert {"repro_torch.core.fsio", "repro_torch.core.remote", "repro_torch.core.packs"} <= set(names)
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
@@ -43,6 +43,17 @@ def test_port_imports_neither_jax_nor_repro():
     assert int(out[0]) >= n_modules
     assert out[1] == "False"
     assert out[2].strip() == "[]"
+
+
+def test_core_exports_the_reference_names():
+    """``repro_torch.core`` exports ``repro.core``'s names (and ``open``), so
+    code written against the reference runs on the port with only the
+    package name changed in its imports."""
+    import repro.core
+    import repro_torch.core
+
+    assert sorted(repro_torch.core.__all__) == sorted(repro.core.__all__)
+    assert all(hasattr(repro_torch.core, n) for n in [*repro.core.__all__, "open"])
 
 
 @pytest.mark.parametrize("which", ["config", "smoke_config"])

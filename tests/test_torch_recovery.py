@@ -17,8 +17,8 @@ bash scripts run by each package's ``LocalSlurmCluster``.
   and its lock file, writes nothing more, and ``recover()`` sweeps both.
 - ``verify`` repairs, stale and live locks, the Slurm satellites (scancel,
   the straggler race, a mid-batch sbatch failure, NODE_FAIL, transient
-  faults retried and exhausted), and the checkpoint matrix (its ``gc``
-  lines wait for pack writing, ROADMAP.md §A item 2.4).
+  faults retried and exhausted), and the checkpoint matrix with its
+  ``gc`` lines (the orphan chunks of a killed chunked ingest swept).
 """
 import json
 import os
@@ -264,12 +264,11 @@ def _recorded(side, tmp_path, workload):
     ("dag", [p for p, _ in DAG_POINTS])])
 def test_crash_points_recorded_match_reference(workload, points, tmp_path):
     """A clean run passes every point its matrix kills at, in the order and
-    number the reference's run passes them (but for the reference's
-    ``repack:*`` points: it writes a memoized batch's commits as one pack,
-    the port writes them loose until pack writing, ROADMAP.md §A item 2.4)."""
+    number the reference's run passes them, the ``repack:*`` points of a
+    memoized batch's one pack included."""
     port, ref = _recorded("port", tmp_path, workload), _recorded("ref", tmp_path, workload)
     assert set(points) <= set(port)
-    assert port == [p for p in ref if not p.startswith("repack:")]
+    assert port == ref
 
 
 # --------------------------------------------------- a fired crash is a hard kill
@@ -595,9 +594,9 @@ def _ckpt_env(tmp_path, plan=None):
 @pytest.mark.parametrize("point", CKPT_POINTS)
 def test_ckpt_crash_matrix(point, tmp_path):
     """A checkpoint save killed at each §12 boundary: the commit is
-    all-or-nothing, recovery lands at zero divergence, and the interrupted
-    save replays (the reference's matrix also sweeps the orphan chunks with
-    gc, which waits for ROADMAP.md §A item 2.4)."""
+    all-or-nothing, recovery lands at zero divergence, a killed chunked
+    ingest strands only unreferenced chunks, which gc sweeps, and the
+    interrupted save replays."""
     from repro_torch.train.checkpoint import CheckpointManager
 
     root, s, params, opt_state = _ckpt_env(tmp_path, FaultPlan(seed=7, crash_at={point: 1}))
@@ -611,12 +610,17 @@ def test_ckpt_crash_matrix(point, tmp_path):
         assert [step for _, step in ckpt.checkpoints()] == [1]  # the commit landed before the crash
     else:
         assert ckpt.checkpoints() == []  # no partial checkpoint commit is ever visible
+        swept = s2.gc()["chunks_swept"]
+        if point.startswith("chunk:"):
+            assert swept > 0, point  # the dead ingest published chunks but no manifest
         ckpt.save(1, params, opt_state, data_step=1)
     state, manifest = ckpt.restore(device="cpu")
     assert manifest["step"] == 1
     assert np.array_equal(state["params"]["w"].numpy(), params["w"])
     assert np.array_equal(state["opt_state"]["m"].numpy(), opt_state["m"])
     assert s2.verify()["divergence"] == 0
+    assert s2.gc()["chunks_swept"] == 0  # gc after recovery and the save again leaves no orphan
+    s2.close()
 
 
 def test_ckpt_crash_points_recorded(tmp_path):

@@ -21,7 +21,7 @@ by each package's ``LocalSlurmCluster`` as subprocesses.
 - ``SubprocessSlurmCluster`` against fake ``sbatch``/``sacct``/``scancel``
   on ``PATH``: the same command lines and parsed states as the reference's.
 - Eight threads finishing one batch at once commit each job once;
-  stragglers; ``repro_torch.open``: ``gc`` refused (pack writing), and the
+  stragglers; ``repro_torch.open``: ``gc`` with the reference's keys, and the
   remote tier, ``finish(push_to=)``, the cost model and a filesystem fault
   rule working. (The DAG layer and recovery are held
   against the reference in ``test_torch_dag.py`` and
@@ -483,8 +483,9 @@ def test_open_returns_a_session_and_refuses_later_slices(tmp_path):
         repro_torch.open(str(tmp_path / "missing"))
     with pytest.raises(TypeError, match="only apply when initializing"):
         repro_torch.open(root, annex_threshold=1)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §A item 2\.4"):
-        s.gc()
+    # gc (ROADMAP.md §A item 2.4, once refused here) runs and reports the reference's keys
+    with repro.open(str(tmp_path / "ref"), create=True, annex_threshold=4096) as ref:
+        assert set(s.gc()) == set(ref.gc())
     # the remote tier (item 2.3): add_remote, push, whereis, drop, pull, fetch and finish(push_to=)
     site = s.add_remote(str(tmp_path / "site0"))
     assert site.name == "site0" and s.repo.config["remotes"][0]["name"] == "site0"
