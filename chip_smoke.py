@@ -392,6 +392,36 @@ Phases; any failure exits non-zero before the result lines are printed.
                     the degradation term it pays) and the phase's modelled
                     (GPFS) seconds and metadata operations, which are a
                     model, not a measurement.
+ 39. cache controls — in phase 28's repository, after phase 38, on a local
+                    cluster numbered after the job DB's highest Slurm id:
+                    (1) a session with ``cache_env`` = the card's name and
+                    power limit, torch and CUDA; (2) phase 35's job-1 spec
+                    submitted there must miss (phase 35's row has no
+                    environment) and reach sbatch; (3) job 0's spec with
+                    ``refresh=True`` must reach sbatch too, both jobs
+                    running on the card at once. (8) Meanwhile job 2's spec,
+                    in a ``run_cache=False`` session, is cancelled as soon as
+                    it is submitted: the next ``sacct`` must say CANCELLED.
+                    (4) While the jobs run, ``examples/serve_batched_torch.py``'s
+                    ``serve_batched`` at full qwen3 width and depth, bf16 seed
+                    weights, B=8, prompt 64, gen 32: 28 flash launches for
+                    its one prefill, greedy tokens equal to ``serve.run``'s
+                    on the same weights and prompts; (5) then
+                    ``examples/train_campaign_torch.py``'s campaign, its
+                    middle checkpoint restored onto the card bit for bit,
+                    its modelled seconds and metadata operations those of
+                    the CPU run (``CAMPAIGN_EXAMPLE``). (6) After ``wait``
+                    and ``finish``, each job's committed tokens.npy must
+                    have phase 35's annex key for its seed and its log 2
+                    flash launches a prefill, and no kernel was rebuilt.
+                    (7) Job 1's spec submitted again is memoized with no
+                    sbatch, under the same ``cache_env`` and, in a session
+                    with none, on phase 35's row. (8) Job 2's tokens.npy is
+                    untouched and ``finish`` closes its row. Prints the
+                    submit-to-completion span, each job's runtime and
+                    stages, the sbatch counts, the cancel's latency, and
+                    the in-process serve's prefill and decode p50/p95,
+                    which were taken beside the two jobs.
 Phases 3, 4 and 9 also run one backward through each kernel op
 (``ops.flash_attention``, ``ops.rwkv6``, ``ops.mamba_scan``) at a small fp32
 shape and hold its gradients against the plain version's autograd.
@@ -629,6 +659,10 @@ JAMBA_TRAIN_CUTS = {"moe": None, "n_layers": 8}
 JAMBA_TRAIN = dict(batch=4, seq_len=512)
 JAMBA_GRAD_SHAPE = (1, 512, 16384, 16)  # phase 30: the Mamba op's chunked backward at jamba's width
 DENSE = ["phi3_mini_3_8b", "granite_3_2b", "internlm2_20b"]  # phases 31-33, full width and depth
+# phase 39: examples/train_campaign_torch.py's modelled metadata operations and seconds on the CPU
+# (tests/test_torch_examples.py holds a CPU run to them; the bytes of its commits vary by a few with their times)
+CAMPAIGN_EXAMPLE = {"meta_ops": 1482, "modelled_s": 3.0070233333333225}
+CACHE_GEN = dict(batch=8, prompt_len=64, gen=32)  # phase 39: examples/serve_batched_torch.py's defaults
 DENSE_PARITY_LAYERS = 2  # phase 34: each of the three at full width, 2 layers
 
 
@@ -2418,6 +2452,207 @@ def gc_clone_phase(torch, configs, serve, kernels: dict, dev, seed: int, repo_di
     return launches, res.prefills
 
 
+def load_example(name: str):
+    """One of the port's example scripts under examples/, as a module (its
+    main() does not run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def cache_controls_phase(torch, np, configs, serve, kernels: dict, dev, seed: int, repo_dir: str, commit: str,
+                         *, full: bool, device: str, overrides: dict | None, smi: str):
+    """Phase 39 (see the module docstring) in phase 28's repository
+    ``repo_dir`` after phases 35-38, whose phase-35 serving jobs of
+    ``commit`` left run-cache rows with no environment. Returns (the
+    in-process serve's launches by wrapper, its prefills, the jobs'
+    launches read from their committed logs, the jobs' prefills)."""
+    import io
+    from contextlib import redirect_stdout
+
+    import repro_torch
+    from repro_torch.core.hashing import annex_key_for_bytes
+    from repro_torch.core.jobdb import JobDB
+    from repro_torch.core.records import RunRecord
+    from repro_torch.core.repo import REPRO_DIR, Repository
+    from repro_torch.core.runcache import RunCache
+    from repro_torch.core.slurm import CANCELLED
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+
+    phase_t = time.perf_counter()
+    libs = {p: p.stat().st_mtime_ns for p in build.BUILD_DIR.glob("*.so")}
+    specs = serving_job_specs(repo_dir, commit, 3, full=full, device=device, overrides=overrides)
+    # phase 35's rows: keyed with no environment
+    plain_keys = RunCache(Repository(repo_dir)).execution_keys(specs)
+    rows35 = JobDB(os.path.join(repo_dir, REPRO_DIR)).cache_lookup(plain_keys)
+    if any(k not in rows35 for k in plain_keys):
+        fail(f"phase 35 left run-cache rows for {len(rows35)} of the 3 serving specs")
+    repo = Repository(repo_dir)
+    # each seed's tokens.npy as phase 35 committed it: its tree entry and the annex key of its bytes
+    want = [(rows35[k]["output_tree"][f"jobs/serve_{i}/tokens.npy"],
+             annex_key_for_bytes(committed_bytes(repo, rows35[k]["commit_oid"], f"jobs/serve_{i}/tokens.npy")))
+            for i, k in enumerate(plain_keys)]
+    # what the executions are keyed on: the card and its power limit (nvidia-smi's line), torch and CUDA
+    gpu, _, limit = smi.partition(", ")
+    env = {"gpu": gpu, "power_limit": limit or None, "torch": torch.__version__, "cuda": torch.version.cuda}
+    sessions = []
+
+    def open_session(workers: int, **kw):
+        s = repro_torch.open(repo_dir, cluster=local_cluster(repo_dir, workers), **kw)
+        sessions.append(s)
+        return s
+
+    def close_all() -> None:
+        """Stop every job of this phase still running, and the clusters."""
+        while sessions:
+            s = sessions.pop()
+            for row in s.scheduler.db.open_jobs():
+                if row["slurm_id"] is not None and row["slurm_id"] in s.cluster._jobs:
+                    s.cluster.scancel(row["slurm_id"])
+            s.close()
+
+    atexit.register(close_all)  # also when a later step fails
+    # (1)-(3) job 1's spec misses (phase 35's row has no environment); job 0's is refreshed
+    s1 = open_session(2, cache_env=env)
+    t_submit = time.perf_counter()
+    with counting_sbatch() as sbatched:
+        id1 = s1.submit(specs[1])
+        id0 = s1.submit(specs[0], refresh=True)
+    submit_s = time.perf_counter() - t_submit
+    rows = [s1.scheduler.db.get(j) for j in (id0, id1)]
+    if len(sbatched) != 2 or any(r["status"] != "scheduled" or r["slurm_id"] is None for r in rows):
+        fail(f"job 1's miss and job 0's refresh made {len(sbatched)} sbatch calls, rows "
+             f"{[(r['status'], r['slurm_id']) for r in rows]}")
+    if rows[1]["exec_key"] == plain_keys[1] or rows[1]["exec_key"] != RunCache(s1.repo, env).execution_key(specs[1]):
+        fail("job 1's execution key does not carry the environment")
+    # (8) job 2's spec in a session with the run cache off, cancelled at once
+    s3 = open_session(1, run_cache=False)
+    tokens2 = Path(repo_dir) / "jobs/serve_2/tokens.npy"
+    with counting_sbatch() as sbatched2:
+        id2 = s3.submit(specs[2])
+    slurm2 = s3.scheduler.db.get(id2)["slurm_id"]
+    before2 = (tokens2.stat().st_mtime_ns, tokens2.stat().st_size) if tokens2.exists() else None
+    t = time.perf_counter()
+    cancelled = s3.cluster.scancel(slurm2)
+    cancel_s = time.perf_counter() - t
+    right_after = s3.cluster.sacct(slurm2)
+    if len(sbatched2) != 1 or cancelled != CANCELLED or right_after != CANCELLED:
+        fail(f"job 2 after {len(sbatched2)} sbatch calls: scancel returned {cancelled}, the next sacct says "
+             f"{right_after}")
+    # (4) while the jobs run: serve_batched_torch's function at full width, seed weights
+    t_inproc = time.perf_counter()
+    ex = load_example("serve_batched_torch")
+    cfg = configs.get("qwen3_0_6b") if full else configs.get_smoke("qwen3_0_6b")
+    b, p, g = CACHE_GEN["batch"], CACHE_GEN["prompt_len"], CACHE_GEN["gen"]
+    params = init_params(T.param_defs(cfg), seed=seed, dtype=torch.bfloat16, device=dev)
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, p))
+    for counter in kernels.values():
+        counter.launches = 0
+    with deterministic(torch):
+        out = ex.serve_batched(cfg, params, prompts, g, dev)
+        batched_launches = {counter.__name__: counter.launches for counter in kernels.values()}
+        del params
+        served = serve.run("qwen3_0_6b", full=full, device=dev, seed=seed, **CACHE_GEN).tokens
+    flash = kernels["attn"].__name__
+    per_prefill = cfg.n_layers if dev.type == "cuda" else 0
+    if batched_launches[flash] != per_prefill or sum(batched_launches.values()) != per_prefill:
+        fail(f"serve_batched_torch's one prefill launched {batched_launches}, expected {flash} {per_prefill} times")
+    if not torch.equal(out["tokens"], served.cpu()):
+        fail("serve_batched_torch's greedy tokens differ from serve.run's on the same weights and prompts")
+    decode_ms = np.array(out["decode_s"][1:]) * 1e3
+    # (5) the checkpoint campaign example, restored onto the card
+    with tempfile.TemporaryDirectory() as work, redirect_stdout(io.StringIO()) as printed:
+        camp = load_example("train_campaign_torch").campaign(work, dev)
+    if (camp["meta_ops"] != CAMPAIGN_EXAMPLE["meta_ops"]
+            or abs(camp["modelled_s"] - CAMPAIGN_EXAMPLE["modelled_s"]) > 1e-6):
+        fail(f"train_campaign_torch modelled {camp['modelled_s']!r} s and {camp['meta_ops']} metadata operations; "
+             f"the CPU run {CAMPAIGN_EXAMPLE}")
+    restored = camp["state"]["params"]["embed"]
+    if restored.device.type != dev.type:
+        fail(f"train_campaign_torch restored onto {restored.device}")
+    inproc_s = time.perf_counter() - t_inproc
+    # (6) the two jobs, finished
+    t = time.perf_counter()
+    s1.wait([id0, id1], timeout=600)
+    wait_s = time.perf_counter() - t
+    jrows = [s1.scheduler.db.get(j) for j in (id0, id1)]
+    runtimes = [s1.cluster.job_runtime(r["slurm_id"]) for r in jrows]
+    t = time.perf_counter()
+    results = s1.finish(job_ids=[id0, id1])
+    finish_s = time.perf_counter() - t
+    if [r.state for r in results] != ["COMPLETED"] * 2:
+        logs = [Path(repo_dir) / f"jobs/serve_{k}" / f"log.slurm-{r['slurm_id']}.out" for k, r in enumerate(jrows)]
+        fail(f"phase 39's serving jobs ended {[r.state for r in results]}; logs:\n"
+             + "\n".join(p.read_text()[-3000:] for p in logs if p.exists()))
+    by_job = {r.job_id: r.commit for r in results}
+    jobs_launches, jobs_prefills, stages, intervals = 0, 0, [], []
+    for k, row in enumerate(jrows):
+        jc = by_job[row["job_id"]]
+        entry = repo.entry_at(jc, f"jobs/serve_{k}/tokens.npy")
+        key = annex_key_for_bytes(committed_bytes(repo, jc, f"jobs/serve_{k}/tokens.npy"))
+        if (entry, key) != want[k]:
+            fail(f"job {k}'s committed tokens.npy is {entry} ({key}), phase 35's {want[k]}")
+        log = committed_bytes(repo, jc, f"jobs/serve_{k}/log.slurm-{row['slurm_id']}.out").decode()
+        counts = json.loads(log.strip().splitlines()[-1])
+        n_layers = cfg.replace(**(overrides or {})).n_layers if dev.type == "cuda" else 0
+        if counts["flash_attention_fwd"] != n_layers * counts["prefills"]:
+            fail(f"job {k} launched flash_attention_fwd {counts['flash_attention_fwd']} times over "
+                 f"{counts['prefills']} prefills")
+        jobs_launches += counts["flash_attention_fwd"]
+        jobs_prefills += counts["prefills"]
+        stages.append(counts["stages_s"])
+        env_json = json.loads(committed_bytes(repo, jc, f"jobs/serve_{k}/slurm-job-{row['slurm_id']}.env.json"))
+        intervals.append((env_json["SubmitTime"], env_json["SubmitTime"] + env_json["Elapsed"][0]))
+    overlap = min(e for _, e in intervals) - max(b for b, _ in intervals)
+    if overlap <= 0:
+        fail(f"phase 39's jobs did not run at once: {intervals}")
+    span = max(e for _, e in intervals) - min(b for b, _ in intervals)
+    rebuilt = [p.name for p, m in libs.items() if p.stat().st_mtime_ns != m]
+    if rebuilt or set(build.BUILD_DIR.glob("*.so")) != set(libs):
+        fail(f"a phase-39 job rebuilt the kernels: {rebuilt or sorted(p.name for p in build.BUILD_DIR.glob('*.so'))}")
+    # (7) job 1's spec again: memoized under the environment, and with none on phase 35's row
+    with counting_sbatch() as sbatched3:
+        memo_env = s1.scheduler.db.get(s1.submit(specs[1]))
+        s4 = open_session(1)
+        memo_plain = s4.scheduler.db.get(s4.submit(specs[1]))
+        rec = RunRecord.from_message(s4.repo.objects.get_commit(s4.head())["message"])
+    if (sbatched3 or [(r["status"], r["slurm_id"]) for r in (memo_env, memo_plain)] != [("memoized", None)] * 2
+            or memo_env["exec_key"] != rows[1]["exec_key"] or rec.memoized_of != rows35[plain_keys[1]]["commit_oid"]):
+        fail(f"job 1's spec resubmitted: {len(sbatched3)} sbatch calls, rows "
+             f"{[(r['status'], r['slurm_id']) for r in (memo_env, memo_plain)]}, memoized of {rec.memoized_of}")
+    # (8) the cancelled job: nothing of it appeared, and finish closes its row
+    s3.cluster.wait([slurm2], timeout=60)
+    closed = s3.finish(job_id=id2, close_failed_jobs=True)
+    after2 = (tokens2.stat().st_mtime_ns, tokens2.stat().st_size) if tokens2.exists() else None
+    log2 = Path(repo_dir) / f"jobs/serve_2/log.slurm-{slurm2}.out"
+    if ([r.state for r in closed] != [CANCELLED] or s3.scheduler.db.get(id2)["status"] != "closed-cancelled"
+            or after2 != before2 or (log2.exists() and "prefills" in log2.read_text())):
+        fail(f"the cancelled job 2: finish {[r.state for r in closed]}, row {s3.scheduler.db.get(id2)['status']}, "
+             f"tokens.npy {before2} -> {after2}")
+    close_all()
+    atexit.unregister(close_all)
+    print(f"cache controls: cache_env {env}; job 1's spec missed phase 35's row (no environment) and job 0's was "
+          f"refreshed: {len(sbatched)} sbatch calls in {submit_s:.3f} s; submit to completion {span:.3f} s, the jobs "
+          f"overlapping {overlap:.3f} s; job runtimes {[round(x, 3) for x in runtimes]} s; stages (s) {stages}; "
+          f"finish {finish_s:.3f} s; tokens.npy annex keys {[k for _, k in want[:2]]}, phase 35's for seeds 0 and 1; flash launches {jobs_launches} "
+          f"over {jobs_prefills} prefills (committed logs); kernels not rebuilt; job 1's spec again: memoized under "
+          f"the environment and, in a session with none, on phase 35's row, 0 sbatch; job 2 in a run_cache=False "
+          f"session: 1 sbatch, scancel {cancel_s * 1e3:.3f} ms, the next sacct {right_after}, its tokens.npy "
+          f"untouched, finish closed it; serve_batched_torch beside the two jobs ({cfg.name}, bf16, B={b} "
+          f"prompt={p} gen={g}, seed {seed}): prefill {out['prefill_s'] * 1e3:.3f} ms (its first call), decode "
+          f"p50 {np.percentile(decode_ms, 50):.3f} ms p95 {np.percentile(decode_ms, 95):.3f} ms, launches "
+          f"{batched_launches}, tokens equal to serve.run's; train_campaign_torch: middle checkpoint restored onto "
+          f"{restored.device} bit for bit, modelled (GPFS_STRIPED) {camp['modelled_s']:.6f} s and "
+          f"{camp['meta_ops']} metadata operations as on the CPU, {len(printed.getvalue().splitlines())} lines "
+          f"printed; this process's work beside the jobs {inproc_s:.3f} s, then {wait_s:.3f} s waiting for them; phase {time.perf_counter() - phase_t:.3f} s; card: {smi}")
+    return batched_launches, 1, {flash: jobs_launches, **{n: 0 for n in batched_launches if n != flash}}, jobs_prefills
+
+
 def train_mfu(flops: float, p50_ms: float) -> float:
     return flops / (p50_ms / 1e3) / H100_FLOPS["bfloat16"]
 
@@ -3388,6 +3623,15 @@ def main() -> None:
                                                         device="cuda", overrides=CAMPAIGN_CUTS, smi=smi)
         print(f"gc and clone phase {time.perf_counter() - t0:.1f} s")
 
+        # ------------------------------- 39. cache controls, in phase 28's repository
+        t0 = phase("cache controls")
+        gc.collect()
+        torch.cuda.empty_cache()
+        batched_launches, batched_prefills, cache_jobs_launches, cache_jobs_prefills = cache_controls_phase(
+            torch, np, configs, serve, all_kernels, dev, args.seed, campaign_dir, last, full=True, device="cuda",
+            overrides=CAMPAIGN_CUTS, smi=smi)
+        print(f"cache controls phase {time.perf_counter() - t0:.1f} s")
+
     # ------------------------------------------------------ 29. train rwkv6
     t0 = phase("train rwkv6")
     gc.collect()
@@ -3451,6 +3695,9 @@ def main() -> None:
             "qwen3_0_6b served from a checkpoint pulled back from a remote site": (remote_launches, remote_prefills,
                                                                                   "prefill"),
             "qwen3_0_6b served from a clone of the repacked repository": (clone_launches, clone_prefills, "prefill"),
+            "qwen3_0_6b serve_batched_torch, beside two serving jobs": (batched_launches, batched_prefills,
+                                                                        "prefill"),
+            "qwen3_0_6b Slurm serving jobs of phase 39": (cache_jobs_launches, cache_jobs_prefills, "prefill"),
             "rwkv6_1_6b train": (rwkv_train_launches, rwkv_train_steps, "step"),
             f"{JAMBA} train, 8 layers, no experts": (jamba_train_launches, jamba_train_steps, "step"),
             **dense}

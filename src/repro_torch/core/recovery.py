@@ -433,8 +433,8 @@ def _replay_dag(session: "Session", header: dict, entries: list[dict], report: d
     stages with no row are submitted, chained by afterok onto whichever
     parent rows are real jobs. Nothing runs twice: landed rows are never
     sbatched again, and the resubmission goes through ``submit_many``'s own
-    journal. A journal of the reference's ``refresh=True`` submission (the
-    port's run cache is always on) is kept and reported."""
+    journal, with the header's ``refresh`` (a ``refresh=True`` submission
+    looks nothing up in the run cache on replay either)."""
     from .dag import Pipeline, PipelineError
     from .spec import RunSpec, SpecError
 
@@ -442,10 +442,6 @@ def _replay_dag(session: "Session", header: dict, entries: list[dict], report: d
     sched = session.scheduler
     db = sched.db
     pid = header["pipeline"]
-    if header.get("refresh"):
-        report["errors"].append(f"dag replay {pid}: a refresh=True submission; the port's run cache is always "
-                                "on, so it is left for the reference's recover()")
-        return False
     try:
         pipeline = Pipeline({n: RunSpec.from_json(js) for n, js in header.get("stages", {}).items()})
     except (PipelineError, SpecError, KeyError, TypeError) as e:
@@ -479,7 +475,7 @@ def _replay_dag(session: "Session", header: dict, entries: list[dict], report: d
         if not missing:
             continue
         try:
-            sched._submit_level(pipeline, pid, i, missing, stage_jobs)
+            sched._submit_level(pipeline, pid, i, missing, stage_jobs, refresh=bool(header.get("refresh")))
         except Exception as e:
             report["errors"].append(f"dag replay {pid} level {i}: {e}")
             return False

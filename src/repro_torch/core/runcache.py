@@ -2,10 +2,13 @@
 of ``repro.core.runcache``, the same execution keys and ``runcache`` rows).
 
 An execution is a pure function of its content-addressed inputs:
-``spec_id`` plus the tree entries of every resolved input determine the
-outputs. The key's environment fingerprint is the reference's default, the
-empty string: the port keys no environment. This module derives that
-**execution key**; the jobdb ``runcache`` table maps it to the recorded
+``spec_id`` plus the tree entries of every resolved input, plus a
+fingerprint of the environment the caller deems result-relevant
+(``cache_env``: on an HPC machine the module stack or container digest; on
+a GPU node also the card, its power limit, torch and CUDA), determine the
+outputs. With no ``cache_env`` the fingerprint is the empty string, so the
+key is the one a cache without environments derives. This module derives
+that **execution key**; the jobdb ``runcache`` table maps it to the recorded
 result: the output tree, the provenance commit, and the annex keys it
 references. ``SlurmScheduler.submit_many`` consults the table before
 sbatch; hits short-circuit into a memoized provenance commit while only
@@ -19,17 +22,30 @@ input once, not once per spec.
 """
 from __future__ import annotations
 
+import json
 import os
 
+from .hashing import sha256_bytes
 from .repo import REPRO_DIR
 from .spec import RunSpec
+
+
+def env_fingerprint(cache_env: dict | None) -> str:
+    """The reference's fingerprint of ``cache_env``: sha256 of its canonical
+    JSON (keys and values as strings, sorted, no spaces); ``""`` for None or
+    an empty dict, which leaves execution keys as they are without one."""
+    if not cache_env:
+        return ""
+    canon = json.dumps({str(k): str(v) for k, v in cache_env.items()}, sort_keys=True, separators=(",", ":"))
+    return sha256_bytes(canon.encode())
 
 
 class RunCache:
     """Execution-key derivation for the jobdb ``runcache`` table."""
 
-    def __init__(self, repo):
+    def __init__(self, repo, cache_env: dict | None = None):
         self.repo = repo
+        self.env_fp = env_fingerprint(cache_env)
         # rel -> ((st_size, st_mtime_ns), tree entry)
         self._entry_memo: dict[str, tuple[tuple[int, int], dict]] = {}
 
@@ -41,7 +57,7 @@ class RunCache:
         entries = self.input_entries(spec)
         if entries is None:
             return None
-        return spec.execution_key(entries)
+        return spec.execution_key(entries, self.env_fp)
 
     def execution_keys(self, specs: list[RunSpec]) -> list[str | None]:
         return [self.execution_key(s) for s in specs]

@@ -75,14 +75,17 @@ class FinishResult:
 
 
 class SlurmScheduler:
-    def __init__(self, repo: Repository, cluster: S.SlurmCluster, auto_repack_threshold: int | None = None):
+    def __init__(self, repo: Repository, cluster: S.SlurmCluster, auto_repack_threshold: int | None = None,
+                 run_cache: bool = True, cache_env: dict | None = None):
         self.repo = repo
         self.cluster = cluster
         # the largest loose-shard entry count a finish batch leaves before it
         # repacks; None never repacks (measurements that want the slope)
         self.auto_repack_threshold = auto_repack_threshold
         self.db = JobDB(repo.repro_dir)
-        self.cache = RunCache(repo)  # §11 run cache
+        # §11 run cache: run_cache=False neither looks up nor records;
+        # cache_env folds an environment fingerprint into every key
+        self.cache = RunCache(repo, cache_env) if run_cache else None
 
     def _retry_slurm(self, fn):
         """Run one Slurm CLI interaction, retrying *transient* failures (a
@@ -103,12 +106,12 @@ class SlurmScheduler:
                 attempt += 1
 
     # ------------------------------------------------------------- submit
-    def submit(self, spec: RunSpec) -> int:
+    def submit(self, spec: RunSpec, refresh: bool = False) -> int:
         """Validate, conflict-check, stage, and submit one script spec.
         Returns the job DB id."""
-        return self.submit_many([spec])[0]
+        return self.submit_many([spec], refresh=refresh)[0]
 
-    def submit_many(self, specs: list[RunSpec], dependencies: list[list[int]] | None = None,
+    def submit_many(self, specs: list[RunSpec], refresh: bool = False, dependencies: list[list[int]] | None = None,
                     provided: set[str] | None = None, pipeline: str | None = None,
                     stages: list[str] | None = None) -> list[int]:
         """Batched submission: N specs, ONE job-DB transaction, ONE shared
@@ -117,7 +120,9 @@ class SlurmScheduler:
         Run cache (§11): each spec's execution key (spec_id + resolved
         input tree + env fingerprint) is looked up first; hits short-circuit
         into a memoized provenance commit and the row closes as
-        ``memoized``, while only novel specs reach sbatch.
+        ``memoized``, while only novel specs reach sbatch. ``refresh=True``
+        skips the lookup (every spec runs) but keeps the keys, so the
+        batch's results are recorded as usual.
 
         Specs are protected atomically before anything is handed to Slurm.
         If ``sbatch`` (or alt-dir staging) fails mid-batch, the failed job
@@ -147,15 +152,16 @@ class SlurmScheduler:
             missing = spec.missing_inputs(self.repo.root, provided=provided)
             if missing:
                 raise ScheduleError(f"input does not exist: {missing[0]}")
-        # uncacheable specs (unresolvable inputs, pending afterok parents)
-        # key as None and always submit as novel
-        exec_keys = [None if deps[i] else k for i, k in enumerate(self.cache.execution_keys(specs))]
+        # uncacheable specs (unresolvable inputs, pending afterok parents,
+        # the cache off) key as None and always submit as novel
+        keys = self.cache.execution_keys(specs) if self.cache is not None else [None] * len(specs)
+        exec_keys = [None if deps[i] else k for i, k in enumerate(keys)]
         # conflict check + protection, atomic in the job DB (§5.3/§5.5),
         # before any input is fetched
         job_ids = self.db.add_jobs(specs, exec_keys=exec_keys, pipeline=pipeline, stages=stages)
         repo = self.repo
         repo.crash_point("submit:jobs-added")
-        hit_rows = self.db.cache_lookup(exec_keys)
+        hit_rows = self.db.cache_lookup(exec_keys) if not refresh else {}
         if hit_rows:
             self._publish_memoized([(job_ids[i], specs[i], exec_keys[i], hit_rows[exec_keys[i]])
                                     for i in range(len(specs)) if exec_keys[i] in hit_rows])
@@ -200,7 +206,7 @@ class SlurmScheduler:
         return job_ids
 
     # ---------------------------------------------------- pipelines (§14)
-    def submit_pipeline(self, pipeline: Pipeline) -> dict[str, int]:
+    def submit_pipeline(self, pipeline: Pipeline, refresh: bool = False) -> dict[str, int]:
         """Submit a whole :class:`~.dag.Pipeline` as topologically batched
         ``submit_many`` calls, one per level, with ``afterok`` edges between
         levels. Returns {stage name: job DB id}.
@@ -210,12 +216,12 @@ class SlurmScheduler:
         gets its own cache lookup, while a stage chained to a *real* job
         submits uncached with an afterok edge: submitting a partially failed
         campaign again re-executes exactly the failed stage's downstream
-        cone.
+        cone. ``refresh=True`` runs every stage, looking nothing up.
 
         The submission runs under an intent journal (kind ``dag``): the
-        header carries the stage specs and edges, each level appends its job
-        ids once landed, and ``recover()`` submits again only the levels a
-        crash prevented."""
+        header carries the stage specs, the edges and ``refresh``, each
+        level appends its job ids once landed, and ``recover()`` submits
+        again only the levels a crash prevented, with the same refresh."""
         levels = pipeline.levels()
         pid = f"{pipeline.pipeline_id[:12]}-{uuid.uuid4().hex[:8]}"
         repo = self.repo
@@ -224,13 +230,13 @@ class SlurmScheduler:
             "stages": {n: s.to_json() for n, s in pipeline.stages.items()},
             "edges": [list(e) for e in pipeline.edges()],
             "levels": levels,
-            "refresh": False,  # the reference's key: the port's run cache is always on
+            "refresh": bool(refresh),
         })
         repo.crash_point("dag:journal-written")
         stage_jobs: dict[str, int] = {}
         try:
             for i, level in enumerate(levels):
-                self._submit_level(pipeline, pid, i, level, stage_jobs, journal=jh)
+                self._submit_level(pipeline, pid, i, level, stage_jobs, refresh=refresh, journal=jh)
         except BaseException as e:
             if is_crash(e):
                 raise  # a dead process: recover() resumes from the journal
@@ -244,7 +250,8 @@ class SlurmScheduler:
         return stage_jobs
 
     def _submit_level(self, pipeline: Pipeline, pid: str, level_idx: int, level: list[str],
-                      stage_jobs: dict[str, int], journal: JournalHandle | None = None) -> list[str]:
+                      stage_jobs: dict[str, int], refresh: bool = False,
+                      journal: JournalHandle | None = None) -> list[str]:
         """Submit one topological level (for ``submit_pipeline`` and the
         dag-journal replay). Adds the landed ids to ``stage_jobs`` and
         returns the stages *skipped* because a parent is dead (a failed or
@@ -278,7 +285,8 @@ class SlurmScheduler:
         provided: set[str] = set()
         for name in names:
             provided |= pipeline.upstream_outputs(name)
-        ids = self.submit_many(specs, dependencies=deps, provided=provided, pipeline=pid, stages=names)
+        ids = self.submit_many(specs, refresh=refresh, dependencies=deps, provided=provided, pipeline=pid,
+                               stages=names)
         repo.crash_point("dag:level-submitted")
         stage_jobs.update(zip(names, ids))
         self.db.add_deps([(stage_jobs[c], stage_jobs[p]) for c in names for p in pipeline.parents[c]
@@ -630,12 +638,12 @@ class SlurmScheduler:
                 repo.set_branch(publish_to, commit)
                 repo.crash_point("finish:after-publish")
                 ekey = job.get("exec_key")
-                if state == S.COMPLETED and not ekey:
+                if state == S.COMPLETED and not ekey and self.cache is not None:
                     # a job submitted with no key (its inputs did not resolve
                     # then, or a pipeline parent was about to write them):
                     # derive it now that they are on disk
                     ekey = self.cache.execution_key(spec)
-                if state == S.COMPLETED and ekey:
+                if state == S.COMPLETED and ekey and self.cache is not None:
                     entries = staged[idx]
                     cache_rows.append({
                         "exec_key": ekey,

@@ -23,12 +23,16 @@ drives every execution path of the paper's workflow through declarative
     s.push(); s.drop("big.dat"); s.pull()          # remote sites (§13)
     s.recover(); s.verify()                        # after a crash (§10)
     s.gc()                                         # pack the loose objects (§8)
+    s.submit(spec, refresh=True)                   # run it though the cache holds it (§11)
 
 The scheduler/cluster pair is built lazily, so a Session used only for
 ``run``/``rerun`` never starts a thread pool. ``auto_repack_threshold``
 (default ``"auto"``: the profile's ``degrade_threshold`` where it degrades,
 else off) makes each finish batch repack once a loose shard holds more
-entries than that.
+entries than that. ``run_cache=False`` turns the §11 run cache off (nothing
+looked up, nothing recorded); ``cache_env`` folds a fingerprint of the
+environment into every execution key, so a result computed under one
+software stack or card is not reused under another.
 """
 from __future__ import annotations
 
@@ -50,9 +54,12 @@ class Session:
     """A repository plus (lazily) a cluster and a scheduler, driven by specs."""
 
     def __init__(self, repo: Repository, cluster: SlurmCluster | None = None, max_workers: int = 8,
-                 auto_repack_threshold: int | None | str = "auto"):
+                 auto_repack_threshold: int | None | str = "auto", run_cache: bool = True,
+                 cache_env: dict | None = None):
         self.repo = repo
         self._max_workers = max_workers
+        self.run_cache = run_cache
+        self.cache_env = cache_env
         self._cluster = cluster
         self._scheduler: SlurmScheduler | None = None
         self._owns_cluster = cluster is None
@@ -75,7 +82,8 @@ class Session:
     @property
     def scheduler(self) -> SlurmScheduler:
         if self._scheduler is None:
-            self._scheduler = SlurmScheduler(self.repo, self.cluster, auto_repack_threshold=self.auto_repack_threshold)
+            self._scheduler = SlurmScheduler(self.repo, self.cluster, auto_repack_threshold=self.auto_repack_threshold,
+                                             run_cache=self.run_cache, cache_env=self.cache_env)
         return self._scheduler
 
     @property
@@ -137,22 +145,24 @@ class Session:
         return R.spec_of(self.repo, commitish)
 
     # ----------------------------------------------------------- scheduling
-    def submit(self, spec: RunSpec | None = None, **kwargs) -> int:
-        """Submit one script spec to the batch system (``slurm-schedule``)."""
-        return self.scheduler.submit(self._coerce(spec, kwargs))
+    def submit(self, spec: RunSpec | None = None, refresh: bool = False, **kwargs) -> int:
+        """Submit one script spec to the batch system (``slurm-schedule``).
+        ``refresh=True`` runs it even where the §11 run cache holds it."""
+        return self.scheduler.submit(self._coerce(spec, kwargs), refresh=refresh)
 
-    def submit_many(self, specs: list[RunSpec]) -> list[int]:
+    def submit_many(self, specs: list[RunSpec], refresh: bool = False) -> list[int]:
         """Submit a batch: one jobdb transaction and one shared conflict
         pass for all specs. Cache-hit specs (§11) short-circuit into
-        memoized records without touching Slurm."""
-        return self.scheduler.submit_many(specs)
+        memoized records without touching Slurm; ``refresh=True`` skips the
+        lookup."""
+        return self.scheduler.submit_many(specs, refresh=refresh)
 
     def finish(self, **kw) -> list[FinishResult]:
         """Commit results of finished jobs (``slurm-finish``)."""
         return self.scheduler.finish(**kw)
 
-    def run_pipeline(self, pipeline, wait: bool = True, finish: bool = True, timeout: float = 600.0,
-                     **finish_kw) -> dict:
+    def run_pipeline(self, pipeline, refresh: bool = False, wait: bool = True, finish: bool = True,
+                     timeout: float = 600.0, **finish_kw) -> dict:
         """Submit a :class:`~.dag.Pipeline` as one campaign (§14):
         topologically batched ``submit_many`` calls chained with ``afterok``
         edges, memoized stages cut out before anything reaches Slurm. With
@@ -160,10 +170,11 @@ class Session:
         ``finish`` (default) then commits the results (``finish_kw`` go to
         ``finish``). A campaign that failed midway is replayed by calling
         ``run_pipeline`` again: completed stages come back from the run
-        cache and only the failed cone runs.
+        cache and only the failed cone runs; ``refresh=True`` runs every
+        stage.
 
         Returns ``{"jobs": {stage: job_id}, "results": [FinishResult]}``."""
-        jobs = self.scheduler.submit_pipeline(pipeline)
+        jobs = self.scheduler.submit_pipeline(pipeline, refresh=refresh)
         out: dict = {"jobs": dict(jobs), "results": []}
         if not wait:
             return out
@@ -276,10 +287,13 @@ class Session:
 
 
 def open(root: str, create: bool = False, cluster: SlurmCluster | None = None, max_workers: int = 8,
-         profile: FSProfile = NULL_FS, clock: SimClock | None = None, faults=None, net_faults=None, **init_kwargs) -> Session:
+         profile: FSProfile = NULL_FS, clock: SimClock | None = None, run_cache: bool = True,
+         cache_env: dict | None = None, faults=None, net_faults=None, **init_kwargs) -> Session:
     """Open (or with ``create=True``, initialize) a repository at ``root``
-    and return a :class:`Session` over it. The §11 run cache is always on.
-    ``profile`` and ``clock`` put the repository on the filesystem cost
+    and return a :class:`Session` over it. ``run_cache`` turns the §11 run
+    cache on or off (``submit*(..., refresh=True)`` skips its lookup for one
+    call); ``cache_env`` folds a fingerprint of the environment into every
+    execution key. ``profile`` and ``clock`` put the repository on the filesystem cost
     model (every operation charged on ``clock``); ``faults`` attaches a
     :class:`~.faults.FaultPlan` to its FS and the (lazily created) cluster,
     the fault-injection harness of §10; ``net_faults`` attaches a
@@ -294,4 +308,4 @@ def open(root: str, create: bool = False, cluster: SlurmCluster | None = None, m
                                **init_kwargs)
     else:
         raise FileNotFoundError(f"not a repro repository: {root} (pass create=True to initialize)")
-    return Session(repo, cluster=cluster, max_workers=max_workers)
+    return Session(repo, cluster=cluster, max_workers=max_workers, run_cache=run_cache, cache_env=cache_env)

@@ -15,7 +15,11 @@ subprocesses, so the whole protocol runs on one machine:
     is cancelled when one ends in another terminal state, as Slurm's
     ``--kill-on-invalid-dep=yes`` does; ``scontrol`` rewires a pending
     job's parents and holds or releases it,
-  - a fault plan's Slurm rules and task fates (:mod:`.faults`).
+  - a fault plan's Slurm rules and task fates (:mod:`.faults`),
+  - a cancel that lands (ROADMAP §C9, where the reference loses one):
+    ``scancel`` kills each running task's whole process group and waits for
+    it, so the ``sacct`` right after it says CANCELLED, and a task whose
+    process starts while the cancel is under way is killed as it registers.
 
 :class:`SubprocessSlurmCluster` shells out to a real ``sbatch``/``sacct``/
 ``scancel``/``scontrol``. The local cluster charges each ``sbatch`` and
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import json
 import os
+import signal
 import subprocess
 import threading
 import time
@@ -84,6 +89,7 @@ class SlurmJob:
     dependency: list[int] = field(default_factory=list)  # afterok parents
     held: bool = False  # scontrol hold: stay PENDING even with no dependency left
     started: bool = False  # tasks handed to the pool (at most once)
+    live: int = 0  # task threads past RUNNING that have not ended yet
 
     def aggregate_state(self) -> str:
         states = [t.state for t in self.tasks]
@@ -144,9 +150,20 @@ class SlurmCluster:
         raise NotImplementedError
 
 
+def _kill(proc: subprocess.Popen) -> None:
+    """SIGKILL a job's whole process group (its shell and every process the
+    script started), unless the job's process was reaped already."""
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+
 class LocalSlurmCluster(SlurmCluster):
     SBATCH_COST_S = 0.05  # the simulated clock's charge for one sbatch (the reference's default)
     SACCT_COST_S = 0.02  # and for one accounting query
+    CANCEL_WAIT_S = 10.0  # how long scancel waits for the processes it killed
 
     def __init__(self, max_workers: int = 8, clock: SimClock | None = None, first_job_id: int = 11_452_000,
                  faults=None):
@@ -263,6 +280,13 @@ class LocalSlurmCluster(SlurmCluster):
             return os.path.join(job.workdir, f"log.slurm-{job.job_id}_{task_id}.out")
         return os.path.join(job.workdir, f"log.slurm-{job.job_id}.out")
 
+    @staticmethod
+    def _settle(task: TaskState, state: str, exit_code: int | None) -> None:
+        """Give a task its terminal state (lock held), unless ``scancel``
+        settled it first."""
+        if task.state not in TERMINAL:
+            task.state, task.exit_code, task.end_time = state, exit_code, time.time()
+
     def _run_task(self, job: SlurmJob, task_id: int) -> None:
         task = job.tasks[task_id]
         with self._lock:
@@ -272,21 +296,34 @@ class LocalSlurmCluster(SlurmCluster):
                 return
             task.state = RUNNING
             task.start_time = time.time()
-        if self.faults is not None:
-            # an injected node-level fate (NODE_FAIL / PREEMPTED / TIMEOUT /
-            # FAILED): the task "ran" on a node that died; it never executes,
-            # but accounting reports a terminal state
-            try:
-                fate = self.faults.task_fate()
-            except _faults.CrashInjected:
-                fate = None  # the client died; the compute nodes did not
-            if fate is not None:
-                task.state = fate
-                task.exit_code = -1
-                task.end_time = time.time()
-                self._write_env_json(job)
-                self._maybe_done(job)
-                return
+            job.live += 1
+        key = (job.job_id, task_id)
+        state, rc = FAILED, -1  # the task ends in a terminal state, whatever fails
+        try:
+            fate = None
+            if self.faults is not None:
+                # an injected node-level fate (NODE_FAIL / PREEMPTED / TIMEOUT /
+                # FAILED): the task "ran" on a node that died; it never
+                # executes, but accounting reports a terminal state
+                try:
+                    fate = self.faults.task_fate()
+                except _faults.CrashInjected:
+                    pass  # the client died; the compute nodes did not
+            state, rc = (fate, -1) if fate is not None else self._execute(job, task_id, key)
+        except Exception:
+            state, rc = FAILED, -1
+        finally:
+            with self._lock:
+                self._procs.pop(key, None)
+                # a cancel that came before the task ended, and found no
+                # process or none reaped yet, makes it CANCELLED
+                self._settle(task, CANCELLED if job.cancelled and state != COMPLETED else state, rc)
+                job.live -= 1
+            self._write_env_json(job)
+            self._maybe_done(job)
+
+    def _execute(self, job: SlurmJob, task_id: int, key: tuple[int, int]) -> tuple[str, int]:
+        """Run one task's script to its end: (state, exit code)."""
         env = dict(os.environ)
         if job.env:
             env.update(job.env)  # spec env first; SLURM identity vars win
@@ -300,32 +337,21 @@ class LocalSlurmCluster(SlurmCluster):
             SLURM_SUBMIT_DIR=job.workdir,
         )
         cmd = f"bash {job.script} {job.args}".strip()
-        try:
-            with open(self._log_path(job, task_id), "w") as log:
-                proc = subprocess.Popen(cmd, shell=True, cwd=job.workdir, env=env,
-                                        stdout=log, stderr=subprocess.STDOUT)
-                with self._lock:
-                    self._procs[(job.job_id, task_id)] = proc
-                try:
-                    rc = proc.wait(timeout=job.time_limit_s)
-                    task.exit_code = rc
-                    task.state = COMPLETED if rc == 0 else FAILED
-                except subprocess.TimeoutExpired:
-                    proc.kill()
-                    proc.wait()
-                    task.state = TIMEOUT
-                    task.exit_code = -1
-        except Exception:  # the task must end in a terminal state, whatever failed
-            task.state = FAILED
-            task.exit_code = -1
-        finally:
-            task.end_time = time.time()
+        with open(self._log_path(job, task_id), "w") as log:
+            # a session of its own: a kill reaches every process of the job
+            proc = subprocess.Popen(cmd, shell=True, cwd=job.workdir, env=env, stdout=log,
+                                    stderr=subprocess.STDOUT, start_new_session=True)
             with self._lock:
-                self._procs.pop((job.job_id, task_id), None)
-                if job.cancelled and task.state != COMPLETED:
-                    task.state = CANCELLED
-            self._write_env_json(job)
-            self._maybe_done(job)
+                self._procs[key] = proc
+                if job.cancelled:
+                    _kill(proc)  # the cancel came while the process was starting
+            try:
+                rc = proc.wait(timeout=job.time_limit_s)
+            except subprocess.TimeoutExpired:
+                _kill(proc)
+                proc.wait()
+                return TIMEOUT, -1
+        return (COMPLETED if rc == 0 else FAILED), rc
 
     def _write_env_json(self, job: SlurmJob) -> None:
         """The paper's extra output: slurm-job-<id>.env.json with all Slurm
@@ -345,9 +371,14 @@ class LocalSlurmCluster(SlurmCluster):
         write_atomic(self._fs, path, json.dumps(meta, indent=1, sort_keys=True).encode())
 
     def _maybe_done(self, job: SlurmJob) -> None:
-        if all(t.state in TERMINAL for t in job.tasks):
-            self._done_events[job.job_id].set()
-            self._resolve_dependents(job)
+        """Once every task is terminal and every task thread has ended, the
+        job is done: ``wait`` returns and its dependents are resolved."""
+        with self._lock:
+            done = self._done_events[job.job_id]
+            if done.is_set() or job.live or not all(t.state in TERMINAL for t in job.tasks):
+                return
+            done.set()
+        self._resolve_dependents(job)
 
     def _job(self, job_id: int) -> SlurmJob:
         job = self._jobs.get(job_id)
@@ -396,7 +427,14 @@ class LocalSlurmCluster(SlurmCluster):
     def scancel(self, job_id: int) -> str | None:
         """Idempotent cancel: unknown ids and already-terminal jobs are
         no-ops, so a straggler that completed between being flagged and
-        being cancelled keeps its COMPLETED state."""
+        being cancelled keeps its COMPLETED state.
+
+        Unlike the reference's, the cancel has landed when this returns
+        (ROADMAP §C9): a task with no process yet is CANCELLED at once (its
+        process is killed as it registers); a running task's process group
+        is killed and waited for (at most ``CANCEL_WAIT_S``), and the task
+        is CANCELLED, or COMPLETED if its script had exited 0 before the
+        kill. So the ``sacct`` right after it reports the cancel."""
         self._on_slurm("scancel")
         with self._lock:
             job = self._jobs.get(job_id)
@@ -406,12 +444,20 @@ class LocalSlurmCluster(SlurmCluster):
                 return job.aggregate_state()
             job.cancelled = True
             self._detach(job_id)  # a held job cancelled directly stops waiting
-            for t in job.tasks:
-                if t.state == PENDING:
-                    t.state = CANCELLED
-            procs = [p for (jid, _), p in self._procs.items() if jid == job_id]
-        for p in procs:
-            p.kill()
+            procs = {tid: p for (jid, tid), p in self._procs.items() if jid == job_id}
+            for tid, t in enumerate(job.tasks):
+                if t.state == PENDING or (t.state == RUNNING and tid not in procs):
+                    self._settle(t, CANCELLED, t.exit_code)
+            for p in procs.values():
+                _kill(p)
+        deadline = time.time() + self.CANCEL_WAIT_S
+        for tid, p in procs.items():
+            try:
+                rc = p.wait(timeout=max(0.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                continue  # still dying: its task thread settles it
+            with self._lock:
+                self._settle(job.tasks[tid], COMPLETED if rc == 0 else CANCELLED, rc)
         self._maybe_done(job)
         return job.aggregate_state()
 
@@ -530,6 +576,18 @@ class SubprocessSlurmCluster(SlurmCluster):
         out = subprocess.run(["sacct", "-j", str(job_id), "-n", "-o", "State%20"],
                              capture_output=True, text=True, check=True)
         return [s.strip() for s in out.stdout.splitlines() if s.strip()]
+
+    def slurm_output_files(self, job_id: int) -> list[str]:
+        """The logs sbatch writes by default in the submission directory:
+        ``slurm-<id>.out``, or ``slurm-<id>_<task>.out`` for each task of an
+        array, whose task ids accounting lists (ROADMAP §C10: the
+        reference's real-cluster backend has no such method, so its
+        ``finish`` raises ``AttributeError``)."""
+        out = subprocess.run(["sacct", "-j", str(job_id), "-X", "-n", "-o", "JobID%30"],
+                             capture_output=True, text=True, check=True)
+        rows = [row.partition("_") for row in out.stdout.split()]  # "<id>_<task>" for an array's tasks
+        tasks = sorted({int(t) for jid, _, t in rows if jid == str(job_id) and t.isdigit()})
+        return [f"slurm-{job_id}_{t}.out" for t in tasks] or [f"slurm-{job_id}.out"]
 
     def scancel(self, job_id: int) -> str | None:
         # real scancel is already idempotent on terminal jobs (exit 0)

@@ -22,6 +22,7 @@ import os
 import re
 import shutil
 import sqlite3
+import time
 import warnings
 from pathlib import Path
 
@@ -355,6 +356,14 @@ def _straggler_rewiring(pkg, s, root):
     db = s.scheduler.db
     child_slurm = db.get(jobs["child"])["slurm_id"]
     old_slurm = db.get(jobs["slow"])["slurm_id"]
+    if pkg is repro:
+        # the reference's scancel kills nothing before the task's process is
+        # registered (ROADMAP §C9), so its side cancels only after that; the
+        # port's cancel lands in any window, so its side cancels at once
+        deadline = time.time() + WAIT
+        while (old_slurm, 0) not in s.cluster._procs:
+            assert time.time() < deadline
+            time.sleep(0.005)
     new_id = s.scheduler.reschedule_straggler(jobs["slow"])
     after = {"old": db.get(jobs["slow"])["status"], "old_state": None, "child_state": s.cluster.sacct(child_slurm),
              "child_parents": [r["job_id"] for r in db.parents_of(jobs["child"])] == [new_id]}

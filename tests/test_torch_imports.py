@@ -2,6 +2,7 @@
 its configs are copies of the JAX package's, it registers every
 architecture of the JAX package, and the layers each family adds build."""
 import dataclasses
+import inspect
 import os
 import subprocess
 import sys
@@ -125,3 +126,129 @@ def test_encoder_decoder_and_mrope_layers_build(change, added):
     defs = T.param_defs(configs.get_smoke("qwen3_0_6b").replace(**change))
     assert set(defs) - set(base) == added
     assert ("xattn" in defs["blocks"]["p0"]) == bool(added)
+
+
+# --------------------------------------------------------------- API parity
+OPTION = "an option no caller of the port set, left out under the rule that the port keeps no unused option"
+SEED_ERA = ("a seed-era comparison path whose only callers are the benchmark gates under benchmarks/; it waits "
+            "for the port's benchmark PR (ROADMAP §A item 2.7)")
+ONE_FS = ("the port runs every store operation on one FS per repository: the FS, its fault plan and its owner "
+          "are reached through the repository, not passed")
+GONE = "a helper no caller of the port used, left out for the same rule"
+# every public parameter or member of repro.core that repro_torch.core lacks:
+# {"Name.member": (the reference's parameters the port's counterpart lacks, or MISSING, reason)}
+MISSING = "missing"
+DEVIATIONS = {
+    "AnnexStore.ingest_file": (["chunk_size"], OPTION),
+    "RemoteStore.ingest_file": (["chunk_size"], OPTION),
+    "RemoteStore.__init__": (["sweep_on_open"], OPTION),
+    "FS.dir_entries_snapshot": (MISSING, GONE),
+    "FS.write_atomic": (MISSING, "the port publishes through files.write_atomic(fs, path, data), one copy for "
+                                 "every store"),
+    "FaultPlan.__init__": (["max_fs_retries", "backoff_base_s"],
+                           "the retry budget and backoff base are the reference's defaults, constants in the port "
+                           "(faults.BACKOFF_BASE_S); " + OPTION),
+    "FaultPlan.attach_fs": (["fs"], ONE_FS),
+    "FaultPlan.crash_point": (["fs"], ONE_FS),
+    "JournalHandle.begin": (["fs", "repro_dir"], ONE_FS),
+    "FileLock.beat": (MISSING, GONE),
+    "FileLock.break_if_stale": (MISSING, GONE + "; recover() and verify() break stale locks"),
+    "JobDB.add_job": (MISSING, GONE + "; add_jobs takes one spec or many"),
+    "JobDB.by_slurm_id": (MISSING, GONE),
+    "JobDB.heartbeat": (MISSING, GONE),
+    "JobDB.set_slurm_id": (MISSING, GONE + "; set_slurm_ids takes one pair or many"),
+    "LocalSlurmCluster.__init__": (["sbatch_cost_s", "sacct_cost_s"],
+                                   "the charges are the reference's defaults, class constants in the port; "
+                                   + OPTION),
+    "NetworkFaultModel.revive": (MISSING, "no caller in the reference's tests, examples or gates, nor in the "
+                                          "port: a site marked dead stays dead for the model's life"),
+    "RemoteStore.mark_available": (MISSING, "as NetworkFaultModel.revive, which it calls"),
+    "Repository.annex_fetch_key": (["chunked"], OPTION),
+    "Repository.annex_push": (MISSING, "the seed-era push to one store; the port pushes through Session.push "
+                                       "(remote.push_keys: chunk by chunk, journaled, resumable)"),
+    "Repository.commit_changes": (["parents", "author"], OPTION),
+    "Repository.merge_octopus": (["author"], OPTION),
+    "Repository.save": (["parents", "author", "allow_empty", "branch"], OPTION),
+    "Repository.save/engine": (["engine"], SEED_ERA),
+    "Repository.stage_paths": (["single_pass"], SEED_ERA),
+    "Repository.switch": (["checkout"], OPTION),
+    "Repository.whereis": (MISSING, GONE + "; whereis_many answers one key or many"),
+    "Session.__init__": (["cli_startup_s", "ingest_workers"], SEED_ERA),
+    "Session.fetch": (["missing_only", "journal"], OPTION),
+    "Session.gc": (["delete_loose", "prune_cache", "sweep_chunks"], OPTION),
+    "Session.pull": (["journal"], OPTION),
+    "Session.push": (["journal"], OPTION),
+    "Session.recover": (["close_unsubmitted", "max_tmp_age_s"], OPTION),
+    "SlurmScheduler.__init__": (["cli_startup_s", "ingest_workers"], SEED_ERA),
+    "SlurmScheduler.finish": (["journal"], OPTION + "; the port's finish always journals"),
+    "SlurmScheduler.finish/engine": (["engine", "data_plane"], SEED_ERA),
+    "SlurmScheduler.submit_pipeline": (["run_id"], OPTION),
+    "open": (["auto_repack_threshold"], OPTION + "; Session(repo, auto_repack_threshold=...) keeps it"),
+    "open/seed": (["cli_startup_s", "ingest_workers"], SEED_ERA),
+}
+
+
+def _parameters(fn) -> list[str] | None:
+    try:
+        return list(inspect.signature(fn).parameters)
+    except (TypeError, ValueError):
+        return None
+
+
+def _public_members(pkg) -> dict:
+    """{"Name" or "Name.member": callable} for every public function, class
+    constructor and public method of the names ``pkg.core`` exports."""
+    out = {}
+    for name in [*pkg.core.__all__, "open"]:
+        obj = getattr(pkg.core, name)
+        if inspect.isclass(obj):
+            out[f"{name}.__init__"] = obj.__init__
+            for m, f in inspect.getmembers(obj, callable):
+                if not m.startswith("_"):
+                    out[f"{name}.{m}"] = f
+        elif callable(obj):
+            out[name] = obj
+    return out
+
+
+def test_core_takes_the_reference_parameter_names():
+    """For every public function, class and method that ``repro.core``
+    exports, the port's counterpart exists and takes the reference's
+    parameter names, but for the deviations named in ``DEVIATIONS``, each
+    with its reason. The list must be exact: a gap closed or opened fails
+    here until the list says so. (The port may take more parameters.)"""
+    import repro
+    import repro_torch
+
+    ref, port = _public_members(repro), _public_members(repro_torch)
+    found = {}
+    for key, fn in ref.items():
+        if key not in port:
+            found[key] = MISSING
+            continue
+        want, got = _parameters(fn), _parameters(port[key])
+        if want is not None and got is not None and (lacking := [p for p in want if p not in got]):
+            found[key] = lacking
+    named = {}
+    for key, (params, reason) in DEVIATIONS.items():
+        assert reason
+        base = key.split("/")[0]
+        named[base] = MISSING if params == MISSING else named.get(base, []) + params
+    assert {k: sorted(v) if v != MISSING else v for k, v in found.items()} == {
+        k: sorted(v) if v != MISSING else v for k, v in named.items()}
+
+
+_LOAD_EXAMPLE = """
+import runpy, sys
+runpy.run_path(sys.argv[1])  # defines the example; its main() does not run
+print(sorted(m for m in sys.modules if m in ("jax", "repro") or m.startswith(("jax.", "repro.", "jaxlib"))))
+"""
+
+
+@pytest.mark.parametrize("example", ["serve_batched_torch.py", "train_campaign_torch.py"])
+def test_port_examples_load_neither_jax_nor_repro(example):
+    path = SRC.parent / "examples" / example
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = subprocess.run([sys.executable, "-c", _LOAD_EXAMPLE, str(path)], capture_output=True, text=True,
+                         env=env, timeout=120, check=True).stdout
+    assert out.strip() == "[]"

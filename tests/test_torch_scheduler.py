@@ -69,7 +69,7 @@ SCRIPTS = {
     "fail/run.sh": "echo partial > part.txt\necho failing\nexit 3\n",
     "w/job.sh": "tr a-z A-Z < ../in.txt > result.txt\n",
     "quick.sh": 'echo quick > "$1"\n',
-    "slow/run.sh": "if [ -f go ]; then echo fast; else sleep 10; fi\necho done > out.txt\n",
+    "slow/run.sh": "if [ -f go ]; then echo fast; else touch asleep; sleep 10; fi\necho done > out.txt\n",
 }
 
 
@@ -460,10 +460,16 @@ def test_straggler_is_cancelled_and_resubmitted(template, tmp_path):
         while not (found := s.scheduler.find_stragglers(factor=3.0, min_samples=3)):
             assert time.time() < deadline
         assert [j["job_id"] for j in found] == [slow]
+        # the original is past its check for go, so it cannot finish before the cancel
+        while not (Path(root) / "slow/asleep").exists():
+            assert time.time() < deadline
+            time.sleep(0.01)
         _write(root, "slow/go", "")  # the replacement runs fast
         new = s.scheduler.reschedule_straggler(slow)
         old_row = s.scheduler.db.get(slow)
         assert old_row["status"] == "cancelled-straggler"
+        # the port's cancel has landed when it returns (ROADMAP §C9)
+        assert s.cluster.sacct(old_row["slurm_id"]) == S.CANCELLED
         s.cluster.wait([old_row["slurm_id"]], timeout=WAIT)  # the killed task ends
         assert s.cluster.sacct(old_row["slurm_id"]) == S.CANCELLED
         s.wait([new], timeout=WAIT)
