@@ -422,6 +422,27 @@ Phases; any failure exits non-zero before the result lines are printed.
                     stages, the sbatch counts, the cancel's latency, and
                     the in-process serve's prefill and decode p50/p95,
                     which were taken beside the two jobs.
+ 40. data plane   — after phase 39, in fresh repositories under a temporary
+                    directory, each on a modelled ``GPFS_STRIPED`` with its
+                    own ``SimClock`` and ``LocalSlurmCluster`` (no other
+                    phase's rows): ``benchmarks/bench_ingest.py``'s shape,
+                    8 jobs x 8 files, cut from 64 to 16 MiB a file. One
+                    ``submit_many`` of 8 trivial jobs (``true``) staged in an
+                    alt-dir, ``cli_startup_s=0.35``; this process then
+                    writes each job's outputs into the staging tree, bf16
+                    bytes drawn on the card from a seeded generator (1 GiB a
+                    case), and one ``finish`` commits all 8, once per case:
+                    (a) ``data_plane="legacy"``, (b) fused serial, (c) fused
+                    over ``ingest_workers=8``, (d) ``engine="full"``. The
+                    outputs' tree oid must be one across the four cases,
+                    (b)'s bytes read at most 0.6 of (a)'s, (c)'s modelled
+                    seconds at most 0.5 of (b)'s (the reference gates' bars,
+                    DESIGN.md §9), and job 0's first file, read back through
+                    ``annex.read`` onto the card, equal to its source tensor
+                    bit for bit. Each case's directory goes before the next
+                    starts. Prints each case's finish wall seconds, modelled
+                    (GPFS) seconds, bytes read and written, metadata
+                    operations and CLI charges.
 Phases 3, 4 and 9 also run one backward through each kernel op
 (``ops.flash_attention``, ``ops.rwkv6``, ``ops.mamba_scan``) at a small fp32
 shape and hold its gradients against the plain version's autograd.
@@ -664,6 +685,10 @@ DENSE = ["phi3_mini_3_8b", "granite_3_2b", "internlm2_20b"]  # phases 31-33, ful
 CAMPAIGN_EXAMPLE = {"meta_ops": 1482, "modelled_s": 3.0070233333333225}
 CACHE_GEN = dict(batch=8, prompt_len=64, gen=32)  # phase 39: examples/serve_batched_torch.py's defaults
 DENSE_PARITY_LAYERS = 2  # phase 34: each of the three at full width, 2 layers
+# phase 40: bench_ingest's 8 jobs x 8 files, each file cut from 64 to 16 MiB (1 GiB of outputs a case)
+DATAPLANE = dict(n_jobs=8, files=8, mib=16)
+DATAPLANE_CASES = {"a legacy": (dict(data_plane="legacy"), 0), "b fused": ({}, 0), "c fused, 8 workers": ({}, 8),
+                   "d full": (dict(engine="full"), 0)}
 
 
 def fail(msg: str) -> None:
@@ -2653,6 +2678,109 @@ def cache_controls_phase(torch, np, configs, serve, kernels: dict, dev, seed: in
     return batched_launches, 1, {flash: jobs_launches, **{n: 0 for n in batched_launches if n != flash}}, jobs_prefills
 
 
+def dataplane_case(torch, dev, seed: int, work: str, finish_kw: dict, workers: int, *, n_jobs: int, files: int,
+                   mib: int) -> dict:
+    """One case of phase 40 in a fresh repository under ``work``: the
+    finish's wall and modelled seconds, counters, CLI charges, the outputs'
+    tree oid and job 0's first file read back onto ``dev``."""
+    from repro_torch.core.fsio import GPFS_STRIPED, SimClock
+    from repro_torch.core.repo import Repository
+    from repro_torch.core.scheduler import SlurmScheduler
+    from repro_torch.core.slurm import LocalSlurmCluster
+    from repro_torch.core.spec import RunSpec
+
+    clock = SimClock()
+    repo = Repository.init(os.path.join(work, "repo"), profile=GPFS_STRIPED, clock=clock, annex_threshold=256)
+    cluster = LocalSlurmCluster(max_workers=n_jobs, clock=clock)
+    sched = SlurmScheduler(repo, cluster, cli_startup_s=0.35, ingest_workers=workers)
+    charges = []
+    charge = sched._charge_cli
+
+    def counted() -> None:
+        charges.append(sched.cli_startup_s)
+        charge()
+
+    sched._charge_cli = counted
+    alt = os.path.join(work, "stage")
+    specs = []
+    for j in range(n_jobs):
+        script = Path(repo.root) / "jobs" / str(j) / "slurm.sh"
+        script.parent.mkdir(parents=True)
+        script.write_text("#!/bin/bash\ntrue\n")
+        specs.append(RunSpec(script="slurm.sh", outputs=[f"data/{j}"], pwd=f"jobs/{j}", alt_dir=alt))
+    try:
+        sched.submit_many(specs)
+        cluster.wait(timeout=300)
+        # the jobs' outputs: bf16 drawn on the card, the same stream in every case
+        gen = torch.Generator(device=dev).manual_seed(seed + 40)
+        source = None
+        for j in range(n_jobs):
+            for i in range(files):
+                t = torch.randn((mib << 20) // 2, generator=gen, device=dev, dtype=torch.bfloat16)
+                path = Path(alt) / "data" / str(j) / f"out_{i}.bin"
+                path.parent.mkdir(parents=True, exist_ok=True)
+                t.cpu().view(torch.uint8).numpy().tofile(path)
+                if source is None:
+                    source = t
+        before = (clock.total, clock.meta_ops, clock.bytes_read, clock.bytes_written)
+        t0 = time.perf_counter()
+        results = sched.finish(**finish_kw)
+        wall = time.perf_counter() - t0
+        modelled, meta, read, written = (a - b for a, b in zip(
+            (clock.total, clock.meta_ops, clock.bytes_read, clock.bytes_written), before))
+    finally:
+        cluster.shutdown()
+    if [r.state for r in results if r.commit] != ["COMPLETED"] * n_jobs:
+        fail(f"phase 40 {finish_kw} workers={workers}: finish gave {[(r.state, r.commit) for r in results]}")
+    head = repo.head_commit()
+    key = repo.annex_key_at("data/0/out_0.bin", head)
+    back = torch.frombuffer(bytearray(repo.annex.read(key)), dtype=torch.bfloat16).to(dev)
+    return {"wall_s": wall, "modelled_s": modelled, "bytes_read": read, "bytes_written": written, "meta_ops": meta,
+            "cli_charges": len(charges), "cli_s": sum(charges), "tree": repo.entry_at(head, "data")["oid"],
+            "bit_equal": torch.equal(back.view(torch.int16), source.view(torch.int16))}
+
+
+def dataplane_phase(torch, dev, seed: int, *, smi: str, full: bool = True, shape: dict = DATAPLANE) -> dict:
+    """Phase 40 (see the module docstring): the four finish cases, each in
+    its own directory, removed before the next. ``full=False`` (a smoke
+    shape on the CPU, where metadata outweighs bytes) holds the pipelined
+    case by the bench smoke's bound (no more than the serial seconds)
+    instead of the card's 0.5. Returns {case: its numbers}."""
+    import shutil
+
+    phase_t = time.perf_counter()
+    cases = {}
+    for name, (kw, workers) in DATAPLANE_CASES.items():
+        work = tempfile.mkdtemp(prefix="dataplane-")
+        try:
+            cases[name] = dataplane_case(torch, dev, seed, work, kw, workers, **shape)
+        finally:
+            shutil.rmtree(work)
+    a, b, c = cases["a legacy"], cases["b fused"], cases["c fused, 8 workers"]
+    trees = {r["tree"] for r in cases.values()}
+    if len(trees) != 1:
+        fail(f"phase 40's four cases committed different output trees: {sorted(trees)}")
+    if b["bytes_read"] > 0.6 * a["bytes_read"]:
+        fail(f"phase 40: the fused plane read {b['bytes_read']} bytes, the seed plane {a['bytes_read']} (bar 0.6)")
+    bar = 0.5 if full else 1.001
+    if c["modelled_s"] > bar * b["modelled_s"]:
+        fail(f"phase 40: 8 ingest workers modelled {c['modelled_s']!r} s, serial {b['modelled_s']!r} s (bar {bar})")
+    if not all(r["bit_equal"] for r in cases.values()) or any(r["cli_charges"] != 2 for r in cases.values()):
+        fail(f"phase 40: read-back bit-equal {[r['bit_equal'] for r in cases.values()]}, CLI charges "
+             f"{[r['cli_charges'] for r in cases.values()]} (one submit_many, one finish)")
+    n = shape["n_jobs"] * shape["files"]
+    print(f"data plane ({shape['n_jobs']} jobs x {shape['files']} files x {shape['mib']} MiB of bf16 from {dev}, "
+          f"GPFS_STRIPED modelled, outputs tree {trees.pop()[:12]} in every case, job 0's first file read back onto "
+          f"{dev} bit for bit): "
+          + "; ".join(f"({name}) finish {r['wall_s']:.3f} s wall, {r['modelled_s']!r} s modelled, "
+                      f"{r['bytes_read']} B read, {r['bytes_written']} B written, {r['meta_ops']} metadata ops, "
+                      f"{r['cli_charges']} CLI charges ({r['cli_s']:.2f} s)" for name, r in cases.items())
+          + f"; fused reads / legacy {b['bytes_read'] / a['bytes_read']:.4f}, 8 workers / serial modelled "
+          f"{c['modelled_s'] / b['modelled_s']:.4f}; {n} files a case; phase {time.perf_counter() - phase_t:.3f} s; "
+          f"card: {smi}")
+    return cases
+
+
 def train_mfu(flops: float, p50_ms: float) -> float:
     return flops / (p50_ms / 1e3) / H100_FLOPS["bfloat16"]
 
@@ -3631,6 +3759,11 @@ def main() -> None:
             torch, np, configs, serve, all_kernels, dev, args.seed, campaign_dir, last, full=True, device="cuda",
             overrides=CAMPAIGN_CUTS, smi=smi)
         print(f"cache controls phase {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------------ 40. data plane
+    t0 = phase("data plane")
+    dataplane_phase(torch, dev, args.seed, smi=smi)
+    print(f"data plane phase {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------ 29. train rwkv6
     t0 = phase("train rwkv6")

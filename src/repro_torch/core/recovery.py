@@ -242,11 +242,12 @@ def _replay_finish(session: "Session", header: dict, entries: list[dict], report
         parent                      commit again;
       otherwise                  -> re-finish below.
 
-    Jobs with no usable entry are re-finished through the normal path.
-    Returns False when the re-finish could not run (the cluster no longer
-    knows the jobs): the journal is kept for a later ``recover``. The
-    reference's ``engine`` and ``data_plane`` flags are not read: the port's
-    one finish path commits what either engine would."""
+    Jobs with no usable entry are re-finished through the normal path, with
+    the journal's ``engine`` and ``data_plane``: a crashed seed-era finish
+    is completed by the seed-era path, which records no run-cache rows and
+    charges that plane's reads and writes. Returns False when the re-finish
+    could not run (the cluster no longer knows the jobs): the journal is
+    kept for a later ``recover``."""
     repo = session.repo
     sched = session.scheduler
     db = sched.db
@@ -293,7 +294,9 @@ def _replay_finish(session: "Session", header: dict, entries: list[dict], report
             res = sched.finish(job_ids=remaining, close_failed_jobs=flags.get("close_failed_jobs", False),
                                commit_failed_jobs=flags.get("commit_failed_jobs", False),
                                branches=flags.get("branches", False),
-                               octopus=False)  # merged below, with the replayed branches
+                               octopus=False,  # merged below, with the replayed branches
+                               engine=flags.get("engine", "incremental"),
+                               data_plane=flags.get("data_plane", "fused"))
         except Exception as e:
             report["errors"].append(f"re-finish of jobs {remaining}: {e}")
             return False

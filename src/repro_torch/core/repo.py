@@ -57,6 +57,7 @@ import uuid
 
 from .annex import POINTER_MAX, AnnexStore, make_pointer, parse_pointer_full
 from .chunks import ChunkParams
+from .conflicts import proper_prefixes
 from .faults import InjectedNetworkError, RemoteUnavailable, is_crash
 from .files import stale_tmps, sweep_stale_tmps, tmp_name, write_atomic
 from .fsio import FS, NULL_FS, FSProfile, SimClock
@@ -451,10 +452,14 @@ class Repository:
             return self._annex_entry(key, self._should_chunk(len(data)))
         return {"t": "blob", "oid": self.objects.put_blob(data)}
 
-    def _hash_working_file(self, relpath: str) -> dict:
+    def _hash_working_file(self, relpath: str, single_pass: bool = True) -> dict:
         """Stage one worktree file: one stat decides; annex-sized files are
-        ingested in one pass (hashed while written), the rest read whole."""
+        ingested in one pass (hashed while written), the rest read whole.
+        ``single_pass=False`` is the seed-era protocol: the whole file read
+        into memory, then written (``finish(data_plane="legacy")``)."""
         abspath = os.path.join(self.root, relpath)
+        if not single_pass:
+            return self._entry_for_data(relpath, self.fs.read_bytes(abspath))
         size = self.fs.stat_size(abspath)
         if size > POINTER_MAX and self._should_annex(relpath, size):
             chunked = self._should_chunk(size)
@@ -520,10 +525,12 @@ class Repository:
                 raise FileNotFoundError(f"no such path: {p}")
         return out
 
-    def stage_paths(self, paths) -> dict[str, dict]:
+    def stage_paths(self, paths, single_pass: bool = True) -> dict[str, dict]:
         """{relpath: tree entry} for ``paths`` (files or directories),
-        writing blob and annex content as needed."""
-        return {rel: self._hash_working_file(rel) for rel in dict.fromkeys(self._expand_paths(paths))}
+        writing blob and annex content as needed; ``single_pass=False``
+        stages each file by the seed-era read-whole-then-write protocol."""
+        return {rel: self._hash_working_file(rel, single_pass=single_pass)
+                for rel in dict.fromkeys(self._expand_paths(paths))}
 
     # -- committing ------------------------------------------------------
     def commit_changes(
@@ -560,14 +567,23 @@ class Repository:
             return self.objects.oid_for("commit", canonical_json(commit)), tree_oid
         return self.objects.put_commit(commit), tree_oid
 
-    def save(self, paths=None, message: str = "", spec: dict | None = None) -> str:
+    def save(self, paths=None, message: str = "", spec: dict | None = None, engine: str = "incremental",
+             branch: str | None = None) -> str:
         """Stage ``paths`` (files or directories; None = the whole worktree,
-        which also records tracked files that are gone) on top of the
-        current branch's tree and commit; moves the branch. Returns the
-        commit oid."""
-        branch = self.current_branch()
+        which also records tracked files that are gone) on top of the tip of
+        ``branch`` (default: the current branch) and commit; moves that
+        branch. Returns the commit oid.
+
+        ``engine="incremental"`` rebuilds only the dirty spine of the tree;
+        ``engine="full"`` is the seed-era rebuild (``_save_full``). Both give
+        the same tree oid for the same content."""
+        if engine not in ("incremental", "full"):
+            raise ValueError(f"unknown save engine: {engine!r}")
+        branch = branch or self.current_branch()
         with self.ref_lock:
             base = self.branch_head(branch)
+            if engine == "full":
+                return self._save_full(paths, message, branch, base, spec)
             base_tree = self._tree_oid_of(base)
             if paths is None:
                 flat = self.tree_of(base) if base else {}
@@ -586,6 +602,65 @@ class Repository:
             if oid != base:
                 self.set_branch(branch, oid)
             return oid
+
+    def _save_full(self, paths, message: str, branch: str, base: str | None, spec: dict | None) -> str:
+        """The seed-era save: read the whole base tree, apply the staged
+        paths to its flat map, and write every tree object again
+        (O(repository files)); moves ``branch`` when the tree changed."""
+        flat = self.tree_of(base) if base else {}
+        before = dict(flat)
+        if paths is None:
+            expanded = set(self._expand_paths(p for p in os.listdir(self.root) if not self._is_ignored(p)))
+            for known in list(flat):
+                if known not in expanded and not os.path.isfile(os.path.join(self.root, known)):
+                    del flat[known]
+            for rel in sorted(expanded):
+                flat[rel] = self._hash_working_file(rel)
+        else:
+            for rel in self._expand_paths(paths):
+                # a staged path shadows stale entries: an ancestor that was a
+                # file, and whatever lay below a path that is a file now
+                for pre in proper_prefixes(rel):
+                    flat.pop(pre, None)
+                for stale in [k for k in flat if k.startswith(rel + "/")]:
+                    del flat[stale]
+                flat[rel] = self._hash_working_file(rel)
+        if flat == before and base is not None:
+            return base  # nothing changed: no commit
+        commit = {
+            "tree": self._write_nested(flat) or "",
+            "parents": [base] if base else [],
+            "author": "repro",
+            "timestamp": time.time(),
+            "message": message,
+        }
+        if spec is not None:
+            commit["spec"] = spec
+        oid = self.objects.put_commit(commit)
+        self.set_branch(branch, oid)
+        return oid
+
+    def _write_nested(self, flat: dict[str, dict]) -> str | None:
+        """Write the tree objects of a flat {relpath: entry} map, every
+        level of them; returns the root tree's oid (None when empty)."""
+        if not flat:
+            return None
+        root: dict = {}
+        for path, entry in flat.items():
+            parts = path.split("/")
+            node = root
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+                if "_entry" in node:
+                    raise ConflictError(f"file/directory conflict at {part} in {path}")
+            node[parts[-1]] = {"_entry": entry}
+
+        def emit(node: dict) -> str:
+            return self.objects.put_tree({name: child["_entry"] if "_entry" in child
+                                          else {"t": "tree", "oid": emit(child)}
+                                          for name, child in sorted(node.items())})
+
+        return emit(root)
 
     def merge_octopus(self, branches: list[str], message: str = "") -> str:
         """N-parent merge onto the current branch (paper §5.8): the union of

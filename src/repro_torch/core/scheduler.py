@@ -36,15 +36,24 @@ outputs to remote sites.
 Object-store pressure (DESIGN.md §8): a memoized batch's commits are
 written as one pack, and with ``auto_repack_threshold`` a finish batch
 repacks the store once its refs are published and a loose shard holds more
-entries than the threshold (``maybe_repack``). Not ported: the reference's
-per-command CLI start-up charge (``cli_startup_s``).
+entries than the threshold (``maybe_repack``).
+
+The data plane (DESIGN.md §9): ``finish`` ingests every output of a batch
+content-addressed before its ordered commit phase, across
+``ingest_workers`` threads when there are more than one; alt-dir outputs are
+absorbed from the staging tree in one pass. ``finish(engine="full")`` and
+``finish(data_plane="legacy")`` keep the seed-era paths: the outputs copied
+back into the worktree, then staged by reading each whole, and with the full
+engine every commit a rebuild of the whole tree. ``cli_startup_s`` is the
+paper's per-command CLI start-up (§6 steps (1)-(2), ~0.35 s), charged on the
+simulated clock once per ``submit_many`` batch and once per ``finish``.
 """
 from __future__ import annotations
 
 import os
-import shutil
 import statistics
 import uuid
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 from . import slurm as S
@@ -57,6 +66,12 @@ from .repo import REPRO_DIR, Repository
 from .runcache import RunCache
 from .spec import RunSpec, SpecError
 
+
+def _files_at(path: str) -> list[str]:
+    """The files at or below ``path`` (none where it does not exist)."""
+    if os.path.isdir(path):
+        return [os.path.join(dirpath, f) for dirpath, _, files in os.walk(path) for f in files]
+    return [path] if os.path.exists(path) else []
 
 
 class ScheduleError(SpecError):
@@ -75,17 +90,30 @@ class FinishResult:
 
 
 class SlurmScheduler:
-    def __init__(self, repo: Repository, cluster: S.SlurmCluster, auto_repack_threshold: int | None = None,
-                 run_cache: bool = True, cache_env: dict | None = None):
+    def __init__(self, repo: Repository, cluster: S.SlurmCluster, cli_startup_s: float = 0.35,
+                 auto_repack_threshold: int | None = None, ingest_workers: int = 0, run_cache: bool = True,
+                 cache_env: dict | None = None):
         self.repo = repo
         self.cluster = cluster
+        # the DataLad CLI's start-up (package loading and the repository's
+        # state check), charged on the simulated clock; 0.0 models the
+        # library alone
+        self.cli_startup_s = cli_startup_s
         # the largest loose-shard entry count a finish batch leaves before it
         # repacks; None never repacks (measurements that want the slope)
         self.auto_repack_threshold = auto_repack_threshold
+        # finish()'s ingest threads: ingestion is content-addressed and
+        # commutes, so a batch's files may be ingested in any order while
+        # commits and refs stay ordered; 0 or 1 is serial
+        self.ingest_workers = ingest_workers
         self.db = JobDB(repo.repro_dir)
         # §11 run cache: run_cache=False neither looks up nor records;
         # cache_env folds an environment fingerprint into every key
         self.cache = RunCache(repo, cache_env) if run_cache else None
+
+    def _charge_cli(self) -> None:
+        if self.cli_startup_s:
+            self.repo.fs.clock.charge(self.cli_startup_s)
 
     def _retry_slurm(self, fn):
         """Run one Slurm CLI interaction, retrying *transient* failures (a
@@ -114,8 +142,8 @@ class SlurmScheduler:
     def submit_many(self, specs: list[RunSpec], refresh: bool = False, dependencies: list[list[int]] | None = None,
                     provided: set[str] | None = None, pipeline: str | None = None,
                     stages: list[str] | None = None) -> list[int]:
-        """Batched submission: N specs, ONE job-DB transaction, ONE shared
-        §5.5 conflict pass (see ``JobDB.add_jobs``).
+        """Batched submission: N specs, ONE CLI start-up charge, ONE job-DB
+        transaction, ONE shared §5.5 conflict pass (see ``JobDB.add_jobs``).
 
         Run cache (§11): each spec's execution key (spec_id + resolved
         input tree + env fingerprint) is looked up first; hits short-circuit
@@ -148,6 +176,7 @@ class SlurmScheduler:
                 raise ScheduleError(f"submit expects RunSpec instances, got {type(spec).__name__}")
             if spec.script is None:
                 raise ScheduleError("batch submission requires a script spec (cmd specs are for blocking run/rerun)")
+        self._charge_cli()  # one start-up charge for the whole batch
         for spec in specs:  # cheap existence probe before any DB or fetch work
             missing = spec.missing_inputs(self.repo.root, provided=provided)
             if missing:
@@ -417,7 +446,8 @@ class SlurmScheduler:
 
     def _stage_alt_dir(self, alt_dir: str, pwd: str, script: str, inputs: list[str]) -> str:
         """§5.7: build the real working directory under ``alt_dir`` with the
-        same relative path, copy script + inputs there, submit from there."""
+        same relative path, copy script + inputs there (charged deep
+        copies), submit from there."""
         real_workdir = os.path.normpath(os.path.join(alt_dir, pwd))
         os.makedirs(real_workdir, exist_ok=True)
         to_copy = list(inputs)
@@ -425,23 +455,15 @@ class SlurmScheduler:
         if os.path.exists(os.path.join(self.repo.root, script_rel)):
             to_copy.append(script_rel)
         for rel in to_copy:
-            src = os.path.join(self.repo.root, os.path.normpath(rel))
-            if os.path.isdir(src):
-                files = [os.path.join(dirpath, f) for dirpath, _, fs in os.walk(src) for f in fs]
-            elif os.path.exists(src):
-                files = [src]
-            else:
-                files = []
-            for s in files:
-                dst = os.path.join(alt_dir, os.path.relpath(s, self.repo.root))
-                os.makedirs(os.path.dirname(dst), exist_ok=True)
-                shutil.copyfile(s, dst)
+            for s in _files_at(os.path.join(self.repo.root, os.path.normpath(rel))):
+                self.repo.fs.copy_file(s, os.path.join(alt_dir, os.path.relpath(s, self.repo.root)))
         return real_workdir
 
     # --------------------------------------------------------------- finish
     def finish(self, job_id: int | None = None, slurm_job_id: int | None = None, close_failed_jobs: bool = False,
                commit_failed_jobs: bool = False, branches: bool = False, octopus: bool = False,
-               job_ids: list[int] | None = None, push_to: str | list[str] | None = None) -> list[FinishResult]:
+               engine: str = "incremental", data_plane: str = "fused", job_ids: list[int] | None = None,
+               push_to: str | list[str] | None = None) -> list[FinishResult]:
         """``datalad slurm-finish``: commit results of finished jobs.
 
         Running jobs are ignored (they stay for a future call). Failed jobs
@@ -459,9 +481,19 @@ class SlurmScheduler:
         The branch ref is published before each job is closed in the DB, so
         a closed job always has its commit reachable.
 
+        The data plane (DESIGN.md §9) runs first, across ``ingest_workers``
+        threads when there are more than one, and reads and writes each
+        output's bytes once: an alt-dir output is ingested straight from the
+        staging tree and renamed into the worktree. ``data_plane="legacy"``
+        is the seed-era two-pass protocol (copy back, then read whole and
+        write); ``engine="full"`` commits each job by a rebuild of the whole
+        tree (``Repository.save(engine="full")``). Neither records run-cache
+        rows.
+
         An intent journal is written before the commit phase, so a crash
         anywhere in it is replayed exactly once by ``Session.recover()``
-        (§10); ``job_ids`` restricts the batch to
+        (§10), with the engine and data plane that ``recover`` re-finishes
+        with; ``job_ids`` restricts the batch to
         those rows (recovery re-finishes precisely the jobs a crashed batch
         left open).
 
@@ -469,6 +501,11 @@ class SlurmScheduler:
         after the commits land, every annex key the batch introduced is
         pushed there, journaled and resumable like any push (a crash
         mid-push leaves the commits intact and the push to replay)."""
+        if engine not in ("incremental", "full"):
+            raise ValueError(f"unknown commit engine: {engine!r}")
+        if data_plane not in ("fused", "legacy"):
+            raise ValueError(f"unknown data plane: {data_plane!r}")
+        self._charge_cli()
         jobs = self.db.open_jobs()
         if job_id is not None:
             jobs = [j for j in jobs if j["job_id"] == job_id]
@@ -514,15 +551,15 @@ class SlurmScheduler:
         jh = JournalHandle.begin(self.repo, "finish", {
             "branch": self.repo.current_branch(),
             "jobs": [{"job_id": j["job_id"], "slurm_id": j["slurm_id"], "state": st} for j, st in to_commit],
-            # the reference's flags; its engine and data plane are the port's one path
-            "flags": {"branches": branches, "octopus": octopus, "engine": "incremental", "data_plane": "fused",
+            "flags": {"branches": branches, "octopus": octopus, "engine": engine, "data_plane": data_plane,
                       "close_failed_jobs": close_failed_jobs, "commit_failed_jobs": commit_failed_jobs},
         })
         self.repo.crash_point("finish:journal-written")
         # a failure mid-batch that is no crash leaves the journal: the jobs it
         # covers are still open, and recover() or the next finish completes
         # them exactly once
-        results += self._commit_jobs_batched(to_commit, use_branch=branches or octopus, octopus=octopus, journal=jh)
+        results += self._commit_jobs_batched(to_commit, use_branch=branches or octopus, octopus=octopus,
+                                             engine=engine, data_plane=data_plane, journal=jh)
         jh.done()
         self.maybe_repack()
         if push_to is not None and any(r.commit for r in results):
@@ -576,15 +613,17 @@ class SlurmScheduler:
                 frontier.append(jid)
         return closed
 
-    def _commit_jobs_batched(self, to_commit: list[tuple[dict, str]], use_branch: bool,
-                             octopus: bool, journal: JournalHandle) -> list[FinishResult]:
+    def _commit_jobs_batched(self, to_commit: list[tuple[dict, str]], use_branch: bool, octopus: bool,
+                             engine: str, data_plane: str, journal: JournalHandle) -> list[FinishResult]:
         """One commit per job (§5.1: one reproducibility record each), the
         whole batch on one base-tree read. The data plane runs first and
         outside the locks; the ordered metadata phase (record, commit
         chaining, ref publication, job closing) runs under the ref locks, so
         concurrent finishers publish serially. A crash between the phases
         loses nothing: ingested objects are content-addressed and the jobs
-        are still open. Each commit is journaled before its ref moves."""
+        are still open. Each commit is journaled before its ref moves, but
+        the full engine's, which ``save`` publishes itself: it is journaled
+        after, so the replay finds the ref at it and closes the row."""
         repo = self.repo
         prepared = []
         for job, state in to_commit:
@@ -592,8 +631,16 @@ class SlurmScheduler:
             slurm_outputs = [os.path.normpath(os.path.join(spec.pwd, f))
                              for f in self.cluster.slurm_output_files(job["slurm_id"])]
             prepared.append((job, state, spec, slurm_outputs))
-        staged = self._ingest_batch(prepared)
-        repo.crash_point("finish:after-ingest")
+        staged: list[dict] | None = None
+        if engine == "incremental" and data_plane == "fused":
+            staged = self._ingest_batch(prepared)
+            repo.crash_point("finish:after-ingest")
+        else:
+            # the seed-era data plane: alt-dir outputs copied back into the
+            # worktree now, each read whole and written again when staged
+            for _, _, spec, slurm_outputs in prepared:
+                if spec.alt_dir:
+                    self._copy_back_alt_dir(spec, slurm_outputs)
         results: list[FinishResult] = []
         new_branches: list[str] = []
         cache_rows: list[dict] = []  # §11: executions to memoize
@@ -620,38 +667,46 @@ class SlurmScheduler:
                     branch_name = f"job/{job['slurm_id']}"
                     if repo.branch_head(branch_name) is None:
                         repo.create_branch(branch_name, at=base)
-                    commit, _ = repo.commit_changes(staged[idx], message=message, base_commit=base,
-                                                    base_tree=base_tree, spec=spec_json)
-                    publish_to = branch_name
                     new_branches.append(branch_name)
+                if staged is None:  # the seed-era plane: the outputs the worktree holds now
+                    save_paths = [p for p in list(spec.outputs) + slurm_outputs
+                                  if os.path.exists(os.path.join(repo.root, p))]
+                if engine == "full":
+                    commit = repo.save(paths=save_paths, message=message, spec=spec_json, engine="full",
+                                       branch=branch_name)
+                    journal.append({"job_id": job["job_id"], "commit": commit, "job_branch": branch_name})
                 else:
-                    commit, head_tree = repo.commit_changes(staged[idx], message=message, base_commit=head_commit,
-                                                            base_tree=head_tree, spec=spec_json)
-                    head_commit = commit
-                    publish_to = branch
-                # journaled BEFORE the ref moves: the replay tells
-                # published from committed-only (exactly once)
-                journal.append({"job_id": job["job_id"], "commit": commit, "job_branch": branch_name})
-                repo.crash_point("finish:before-publish")
-                # publish before closing the job: a closed job must always
-                # have its commit reachable
-                repo.set_branch(publish_to, commit)
-                repo.crash_point("finish:after-publish")
-                ekey = job.get("exec_key")
-                if state == S.COMPLETED and not ekey and self.cache is not None:
+                    changes = staged[idx] if staged is not None else repo.stage_paths(save_paths, single_pass=False)
+                    if use_branch:
+                        commit, _ = repo.commit_changes(changes, message=message, base_commit=base,
+                                                        base_tree=base_tree, spec=spec_json)
+                    else:
+                        commit, head_tree = repo.commit_changes(changes, message=message, base_commit=head_commit,
+                                                                base_tree=head_tree, spec=spec_json)
+                        head_commit = commit
+                    # journaled BEFORE the ref moves: the replay tells
+                    # published from committed-only (exactly once)
+                    journal.append({"job_id": job["job_id"], "commit": commit, "job_branch": branch_name})
+                    repo.crash_point("finish:before-publish")
+                    # publish before closing the job: a closed job must always
+                    # have its commit reachable
+                    repo.set_branch(branch_name or branch, commit)
+                    repo.crash_point("finish:after-publish")
+                # the seed-era paths record no cache row, as the reference's
+                if staged is not None and state == S.COMPLETED and self.cache is not None:
                     # a job submitted with no key (its inputs did not resolve
                     # then, or a pipeline parent was about to write them):
                     # derive it now that they are on disk
-                    ekey = self.cache.execution_key(spec)
-                if state == S.COMPLETED and ekey and self.cache is not None:
-                    entries = staged[idx]
-                    cache_rows.append({
-                        "exec_key": ekey,
-                        "spec_id": spec.spec_id,
-                        "commit_oid": commit,
-                        "output_tree": entries,
-                        "annex_keys": sorted({e["key"] for e in entries.values() if e.get("t") == "annex"}),
-                    })
+                    ekey = job.get("exec_key") or self.cache.execution_key(spec)
+                    if ekey:
+                        entries = staged[idx]
+                        cache_rows.append({
+                            "exec_key": ekey,
+                            "spec_id": spec.spec_id,
+                            "commit_oid": commit,
+                            "output_tree": entries,
+                            "annex_keys": sorted({e["key"] for e in entries.values() if e.get("t") == "annex"}),
+                        })
                 self.db.close_job(job["job_id"], status="finished")
                 repo.crash_point("finish:after-close")
                 results.append(FinishResult(job["job_id"], job["slurm_id"], state, commit, branch_name))
@@ -667,9 +722,13 @@ class SlurmScheduler:
 
     def _ingest_batch(self, prepared) -> list[dict]:
         """Expand every committable job's outputs (declared and Slurm's)
-        into per-file ingest tasks and run them. Alt-dir outputs are absorbed straight from
-        the staging tree into the worktree (``ingest_external_file``).
-        Returns one {relpath: entry} changes dict per prepared job."""
+        into per-file ingest tasks and run them, serially or across the
+        ``ingest_workers`` threads: ingestion is content-addressed, so the
+        order is free and equal content collapses to one annex key. Alt-dir
+        outputs are absorbed straight from the staging tree into the
+        worktree (``ingest_external_file``). A crash in a thread reaches the
+        caller and leaves the jobs open. Returns one {relpath: entry}
+        changes dict per prepared job."""
         repo = self.repo
         tasks: list[tuple[int, str, str | None]] = []  # (job idx, rel, alt-dir source)
         seen: set[tuple[int, str]] = set()
@@ -726,7 +785,11 @@ class SlurmScheduler:
             return idx, rel, repo._hash_working_file(rel)
 
         try:
-            done = [ingest_one(t) for t in tasks]
+            if self.ingest_workers > 1 and len(tasks) > 1:
+                with ThreadPoolExecutor(max_workers=self.ingest_workers) as ex:
+                    done = list(ex.map(ingest_one, tasks))
+            else:
+                done = [ingest_one(t) for t in tasks]
         finally:
             # job payloads are written by processes the FS layer never sees:
             # no primed size may outlive this batch
@@ -755,6 +818,15 @@ class SlurmScheduler:
                     "alt_dir": spec.alt_dir},
         )
         return record.to_message(f"Slurm job {slurm_id}: {state.capitalize()}", kind=TITLE_SLURM), spec_json
+
+    def _copy_back_alt_dir(self, spec: RunSpec, slurm_outputs: list[str]) -> None:
+        """§5.7 step (4), the seed-era data plane: copy the outputs from the
+        alternative directory back into the worktree, each file published
+        through a tmp in ``.repro/`` and a rename."""
+        repo = self.repo
+        for rel in list(spec.outputs) + slurm_outputs:
+            for s in _files_at(os.path.join(spec.alt_dir, rel)):
+                repo._copy_in(s, os.path.join(repo.root, os.path.relpath(s, spec.alt_dir)), repo.repro_dir)
 
     # ----------------------------------------------------------- inspection
     def list_open_jobs(self) -> list[tuple[dict, str]]:

@@ -26,7 +26,10 @@ drives every execution path of the paper's workflow through declarative
     s.submit(spec, refresh=True)                   # run it though the cache holds it (§11)
 
 The scheduler/cluster pair is built lazily, so a Session used only for
-``run``/``rerun`` never starts a thread pool. ``auto_repack_threshold``
+``run``/``rerun`` never starts a thread pool. ``cli_startup_s`` (default
+0.0) is the CLI start-up charge of each submission batch and finish, and
+``ingest_workers`` the threads a finish ingests outputs on (DESIGN.md §9).
+``auto_repack_threshold``
 (default ``"auto"``: the profile's ``degrade_threshold`` where it degrades,
 else off) makes each finish batch repack once a loose shard holds more
 entries than that. ``run_cache=False`` turns the §11 run cache off (nothing
@@ -53,11 +56,13 @@ from .spec import RunSpec
 class Session:
     """A repository plus (lazily) a cluster and a scheduler, driven by specs."""
 
-    def __init__(self, repo: Repository, cluster: SlurmCluster | None = None, max_workers: int = 8,
-                 auto_repack_threshold: int | None | str = "auto", run_cache: bool = True,
-                 cache_env: dict | None = None):
+    def __init__(self, repo: Repository, cluster: SlurmCluster | None = None, cli_startup_s: float = 0.0,
+                 max_workers: int = 8, auto_repack_threshold: int | None | str = "auto", ingest_workers: int = 0,
+                 run_cache: bool = True, cache_env: dict | None = None):
         self.repo = repo
+        self.cli_startup_s = cli_startup_s
         self._max_workers = max_workers
+        self.ingest_workers = ingest_workers
         self.run_cache = run_cache
         self.cache_env = cache_env
         self._cluster = cluster
@@ -82,8 +87,10 @@ class Session:
     @property
     def scheduler(self) -> SlurmScheduler:
         if self._scheduler is None:
-            self._scheduler = SlurmScheduler(self.repo, self.cluster, auto_repack_threshold=self.auto_repack_threshold,
-                                             run_cache=self.run_cache, cache_env=self.cache_env)
+            self._scheduler = SlurmScheduler(self.repo, self.cluster, cli_startup_s=self.cli_startup_s,
+                                             auto_repack_threshold=self.auto_repack_threshold,
+                                             ingest_workers=self.ingest_workers, run_cache=self.run_cache,
+                                             cache_env=self.cache_env)
         return self._scheduler
 
     @property
@@ -286,14 +293,17 @@ class Session:
         return recovery.verify(self, repair=repair)
 
 
-def open(root: str, create: bool = False, cluster: SlurmCluster | None = None, max_workers: int = 8,
-         profile: FSProfile = NULL_FS, clock: SimClock | None = None, run_cache: bool = True,
-         cache_env: dict | None = None, faults=None, net_faults=None, **init_kwargs) -> Session:
+def open(root: str, create: bool = False, profile: FSProfile = NULL_FS, clock: SimClock | None = None,
+         cluster: SlurmCluster | None = None, cli_startup_s: float = 0.0, max_workers: int = 8,
+         ingest_workers: int = 0, run_cache: bool = True, cache_env: dict | None = None, faults=None,
+         net_faults=None, **init_kwargs) -> Session:
     """Open (or with ``create=True``, initialize) a repository at ``root``
     and return a :class:`Session` over it. ``run_cache`` turns the §11 run
     cache on or off (``submit*(..., refresh=True)`` skips its lookup for one
     call); ``cache_env`` folds a fingerprint of the environment into every
-    execution key. ``profile`` and ``clock`` put the repository on the filesystem cost
+    execution key. ``cli_startup_s`` is the CLI start-up charged once per
+    submission batch and per finish (0.0: the library alone);
+    ``ingest_workers`` the finish's ingest threads (§9). ``profile`` and ``clock`` put the repository on the filesystem cost
     model (every operation charged on ``clock``); ``faults`` attaches a
     :class:`~.faults.FaultPlan` to its FS and the (lazily created) cluster,
     the fault-injection harness of §10; ``net_faults`` attaches a
@@ -308,4 +318,5 @@ def open(root: str, create: bool = False, cluster: SlurmCluster | None = None, m
                                **init_kwargs)
     else:
         raise FileNotFoundError(f"not a repro repository: {root} (pass create=True to initialize)")
-    return Session(repo, cluster=cluster, max_workers=max_workers, run_cache=run_cache, cache_env=cache_env)
+    return Session(repo, cluster=cluster, cli_startup_s=cli_startup_s, max_workers=max_workers,
+                   ingest_workers=ingest_workers, run_cache=run_cache, cache_env=cache_env)

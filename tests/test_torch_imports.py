@@ -130,8 +130,6 @@ def test_encoder_decoder_and_mrope_layers_build(change, added):
 
 # --------------------------------------------------------------- API parity
 OPTION = "an option no caller of the port set, left out under the rule that the port keeps no unused option"
-SEED_ERA = ("a seed-era comparison path whose only callers are the benchmark gates under benchmarks/; it waits "
-            "for the port's benchmark PR (ROADMAP §A item 2.7)")
 ONE_FS = ("the port runs every store operation on one FS per repository: the FS, its fault plan and its owner "
           "are reached through the repository, not passed")
 GONE = "a helper no caller of the port used, left out for the same rule"
@@ -168,23 +166,17 @@ DEVIATIONS = {
                                        "(remote.push_keys: chunk by chunk, journaled, resumable)"),
     "Repository.commit_changes": (["parents", "author"], OPTION),
     "Repository.merge_octopus": (["author"], OPTION),
-    "Repository.save": (["parents", "author", "allow_empty", "branch"], OPTION),
-    "Repository.save/engine": (["engine"], SEED_ERA),
-    "Repository.stage_paths": (["single_pass"], SEED_ERA),
+    "Repository.save": (["parents", "author", "allow_empty"], OPTION),
     "Repository.switch": (["checkout"], OPTION),
     "Repository.whereis": (MISSING, GONE + "; whereis_many answers one key or many"),
-    "Session.__init__": (["cli_startup_s", "ingest_workers"], SEED_ERA),
     "Session.fetch": (["missing_only", "journal"], OPTION),
     "Session.gc": (["delete_loose", "prune_cache", "sweep_chunks"], OPTION),
     "Session.pull": (["journal"], OPTION),
     "Session.push": (["journal"], OPTION),
     "Session.recover": (["close_unsubmitted", "max_tmp_age_s"], OPTION),
-    "SlurmScheduler.__init__": (["cli_startup_s", "ingest_workers"], SEED_ERA),
     "SlurmScheduler.finish": (["journal"], OPTION + "; the port's finish always journals"),
-    "SlurmScheduler.finish/engine": (["engine", "data_plane"], SEED_ERA),
     "SlurmScheduler.submit_pipeline": (["run_id"], OPTION),
     "open": (["auto_repack_threshold"], OPTION + "; Session(repo, auto_repack_threshold=...) keeps it"),
-    "open/seed": (["cli_startup_s", "ingest_workers"], SEED_ERA),
 }
 
 

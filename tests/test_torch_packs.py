@@ -89,7 +89,7 @@ def _side(pkg, faults, fsio, objects, repo, scheduler, session, slurm, lock_cls,
 
 SIDES = {
     "port": _side(repro_torch, pfaults, pfsio, pobjects, prepo, pscheduler, psession, pslurm, plocks.FileLock,
-                  lambda store: store.packs, {}, {}),
+                  lambda store: store.packs, {"cli_startup_s": 0.0}, {}),
     "ref": _side(repro, jfaults, jfsio, jobjects, jrepo, jscheduler, jsession, jslurm, jrecovery.FileLock,
                  _RefPacks, {"cli_startup_s": 0.0}, {"sbatch_cost_s": 0.0, "sacct_cost_s": 0.0}),
 }
