@@ -223,11 +223,12 @@ Phases; any failure exits non-zero before the result lines are printed.
                     train shape (8, 512, 32, 64) in fp32 against the plain
                     version's autograd (GRAD_TOL), and, printed as a finding,
                     the time and gradient error of the chunked form's backward
-                    there. Then rwkv6-1.6B at full width and depth (bf16
-                    weights, fp32 moments, remat), B=8 x 512, 3 steps of
+                    there. Then rwkv6-1.6B at full width, cut to 8 of its 24
+                    layers since PR 33 for the run's time (bf16 weights, fp32
+                    moments, remat), B=8 x 512, 3 steps of
                     ``make_train_step`` on one batch: step 1 warms up, p50
                     over steps 2-3, the loss must drop, the WKV kernel must
-                    launch 48 times a step (24 forward, 24 in remat's
+                    launch 16 times a step (8 forward, 8 in remat's
                     recompute) and nothing else; peak memory, train_mfu. Then
                     one fp32 step cut to 2 layers, kernel on against off, as
                     phase 14's.
@@ -242,13 +243,14 @@ Phases; any failure exits non-zero before the result lines are printed.
                     leaves 4 GiB of the card free: one bf16 gradient step
                     kernels on against off (loss within BF16_TOL), then 3
                     steps of ``make_train_step`` with finite losses, 14 Mamba
-                    and 2 flash launches a step and nothing else, and the
-                    measured peak within 10% or 256 MiB of the dry-run's plan
-                    of the same step (``launch/dryrun.py --one-card``, run
-                    under the card's torch in a process of its own beside
-                    phases 3-29). Phases 29 and 30 print the card's name and
-                    power limit beside their numbers; neither saves (phases 14
-                    and 28 drive the save path).
+                    and 2 flash launches a step and nothing else, as many as
+                    the dry-run's plan of the same step (``launch/dryrun.py
+                    --one-card``, run under the card's torch in a process of
+                    its own beside phases 3-29) counts, and the measured peak
+                    within 10% or 256 MiB of that plan's, leaving 4 GiB of the
+                    card free. Phases 29, 30, 41 and 42 print the card's name
+                    and power limit beside their numbers; none saves (phases
+                    14 and 28 drive the save path).
  31. serve phi3   — phi3-mini-3.8B at full width and depth (32 layers, 32/32
                     heads of Dh 96), phase 5's shape; the flash kernel must
                     launch 32 times per prefill.
@@ -443,6 +445,39 @@ Phases; any failure exits non-zero before the result lines are printed.
                     starts. Prints each case's finish wall seconds, modelled
                     (GPFS) seconds, bytes read and written, metadata
                     operations and CLI charges.
+ 41. train dense  — phi3-mini-3.8B and granite-3-2B at full width and depth,
+                    internlm2-20B at full width cut to 12 of 48 layers (13
+                    leave under 4 GiB of the card in its plan), each in turn:
+                    one fp32 gradient step cut to 2 layers, B=8 x 512, kernel
+                    on against off (loss and every gradient leaf within
+                    PARITY_TOL); then, with deterministic algorithms, bf16
+                    weights initialised on the card, fp32 moments, remat,
+                    B=8 x 512: one bf16 gradient step kernels off against on
+                    (loss within BF16_TOL) and 3 steps of ``make_train_step``
+                    as phase 30 holds them: finite losses, the flash kernel
+                    64, 80 and 24 times a step (each layer's forward and
+                    remat's recompute) and nothing else, as the step's
+                    ``--one-card`` plan (one process a model, started at the
+                    device phase) counts, and the measured peak within 10% or
+                    256 MiB of the plan's, leaving 4 GiB free. Prints step ms,
+                    p50 over steps 2-3, tokens/s, train_mfu (6 x parameters x
+                    tokens + 3 x the attention FLOPs), the peaks and the
+                    card's memory left free. Phases 41-42 run with the
+                    allocator's expandable segments (``expandable_segments``).
+ 42. train mixtral — mixtral-8x22b at full width (8 experts top-2, capacity
+                    factor 1.25) cut to 2 of 56 layers, as phase 41 trains
+                    each model, with routing held as phase 21 holds it: in
+                    the fp32 2-layer step every MoE layer's forward and remat's
+                    recompute route by the kernel-off step's experts
+                    (``routing`` knows a layer by its router's weights), the
+                    free-running step's rerouted share under MAX_FP32_FLIPS;
+                    the bf16 loss check routed the same way. Flash launches 4
+                    a step. train_mfu counts the active parameters (the
+                    experts' at top_k / n_experts); beside it the share of
+                    the expert GEMMs' slots that the capacity queue fills,
+                    and the aux loss beside each step's loss. Its steps run
+                    the MoE path (the queue's fp32 cumsum, one-hots, einsums)
+                    under deterministic algorithms.
 Phases 3, 4 and 9 also run one backward through each kernel op
 (``ops.flash_attention``, ``ops.rwkv6``, ``ops.mamba_scan``) at a small fp32
 shape and hold its gradients against the plain version's autograd.
@@ -467,7 +502,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 # Phase 14's deterministic resume needs cuBLAS's fixed workspace; cuBLAS reads
@@ -649,7 +684,7 @@ print(json.dumps(dict(start=start)))
 EOF
 """
 TRAIN_LR = 1e-3  # the fixed-batch check: constant rate, AdamW's other defaults
-TRAIN_PARITY_LAYERS = 2  # the kernel on/off train step: 2 of qwen3's 28 layers, full width
+TRAIN_PARITY_LAYERS = 2  # the fp32 kernel on/off train step of phases 14, 29, 41 and 42: 2 layers, full width
 PREEMPT = (6, 3)  # the unbroken run's steps, and the step the other is cut at
 # phase 14's resume check and phase 26's FSDP step and its checkpoint: 2 of qwen3's 28 layers
 # at full width (phase 14's timed run trains and saves the full depth)
@@ -673,11 +708,24 @@ JAMBA_MOE_LAYERS = 8  # phases 24-25: one repeat of jamba's 8-layer pattern
 JAMBA_MOE_EXPERTS = 8  # phase 24: 8 of 16 experts, 52.1 GB of bf16 weights; 16 are 90.7 GB
 JAMBA_MOE_PARITY_EXPERTS = 4  # phase 25: 65.4 GB of fp32 weights
 RECURRENT_TRAIN_STEPS = 3  # phases 29-30: step 1 warms up, p50 over steps 2-3
-RWKV_TRAIN = dict(batch=8, seq_len=512)  # phase 29: rwkv6-1.6B at full width and depth
+RWKV_TRAIN = dict(batch=8, seq_len=512)  # phase 29: rwkv6-1.6B at full width
+# phase 29's depth: 8 of 24 layers since phases 41-42 came (each layer costs ~1.5 s over its 3 steps, almost all
+# of it the WKV backward's loop), so that the run's total stays within its budget; PR 25 trained all 24
+RWKV_TRAIN_CUTS = {"n_layers": 8}
 # phase 30: one 8-layer repeat of jamba without experts (9.116 B parameters, bf16 moments): the
 # largest batch whose planned peak leaves 4 GiB of the card free (launch/dryrun.py --one-card)
 JAMBA_TRAIN_CUTS = {"moe": None, "n_layers": 8}
 JAMBA_TRAIN = dict(batch=4, seq_len=512)
+# phases 41-42: the token-only models served in phases 19 and 31-33, trained at full width (bf16 weights, fp32
+# moments, remat) at B=8 x 512, each cut to the deepest whose one-card plan leaves FREE_GIB of the card free
+# (launch/dryrun.py --one-card, meta tensors, torch 2.13 on the CPU; each run is held to the card's own plan)
+TRAIN_CELLS = {
+    "phi3_mini_3_8b": {},  # 32 of 32 layers: planned peak 48.717 GiB, 30.462 GiB free
+    "granite_3_2b": {},  # 40 of 40 layers: 33.320 GiB, 45.858 GiB free
+    "internlm2_20b": {"n_layers": 12},  # 12 of 48: 74.041 GiB, 5.138 GiB free (13 layers: 79.150, 0.028 free)
+    MIXTRAL: {"n_layers": 2},  # 2 of 56: 72.470 GiB, 6.709 GiB free, set by the optimizer's state (B=4 the same)
+}
+CELL_TRAIN = dict(batch=8, seq_len=512)
 JAMBA_GRAD_SHAPE = (1, 512, 16384, 16)  # phase 30: the Mamba op's chunked backward at jamba's width
 DENSE = ["phi3_mini_3_8b", "granite_3_2b", "internlm2_20b"]  # phases 31-33, full width and depth
 # phase 39: examples/train_campaign_torch.py's modelled metadata operations and seconds on the CPU
@@ -892,29 +940,58 @@ def mrope_positions(torch, batch: int, seq: int, n_vision: int, grid: int, dev):
 
 @contextmanager
 def routing(torch, moe, pinned: list | None = None):
-    """Within the block, each call of ``moe.router_topk`` appends the expert
-    indices [B, S, k] it routes by to the list this yields, in layer order.
-    With ``pinned`` (such a list from another run) the n-th call routes by
-    the n-th pinned indices in place of its own, its gates renormalised from
-    its own probabilities at those experts: the discrete choice is held
-    fixed, and the layer stays continuous in its inputs."""
-    record, original = [], moe.router_topk
+    """Within the block, which holds one forward (with its backward, if
+    any), each MoE layer appends the expert indices [B, S, k] it routes by
+    in its forward to the list this yields, in layer order. A layer is known
+    by its router weight's storage, so a call on a router already seen is
+    that layer's recompute (remat): it takes the layer's pin again and adds
+    no route. With ``pinned`` (such routes from
+    another run) layer n routes by ``pinned[n]`` in place of its own: its
+    gates are its own probabilities at those experts, renormalised, and its
+    aux loss counts the pinned top-1 assignment. That is ``router_topk``'s
+    arithmetic with the experts given, so a layer pinned to its own routes
+    computes what it computes unpinned, bit for bit, gradients included:
+    the discrete choice is held fixed, and the layer stays continuous in its
+    inputs and its router's weights."""
+    routes, original, layer_of = [], moe.router_topk, {}
 
     def router_topk(x, w_router, cfg):
-        gates, idx, aux = original(x, w_router, cfg)
-        if pinned is not None:
-            idx = pinned[len(record)]
+        n = layer_of.setdefault(w_router.data_ptr(), len(layer_of))
+        if pinned is None:
+            gates, idx, aux = original(x, w_router, cfg)
+        else:
             probs = torch.softmax(torch.einsum("bsd,de->bse", x.float(), w_router.float()), dim=-1)
+            idx = pinned[n]
             gates = probs.gather(-1, idx)
             gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
-        record.append(idx)
+            e = w_router.shape[-1]
+            assign = torch.nn.functional.one_hot(idx[..., 0], e).float()
+            aux = e * torch.sum(assign.mean(dim=(0, 1)) * probs.mean(dim=(0, 1)))
+        if n == len(routes):
+            routes.append(idx)
         return gates, idx, aux
 
     moe.router_topk = router_topk
     try:
-        yield record
+        yield routes
     finally:
         moe.router_topk = original
+
+
+def slot_fill(torch, routes: list, moe_cfg) -> tuple[float, list[int]]:
+    """(share of the expert GEMMs' [E, B, C] slots that the capacity queue
+    fills, over all the layers' routes; the (token, slot) choices each
+    layer's queue drops). A batch row's expert keeps min(its choices, C)."""
+    filled = slots = 0
+    dropped = []
+    for idx in routes:
+        b, s, k = idx.shape
+        e = moe_cfg.n_experts
+        c = max(1, int(moe_cfg.capacity_factor * s * k / e))
+        kept = torch.nn.functional.one_hot(idx.reshape(b, s * k), e).sum(dim=1).clamp(max=c).sum().item()
+        filled, slots = filled + kept, slots + e * b * c
+        dropped.append(b * s * k - kept)
+    return filled / slots, dropped
 
 
 def flip_share(routes: list, other: list) -> float:
@@ -1022,6 +1099,23 @@ def grad_check(torch, name: str, op, plain, args: list, n_diff: int) -> float:
 
 
 @contextmanager
+def expandable_segments(torch):
+    """Within the block the caching allocator's new segments grow in place
+    (PyTorch's ``expandable_segments``). Phases 41-42 train within 5-7 GiB
+    of the card's memory, and in fixed segments internlm2's first step found
+    the free blocks too split to hold its 4.5 GiB fp32 copy of one gradient
+    leaf. Set for those phases alone: the phases that free and take back
+    tens of GiB ran slower with it."""
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+
+
+@contextmanager
 def deterministic(torch):
     """PyTorch's deterministic algorithms on, then off again."""
     torch.use_deterministic_algorithms(True)
@@ -1031,30 +1125,52 @@ def deterministic(torch):
         torch.use_deterministic_algorithms(False)
 
 
-def train_parity(torch, make_grad_fn, name: str, cfg32, params: dict, batch: dict, launches: dict) -> None:
+def train_parity(torch, make_grad_fn, name: str, cfg32, params: dict, batch: dict, launches: dict,
+                 moe=None) -> None:
     """One fp32 gradient step of ``cfg32`` on ``params``, kernels off against
     on: the loss and each gradient leaf (max |on - off| / max |off|) within
     PARITY_TOL; the kernel-on step must launch each wrapper of ``launches``
-    as often as it says, the kernel-off step none."""
-    grads_by = {}
-    for use_pallas in ("off", "on"):
+    as often as it says, the kernel-off step none. With ``moe`` (the MoE
+    module) routing is discrete, as in ``moe_parity``: a free-running
+    kernel-on step may route at most MAX_FP32_FLIPS of the (token, slot)
+    choices otherwise than kernel-off, and the kernel-on step held to the
+    tolerance routes every MoE layer, forward and recompute, by the
+    kernel-off step's experts."""
+    def step(use_pallas, pinned=None):
         for counter in launches:
             counter.launches = 0
-        grads_by[use_pallas] = make_grad_fn(cfg32.replace(use_pallas=use_pallas))(params, batch)
+        with routing(torch, moe, pinned) if moe else nullcontext([]) as routes:
+            out = make_grad_fn(cfg32.replace(use_pallas=use_pallas))(params, batch)
         torch.cuda.synchronize()
         got = {c.__name__: c.launches for c in launches}
         want = {c.__name__: n if use_pallas == "on" else 0 for c, n in launches.items()}
         if got != want:
             fail(f"the fp32 {name} train step with use_pallas={use_pallas} launched {got}, expected {want}")
-    (loss_off, _, g_off), (loss_on, _, g_on) = grads_by["off"], grads_by["on"]
+        return out, routes
+
+    (loss_off, aux_off, g_off), r_off = step("off")
+    routed = ""
+    if moe:
+        (_, _, g_free), r_free = step("on")
+        del g_free
+        flips = flip_share(r_free, r_off)
+        (loss_on, aux_on, g_on), _ = step("on", pinned=r_off)
+        routed = (f"free-running kernel on vs off routes {flips:.4%} of {sum(r.numel() for r in r_off)} (token, "
+                  f"slot) choices otherwise (bar {MAX_FP32_FLIPS:.0%}); routed as kernel-off: aux loss on vs off "
+                  f"relative {abs(aux_on.item() - aux_off.item()) / abs(aux_off.item()):.3g}, ")
+    else:
+        (loss_on, _, g_on), _ = step("on")
     loss_err = abs(loss_on.item() - loss_off.item()) / abs(loss_off.item())
     grad_err = {p: ((g_on_p.float() - g).abs().max() / g.abs().max()).item()
                 for (p, g), (_, g_on_p) in zip(leaves(g_off), leaves(g_on))}
     worst = max(grad_err, key=grad_err.get)
     b, s = batch["tokens"].shape
-    print(f"train parity {name} fp32, {cfg32.n_layers} layers, B={b} x {s}: loss kernel on vs off relative "
+    print(f"train parity {name} fp32, {cfg32.n_layers} layers, B={b} x {s}: {routed}loss kernel on vs off relative "
           f"{loss_err:.3g}; gradients max |on - off| / max |off| per leaf {grad_err[worst]:.3g} ({worst}) over "
-          f"{len(grad_err)} leaves (tol {PARITY_TOL})")
+          f"{len(grad_err)} leaves (tol {PARITY_TOL}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if moe and not flips <= MAX_FP32_FLIPS:
+        fail(f"the fp32 kernel-on {name} train step routes {flips:.2%} of its choices otherwise than kernel-off")
     if not loss_err <= PARITY_TOL or not grad_err[worst] <= PARITY_TOL:
         fail(f"the kernel-on {name} train step disagrees with kernel-off")
 
@@ -1062,10 +1178,10 @@ def train_parity(torch, make_grad_fn, name: str, cfg32, params: dict, batch: dic
 def timed_steps(torch, step_fn, params, opt_state, batch, dev, kernels: dict, n: int):
     """``n`` steps of ``step_fn`` on one batch, each on the host clock ending
     in a synchronise, every kernel's count set to 0 just before. Returns
-    (params, opt_state, losses, step ms, launches by wrapper)."""
+    (params, opt_state, losses, aux losses, step ms, launches by wrapper)."""
     for counter in kernels.values():
         counter.launches = 0
-    losses, step_ms = [], []
+    losses, auxes, step_ms = [], [], []
     for _ in range(n):
         torch.cuda.synchronize(dev)
         t = time.perf_counter()
@@ -1073,7 +1189,8 @@ def timed_steps(torch, step_fn, params, opt_state, batch, dev, kernels: dict, n:
         torch.cuda.synchronize(dev)
         step_ms.append((time.perf_counter() - t) * 1e3)
         losses.append(float(metrics["loss"]))
-    return params, opt_state, losses, step_ms, {c.__name__: c.launches for c in kernels.values()}
+        auxes.append(float(metrics["aux_loss"]))
+    return params, opt_state, losses, auxes, step_ms, {c.__name__: c.launches for c in kernels.values()}
 
 
 def leaves(tree: dict, prefix: str = ""):
@@ -2836,7 +2953,8 @@ def train_rwkv6_phase(torch, configs, T, kernels: dict, dev, seed: int, smi: str
     gc.collect()
     torch.cuda.empty_cache()
 
-    cfg = configs.get("rwkv6_1_6b")
+    full = configs.get("rwkv6_1_6b")
+    cfg = full.replace(**RWKV_TRAIN_CUTS)
     b, s = RWKV_TRAIN["batch"], RWKV_TRAIN["seq_len"]
     n_params = sum(math.prod(dd.shape) for _, dd in tree_paths(T.param_defs(cfg)))
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2844,17 +2962,18 @@ def train_rwkv6_phase(torch, configs, T, kernels: dict, dev, seed: int, smi: str
     opt = AdamW(lr=TRAIN_LR, moment_dtype=cfg.opt_moment_dtype)
     ds = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b, seed=seed)
     batch = {"tokens": torch.from_numpy(ds.global_batch_at(0)).to(dev)}
-    params, _, losses, step_ms, launches = timed_steps(
+    params, _, losses, _, step_ms, launches = timed_steps(
         torch, make_train_step(cfg, opt), params, opt.init(params), batch, dev, kernels, RECURRENT_TRAIN_STEPS)
     peak = torch.cuda.max_memory_allocated(dev)
     p50 = statistics.median(step_ms[1:])
     flops = 6 * n_params * b * s + 3 * cfg.n_layers * costs.rwkv6_flops(b, s, cfg.n_heads, cfg.head_dim)
-    print(f"train rwkv6_1_6b full width and depth ({cfg.n_layers} layers, {n_params} parameters), bf16 weights, "
-          f"{cfg.opt_moment_dtype} moments, remat, B={b} x {s}, {RECURRENT_TRAIN_STEPS} steps on one batch from seed "
-          f"{seed} (make_train_step, lr {TRAIN_LR}): step ms {[round(x, 3) for x in step_ms]}, p50 {p50:.3f} ms over "
-          f"steps 2-{RECURRENT_TRAIN_STEPS}; {b * s / (p50 / 1e3):.1f} tokens/s; train_mfu {train_mfu(flops, p50):.4f} "
-          f"({flops / 1e12:.3f} TFLOP a step: 6 x parameters x tokens + 3 x {cfg.n_layers} x the WKV products); peak "
-          f"memory {peak / 2**30:.3f} GiB; losses {[round(x, 5) for x in losses]}; launches {launches} ({smi})")
+    print(f"train rwkv6_1_6b full width, {cfg.n_layers} of {full.n_layers} layers ({n_params} parameters), bf16 "
+          f"weights, {cfg.opt_moment_dtype} moments, remat, B={b} x {s}, {RECURRENT_TRAIN_STEPS} steps on one batch "
+          f"from seed {seed} (make_train_step, lr {TRAIN_LR}): step ms {[round(x, 3) for x in step_ms]}, p50 "
+          f"{p50:.3f} ms over steps 2-{RECURRENT_TRAIN_STEPS}; {b * s / (p50 / 1e3):.1f} tokens/s; train_mfu "
+          f"{train_mfu(flops, p50):.4f} ({flops / 1e12:.3f} TFLOP a step: 6 x parameters x tokens + 3 x "
+          f"{cfg.n_layers} x the WKV products); peak memory {peak / 2**30:.3f} GiB; losses "
+          f"{[round(x, 5) for x in losses]}; launches {launches} ({smi})")
     if launches != {c.__name__: 2 * cfg.n_layers * RECURRENT_TRAIN_STEPS if c is kernels["rwkv6"] else 0
                     for c in kernels.values()}:
         fail(f"rwkv6 training launched {launches}, expected rwkv6_fwd {2 * cfg.n_layers} times a step "
@@ -2894,79 +3013,171 @@ def train_jamba_phase(torch, configs, T, kernels: dict, dev, seed: int, smi: str
     torch.cuda.empty_cache()
 
     with deterministic(torch):  # as launch/train.py's command line runs the step
-        return jamba_steps(torch, configs, T, kernels, dev, seed, smi, plan)
+        return planned_train_steps(torch, configs, T, kernels, dev, seed, smi, plan, JAMBA, JAMBA_TRAIN_CUTS,
+                                   JAMBA_TRAIN)
 
 
-def jamba_steps(torch, configs, T, kernels: dict, dev, seed: int, smi: str, plan):
-    """Phase 30's model work: the kernel on/off gradient step, then the
-    timed steps and their peak against the plan."""
+def start_plan(arch: str, cuts: dict, shape: dict) -> subprocess.Popen:
+    """A ``launch/dryrun.py --one-card`` process planning ``arch``'s train
+    step with ``cuts`` at ``shape`` (batch, seq_len) on meta tensors, on the
+    host alone (no card, one thread); killed at exit if it still runs."""
+    plan = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", "train_4k", "--one-card",
+         "--batch", str(shape["batch"]), "--seq-len", str(shape["seq_len"])]
+        + [a for k, v in cuts.items() for a in ("--override", f"{k}={v}")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""})
+    atexit.register(plan.kill)  # also on a failed phase's exit
+    return plan
+
+
+def read_plan(plan, arch: str) -> dict:
+    """The cell that a ``launch/dryrun.py --one-card`` process printed, once
+    it has ended (it fails the run if the plan failed)."""
+    out, _ = plan.communicate(timeout=1200)
+    cells = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    if plan.returncode != 0 or len(cells) != 1 or cells[0]["status"] != "ok":
+        fail(f"the dry-run of {arch}'s train step failed: {out[-2000:]}")
+    return cells[0]
+
+
+def planned_train_steps(torch, configs, T, kernels: dict, dev, seed: int, smi: str, plan, arch: str, cuts: dict,
+                        shape: dict, moe=None):
+    """The model work of phases 30, 41 and 42: ``arch`` at full width with
+    ``cuts``, bf16 weights initialised on the card, one bf16 gradient step
+    kernels off against on (loss within BF16_TOL; with ``moe``, the MoE
+    module, the kernel-on step routed by the kernel-off step's experts),
+    then RECURRENT_TRAIN_STEPS steps of ``make_train_step`` on one batch of
+    ``shape`` (batch, seq_len): finite losses, each kernel launched twice a
+    layer of its mixer a step (the forward, then remat's recompute) and
+    nothing else, and the measured peak within DRYRUN_PEAK_TOL or
+    DRYRUN_PEAK_SLACK of the dry-run's plan of the same step (``plan``,
+    ``launch/dryrun.py --one-card`` run under this torch), leaving FREE_GIB
+    of the card free. ``train_mfu`` counts the active parameters (of the
+    experts, top_k / n_experts). Returns (launches by wrapper over the timed
+    steps, steps)."""
     from repro_torch.data.tokens import SyntheticTokens
     from repro_torch.kernels import costs
+    from repro_torch.launch.dryrun import FREE_GIB
     from repro_torch.models.params import init_params, tree_paths
     from repro_torch.optim.adamw import AdamW
     from repro_torch.train.steps import make_grad_fn, make_train_step
 
-    cfg = configs.get(JAMBA).replace(**JAMBA_TRAIN_CUTS)
+    full = configs.get(arch)
+    cfg = full.replace(**cuts)
     mixers = [kind.mixer for kind in cfg.pattern] * cfg.n_repeats
-    per_step = {kernels["mamba"]: 2 * mixers.count("mamba"), kernels["attn"]: 2 * mixers.count("attn"),
-                kernels["rwkv6"]: 0}
-    n_params = sum(math.prod(dd.shape) for _, dd in tree_paths(T.param_defs(cfg)))
-    b, s = JAMBA_TRAIN["batch"], JAMBA_TRAIN["seq_len"]
+    per_step = {c: 2 * mixers.count(mixer) for mixer, c in kernels.items()}
+    n_params = n_expert = 0
+    for path, dd in tree_paths(T.param_defs(cfg)):
+        n_params += math.prod(dd.shape)
+        n_expert += math.prod(dd.shape) if path.rsplit("/", 1)[-1].startswith("e_w") else 0
+    n_active = n_params - n_expert + (n_expert * cfg.moe.top_k // cfg.moe.n_experts if cfg.moe else 0)
+    b, s = shape["batch"], shape["seq_len"]
     base = torch.cuda.memory_allocated(dev)
     params = init_params(T.param_defs(cfg), seed=seed, device=dev)
     ds = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b, seed=seed)
     batch = {"tokens": torch.from_numpy(ds.global_batch_at(0)).to(dev)}
-    loss_by = {}
+    loss_by, routes_by = {}, {}
     for use_pallas in ("off", "on"):  # one bf16 gradient step, kernels off against on
         for counter in kernels.values():
             counter.launches = 0
-        loss, _, grads = make_grad_fn(cfg.replace(use_pallas=use_pallas))(params, batch)
-        loss_by[use_pallas] = loss.item()
+        pin = routes_by.get("off")
+        with routing(torch, moe, pin) if moe else nullcontext([]) as routes_by[use_pallas]:
+            loss, aux, grads = make_grad_fn(cfg.replace(use_pallas=use_pallas))(params, batch)
+        loss_by[use_pallas] = (loss.item(), aux.item())
         del grads
         got = {c.__name__: c.launches for c in kernels.values()}
         if got != {c.__name__: n if use_pallas == "on" else 0 for c, n in per_step.items()}:
-            fail(f"the bf16 jamba gradient step with use_pallas={use_pallas} launched {got}")
-    loss_err = abs(loss_by["on"] - loss_by["off"]) / abs(loss_by["off"])
-    print(f"train parity jamba bf16, {cfg.n_layers} layers, B={b} x {s}: loss kernel on {loss_by['on']:.6f} off "
-          f"{loss_by['off']:.6f}, relative {loss_err:.3g} (tol {BF16_TOL})")
+            fail(f"the bf16 {arch} gradient step with use_pallas={use_pallas} launched {got}")
+    loss_err = abs(loss_by["on"][0] - loss_by["off"][0]) / abs(loss_by["off"][0])
+    depth = f"{cfg.n_layers} of {full.n_layers} layers"
+    routed, fill = "", ""
+    if moe:
+        share, dropped = slot_fill(torch, routes_by["off"], cfg.moe)
+        routed = f" (routed as kernel-off), aux loss on {loss_by['on'][1]:.6f} off {loss_by['off'][1]:.6f}"
+        fill = (f"; the capacity queue fills {share:.4f} of the expert GEMMs' slots (capacity factor "
+                f"{cfg.moe.capacity_factor}, the kernel-off bf16 step's routes) and drops {dropped} (token, slot) "
+                f"choices of {b * s * cfg.moe.top_k} a layer")
+    print(f"train parity {arch} bf16, {depth}, B={b} x {s}: loss kernel on {loss_by['on'][0]:.6f} off "
+          f"{loss_by['off'][0]:.6f}, relative {loss_err:.3g} (tol {BF16_TOL}){routed}")
     if not loss_err <= BF16_TOL:
-        fail("the kernel-on jamba gradient step's loss disagrees with kernel-off")
+        fail(f"the kernel-on {arch} gradient step's loss disagrees with kernel-off")
+    del routes_by
 
-    out, _ = plan.communicate(timeout=1200)
-    cells = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
-    if plan.returncode != 0 or len(cells) != 1:
-        fail(f"the dry-run of jamba's train step failed: {out[-2000:]}")
-    planned = cells[0]["memory"]["peak_bytes"]
+    planned = read_plan(plan, arch)
     opt = AdamW(lr=TRAIN_LR, moment_dtype=cfg.opt_moment_dtype)
     opt_state = opt.init(params)
     gc.collect()
     torch.cuda.reset_peak_memory_stats(dev)
-    params, opt_state, losses, step_ms, launches = timed_steps(
+    params, opt_state, losses, auxes, step_ms, launches = timed_steps(
         torch, make_train_step(cfg, opt), params, opt_state, batch, dev, kernels, RECURRENT_TRAIN_STEPS)
-    measured = torch.cuda.max_memory_allocated(dev) - base
+    peak = torch.cuda.max_memory_allocated(dev)
+    measured, plan_peak = peak - base, planned["memory"]["peak_bytes"]
     total = torch.cuda.get_device_properties(dev).total_memory
     p50 = statistics.median(step_ms[1:])
     attn = (b, s, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True, cfg.sliding_window)
-    flops = 6 * n_params * b * s + 3 * (mixers.count("attn") * attention_flops(attn) + mixers.count("mamba")
-                                        * costs.mamba_flops(b, s, cfg.mamba_d_inner, cfg.mamba.d_state))
+    flops = 6 * n_active * b * s + 3 * mixers.count("attn") * attention_flops(attn)
+    if "mamba" in mixers:
+        flops += 3 * mixers.count("mamba") * costs.mamba_flops(b, s, cfg.mamba_d_inner, cfg.mamba.d_state)
     slack = max(DRYRUN_PEAK_TOL * measured, DRYRUN_PEAK_SLACK)
-    print(f"train {JAMBA} without experts, {cfg.n_layers} of {configs.get(JAMBA).n_layers} layers ({n_params} "
-          f"parameters), bf16 weights, {cfg.opt_moment_dtype} moments, remat, B={b} x {s}, {RECURRENT_TRAIN_STEPS} "
-          f"steps on one batch (make_train_step, lr {TRAIN_LR}): step ms {[round(x, 3) for x in step_ms]}, p50 "
-          f"{p50:.3f} ms over steps 2-{RECURRENT_TRAIN_STEPS}; {b * s / (p50 / 1e3):.1f} tokens/s; train_mfu "
-          f"{train_mfu(flops, p50):.4f} ({flops / 1e12:.3f} TFLOP a step); peak memory measured {measured} B "
-          f"({measured / 2**30:.3f} GiB, {(total - measured) / 2**30:.3f} GiB of the card free), planned {planned} B "
-          f"({planned / 2**30:.3f} GiB; launch/dryrun.py --one-card under this torch, {cells[0]['plan_s']} s), diff "
-          f"{(planned - measured) / 2**20:.1f} MiB (bar {slack / 2**20:.0f} MiB); losses "
-          f"{[round(x, 5) for x in losses]}; launches {launches} ({smi})")
+    counted = f"{n_active} active of {n_params}" if moe else f"{n_params}"
+    aux = f"; aux losses {[round(x, 6) for x in auxes]}" if moe else ""
+    print(f"train {arch}{' without experts' if full.moe and not cfg.moe else ''}, {depth} ({n_params} parameters), "
+          f"bf16 weights, "
+          f"{cfg.opt_moment_dtype} moments, remat, B={b} x {s}, {RECURRENT_TRAIN_STEPS} steps on one batch "
+          f"(make_train_step, lr {TRAIN_LR}, deterministic algorithms): step ms {[round(x, 3) for x in step_ms]}, "
+          f"p50 {p50:.3f} ms over steps 2-{RECURRENT_TRAIN_STEPS}; {b * s / (p50 / 1e3):.1f} tokens/s; train_mfu "
+          f"{train_mfu(flops, p50):.4f} ({flops / 1e12:.3f} TFLOP a step: 6 x {counted} parameters x {b * s} "
+          f"tokens + 3 x each mixer's FLOPs){fill}; peak memory measured {measured} B ({measured / 2**30:.3f} GiB "
+          f"above the {base} B held before the init; {(total - peak) / 2**30:.3f} GiB of the card free), planned "
+          f"{plan_peak} B ({plan_peak / 2**30:.3f} GiB; launch/dryrun.py --one-card under this torch, "
+          f"{planned['plan_s']} s), diff {(plan_peak - measured) / 2**20:.1f} MiB (bar {slack / 2**20:.0f} MiB); "
+          f"losses {[round(x, 5) for x in losses]}{aux}; launches {launches} ({smi})")
     if launches != {c.__name__: n * RECURRENT_TRAIN_STEPS for c, n in per_step.items()}:
-        fail(f"jamba training launched {launches}, expected {per_step} a step")
-    if not all(math.isfinite(x) for x in losses):
-        fail(f"jamba training losses {losses}")
-    if abs(planned - measured) > slack:
-        fail(f"the dry-run's peak for jamba's train step is {planned} bytes, the card's {measured}")
+        fail(f"{arch} training launched {launches}, expected {({c.__name__: n for c, n in per_step.items()})} a step")
+    if planned["kernel_calls"] != {c.__name__: n for c, n in per_step.items() if n}:
+        fail(f"the dry-run plans {planned['kernel_calls']} kernel calls a {arch} step, the card ran {per_step}")
+    if not all(math.isfinite(x) for x in losses + auxes):
+        fail(f"{arch} training losses {losses}, aux losses {auxes}")
+    if abs(plan_peak - measured) > slack:
+        fail(f"the dry-run's peak for {arch}'s train step is {plan_peak} bytes, the card's {measured}")
+    if total - peak < FREE_GIB * 2**30:
+        fail(f"{arch}'s train step leaves {(total - peak) / 2**30:.3f} GiB of the card free, under {FREE_GIB} GiB")
     del params, opt_state
     return launches, RECURRENT_TRAIN_STEPS
+
+
+def train_cells_phase(torch, configs, T, kernels: dict, dev, seed: int, smi: str, plans: dict, archs: list,
+                      moe=None) -> dict:
+    """Phases 41 and 42 (see the module docstring): for each of ``archs``,
+    the fp32 gradient step cut to TRAIN_PARITY_LAYERS kernels on against off
+    (with ``moe``, routed as ``train_parity`` routes), then
+    ``planned_train_steps`` at its cut in TRAIN_CELLS against its plan in
+    ``plans``. Returns {arch: (launches by wrapper over the timed steps,
+    steps)}."""
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.models.params import init_params
+    from repro_torch.train.steps import make_grad_fn
+
+    out = {}
+    for arch in archs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        cfg2 = configs.get(arch).replace(n_layers=TRAIN_PARITY_LAYERS, use_pallas="off")
+        b, s = CELL_TRAIN["batch"], CELL_TRAIN["seq_len"]
+        ds = SyntheticTokens(vocab_size=cfg2.vocab_size, seq_len=s, global_batch=b, seed=seed)
+        batch = {"tokens": torch.from_numpy(ds.global_batch_at(0)).to(dev)}
+        params = init_params(T.param_defs(cfg2), seed=seed, dtype=torch.float32, device=dev)
+        train_parity(torch, make_grad_fn, arch, cfg2, params, batch,
+                     {c: 2 * TRAIN_PARITY_LAYERS if mixer == "attn" else 0 for mixer, c in kernels.items()}, moe)
+        del params, batch
+        gc.collect()  # the gradient check's trees go before the init
+        torch.cuda.empty_cache()
+        with deterministic(torch):  # as launch/train.py's command line runs the step
+            out[arch] = planned_train_steps(torch, configs, T, kernels, dev, seed, smi, plans[arch], arch,
+                                            TRAIN_CELLS[arch], CELL_TRAIN, moe=moe)
+    return out
 
 
 def unflat(flat: dict, prefix: str) -> dict:
@@ -3008,14 +3219,10 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    # phase 30's plan of jamba's train step: meta tensors on the host, one thread, beside phases 3-29
-    jamba_plan = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", JAMBA, "--shape", "train_4k", "--one-card",
-         "--batch", str(JAMBA_TRAIN["batch"]), "--seq-len", str(JAMBA_TRAIN["seq_len"])]
-        + [a for k, v in JAMBA_TRAIN_CUTS.items() for a in ("--override", f"{k}={v}")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=ROOT,
-        env={**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""})
-    atexit.register(jamba_plan.kill)  # also on a failed phase's exit
+    # the plans of phases 30, 41 and 42's train steps: meta tensors on the host, one process and one thread
+    # each, beside the phases before them
+    jamba_plan = start_plan(JAMBA, JAMBA_TRAIN_CUTS, JAMBA_TRAIN)
+    train_plans = {arch: start_plan(arch, cuts, CELL_TRAIN) for arch, cuts in TRAIN_CELLS.items()}
     torch.cuda.set_device(dev)
 
     from repro_torch import configs
@@ -3804,7 +4011,20 @@ def main() -> None:
         bf16_check(torch, make_prefill_step, f"{arch} {cfg32.n_layers} layers", cfg32, cache_len, params, batch,
                    l_off, {flash_attention_fwd: cfg32.n_layers})
         del params, batch, l_off
-    print(f"parity dense phase {time.perf_counter() - t0:.1f} s; all phases {time.perf_counter() - t_all:.1f} s")
+    print(f"parity dense phase {time.perf_counter() - t0:.1f} s")
+
+    # ----------------------------------- 41. train phi3, granite, internlm2
+    t0 = phase("train dense")
+    with expandable_segments(torch):
+        trained = train_cells_phase(torch, configs, T, all_kernels, dev, args.seed, smi, train_plans, DENSE)
+    print(f"train dense phase {time.perf_counter() - t0:.1f} s")
+
+    # --------------------------------------------------- 42. train mixtral
+    t0 = phase("train mixtral")
+    with expandable_segments(torch):
+        trained.update(train_cells_phase(torch, configs, T, all_kernels, dev, args.seed, smi, train_plans,
+                                         [MIXTRAL], moe=moe))
+    print(f"train mixtral phase {time.perf_counter() - t0:.1f} s; all phases {time.perf_counter() - t_all:.1f} s")
 
     runs = {"qwen3_0_6b": (qwen_launches, qwen_res.prefills, "prefill"),
             "rwkv6_1_6b": (rwkv_launches, rwkv_res.prefills, "prefill"),
@@ -3831,9 +4051,13 @@ def main() -> None:
             "qwen3_0_6b serve_batched_torch, beside two serving jobs": (batched_launches, batched_prefills,
                                                                         "prefill"),
             "qwen3_0_6b Slurm serving jobs of phase 39": (cache_jobs_launches, cache_jobs_prefills, "prefill"),
-            "rwkv6_1_6b train": (rwkv_train_launches, rwkv_train_steps, "step"),
+            f"rwkv6_1_6b train, {RWKV_TRAIN_CUTS['n_layers']} of 24 layers": (rwkv_train_launches, rwkv_train_steps,
+                                                                            "step"),
             f"{JAMBA} train, 8 layers, no experts": (jamba_train_launches, jamba_train_steps, "step"),
-            **dense}
+            **dense,
+            **{f"{arch} train, {configs.get(arch).replace(**TRAIN_CELLS[arch]).n_layers} of "
+               f"{configs.get(arch).n_layers} layers": (launches, n, "step")
+               for arch, (launches, n) in trained.items()}}
 
     def launch_counts(name: str) -> dict:
         """The kernel's launches over the main-path runs, by path, and per

@@ -12,7 +12,9 @@ into the repository with machine-actionable records and resumes when the
 same command is given again, and prints each step's loss and time, each
 save's time and, on CUDA, the peak memory. On CUDA the command line turns on PyTorch's
 deterministic algorithms, so that a resumed run reaches the bits of an
-unbroken one; ``run`` leaves that choice to its caller. ``--n-layers``,
+unbroken one, and the caching allocator's expandable segments, so that a
+step planned close to the card's memory does not fail on split free
+blocks; ``run`` leaves both choices to its caller. ``--n-layers``,
 ``--n-experts`` and ``--no-moe`` cut the config as in ``launch.serve``.
 """
 from __future__ import annotations
@@ -75,6 +77,9 @@ def main(argv: list[str] | None = None) -> SegmentResult:
 
     if args.device != "cpu":
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")  # read when cuBLAS starts
+        # read when the caching allocator starts: segments that grow in place do not split, which a step
+        # planned within 5 GiB of the card needs (internlm2_20b at 12 layers)
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
         torch.use_deterministic_algorithms(True)
     res = run(args.arch, steps=args.steps, ckpt_every=args.ckpt_every, repo=args.repo,
               seq_len=args.seq_len, batch=args.batch, lr=args.lr, full=args.full,
