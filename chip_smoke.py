@@ -478,6 +478,41 @@ Phases; any failure exits non-zero before the result lines are printed.
                     and the aux loss beside each step's loss. Its steps run
                     the MoE path (the queue's fp32 cumsum, one-hots, einsums)
                     under deterministic algorithms.
+ 43. train qwen3 accumulated — the JAX training path's last three options:
+                    gradient accumulation, int8 error-feedback gradients and
+                    async checkpoints. (1) Of the two plans started at the
+                    device phase, qwen3-0.6B's step at B=64 x 512 in one pass
+                    must not fit the card (FREE_GIB free), and the one in 8
+                    microbatches of 8 with the compression (``--compress-
+                    grads``) must. (2) fp32 at full width, 2 layers, B=16 as
+                    2 microbatches of 8: the gradient step kernel on against
+                    off as ``train_parity`` holds it (8 flash launches; where
+                    the accumulation's bf16 cast rounds the two fp32 sums to
+                    neighbours, an element may also differ by one bf16
+                    step), and one AdamW step against one pass of 16 (loss
+                    within 2e-3, params within rtol and atol 5e-3:
+                    tests/test_microbatch.py). (3) Two rounds of
+                    ``ef_compress_tree``, the residual carried, on those
+                    accumulated gradients (bf16) and on the one-pass
+                    gradients (fp32), on the card and on their CPU copies:
+                    the dequantised gradients and both residuals equal bit
+                    for bit. (4) With deterministic algorithms, full width
+                    and depth, bf16 weights, fp32 moments, remat, B=64 x 512
+                    in 8 microbatches, ``make_train_step(...,
+                    compress_grads=True)``: 3 steps held as phase 41 holds
+                    its own (448 flash launches a step and nothing else, the
+                    peak within 10% or 256 MiB of the compressed plan), then
+                    the accumulation's adds and cast and one
+                    ``ef_compress_tree``, each timed alone on the step's
+                    gradients. (5) At 2 of 28 layers, B=16 x 512 in 2
+                    microbatches, through ``launch.train.run``: 4 steps with
+                    one sync save against 3 steps with async saves at 2
+                    (still writing when step 3 ends) and 3, then a new run
+                    to 4 with an async save: every leaf annex key of step 4
+                    equal. Prints each step's ms, marked where a save was in
+                    flight, each save's blocking time, and this process's
+                    bytes written (/proc/self/io, its children's not
+                    counted).
 Phases 3, 4 and 9 also run one backward through each kernel op
 (``ops.flash_attention``, ``ops.rwkv6``, ``ops.mamba_scan``) at a small fp32
 shape and hold its gradients against the plain version's autograd.
@@ -726,6 +761,20 @@ TRAIN_CELLS = {
     MIXTRAL: {"n_layers": 2},  # 2 of 56: 72.470 GiB, 6.709 GiB free, set by the optimizer's state (B=4 the same)
 }
 CELL_TRAIN = dict(batch=8, seq_len=512)
+# phase 43: qwen3-0.6B at full width and depth at a global batch that no single pass fits on one card, in 8
+# microbatches of 8 with int8 error-feedback gradients. Planned peaks (launch/dryrun.py --one-card, meta tensors,
+# torch 2.13 on the CPU): B=64 in one pass 109.528 GiB, 30.35 GiB past the card (its logits over 151,936 tokens);
+# in 8 microbatches 21.881 GiB, with the compression 24.102 GiB (55.077 GiB free). Each run is held to the card's
+# own plan of the compressed step.
+ACCUM_TRAIN = dict(batch=64, seq_len=512)
+ACCUM_CUTS = {"microbatches": 8}
+# phase 43's runs at 2 layers, the fp32 checks and the resume: B=16 x 512 as 2 microbatches of 8 (the resume first
+# ran at B=64 in 8, over the run's time budget; its time is its four 1.87 GB saves, hardly its steps)
+ACCUM_SMALL = dict(batch=16, microbatches=2)
+MICROBATCH_LOSS_TOL, MICROBATCH_PARAM_TOL = 2e-3, 5e-3  # tests/test_microbatch.py: loss, params rtol and atol
+# phase 43's resume at CUT_TRAIN_LAYERS through launch.train.run, each run's segments as (steps, ckpt_every,
+# async_ckpt): the preempted run saves at step 2 (in flight during step 3), at 3 and at 4
+ACCUM_RESUME = {"unbroken": [(4, 4, False)], "preempted": [(3, 2, True), (4, 4, True)]}
 JAMBA_GRAD_SHAPE = (1, 512, 16384, 16)  # phase 30: the Mamba op's chunked backward at jamba's width
 DENSE = ["phi3_mini_3_8b", "granite_3_2b", "internlm2_20b"]  # phases 31-33, full width and depth
 # phase 39: examples/train_campaign_torch.py's modelled metadata operations and seconds on the CPU
@@ -847,6 +896,12 @@ def ptxas_report(log: str, dim: str) -> list[str]:
             out.append(f"{inst}: {ln.split('Used ')[1].split(' registers')[0]} registers{spilled}")
             inst = None
     return out
+
+
+def bf16_step(torch, x):
+    """The spacing of bf16 values at each |x| (x >= 0, in fp32): 2^(e - 8)
+    for x in [2^(e-1), 2^e), bf16 keeping 8 significant bits."""
+    return torch.ldexp(torch.ones_like(x), torch.frexp(x).exponent - 8)
 
 
 def check_close(torch, name: str, got, want, tol: float) -> float:
@@ -1135,7 +1190,10 @@ def train_parity(torch, make_grad_fn, name: str, cfg32, params: dict, batch: dic
     kernel-on step may route at most MAX_FP32_FLIPS of the (token, slot)
     choices otherwise than kernel-off, and the kernel-on step held to the
     tolerance routes every MoE layer, forward and recompute, by the
-    kernel-off step's experts."""
+    kernel-off step's experts. Gradients in bf16 (the mean that microbatch
+    accumulation casts, ``cfg32.microbatches > 1``) may also differ by one
+    bf16 step of an element, where the two fp32 sums round to neighbouring
+    bf16 values. Returns the kernel-on step's gradients."""
     def step(use_pallas, pinned=None):
         for counter in launches:
             counter.launches = 0
@@ -1161,18 +1219,32 @@ def train_parity(torch, make_grad_fn, name: str, cfg32, params: dict, batch: dic
     else:
         (loss_on, _, g_on), _ = step("on")
     loss_err = abs(loss_on.item() - loss_off.item()) / abs(loss_off.item())
-    grad_err = {p: ((g_on_p.float() - g).abs().max() / g.abs().max()).item()
-                for (p, g), (_, g_on_p) in zip(leaves(g_off), leaves(g_on))}
+    grad_err, past, beyond = {}, 0, 0
+    for (p, g), (_, g_on_p) in zip(leaves(g_off), leaves(g_on)):
+        grad_err[p] = ((g_on_p.float() - g).abs().max() / g.abs().max()).item()
+        if g.dtype == torch.bfloat16:
+            on, off = g_on_p.float(), g.float()
+            diff, bar = (on - off).abs(), PARITY_TOL * off.abs().max()
+            over = diff > bar
+            past += int(over.sum())
+            beyond += int((diff[over] > bar + bf16_step(torch, torch.maximum(on.abs(), off.abs())[over])).sum())
+            del on, off, diff, over
+        elif grad_err[p] > PARITY_TOL:
+            beyond += 1
     worst = max(grad_err, key=grad_err.get)
     b, s = batch["tokens"].shape
-    print(f"train parity {name} fp32, {cfg32.n_layers} layers, B={b} x {s}: {routed}loss kernel on vs off relative "
-          f"{loss_err:.3g}; gradients max |on - off| / max |off| per leaf {grad_err[worst]:.3g} ({worst}) over "
-          f"{len(grad_err)} leaves (tol {PARITY_TOL}); peak memory "
+    mb = f" in {cfg32.microbatches} microbatches" if cfg32.microbatches > 1 else ""
+    cast = (f"; {past} elements past {PARITY_TOL} of their leaf's largest, {beyond} of them by more than one bf16 "
+            f"step (the accumulation's cast)" if next(leaves(g_off))[1].dtype == torch.bfloat16 else "")
+    print(f"train parity {name} fp32, {cfg32.n_layers} layers, B={b} x {s}{mb}: {routed}loss kernel on vs off "
+          f"relative {loss_err:.3g}; gradients max |on - off| / max |off| per leaf {grad_err[worst]:.3g} ({worst}) "
+          f"over {len(grad_err)} leaves (tol {PARITY_TOL}){cast}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     if moe and not flips <= MAX_FP32_FLIPS:
         fail(f"the fp32 kernel-on {name} train step routes {flips:.2%} of its choices otherwise than kernel-off")
-    if not loss_err <= PARITY_TOL or not grad_err[worst] <= PARITY_TOL:
+    if not loss_err <= PARITY_TOL or beyond:
         fail(f"the kernel-on {name} train step disagrees with kernel-off")
+    return g_on
 
 
 def timed_steps(torch, step_fn, params, opt_state, batch, dev, kernels: dict, n: int):
@@ -3017,14 +3089,16 @@ def train_jamba_phase(torch, configs, T, kernels: dict, dev, seed: int, smi: str
                                    JAMBA_TRAIN)
 
 
-def start_plan(arch: str, cuts: dict, shape: dict) -> subprocess.Popen:
+def start_plan(arch: str, cuts: dict, shape: dict, compress_grads: bool = False) -> subprocess.Popen:
     """A ``launch/dryrun.py --one-card`` process planning ``arch``'s train
-    step with ``cuts`` at ``shape`` (batch, seq_len) on meta tensors, on the
+    step with ``cuts`` at ``shape`` (batch, seq_len), with int8
+    error-feedback gradients if ``compress_grads``, on meta tensors, on the
     host alone (no card, one thread); killed at exit if it still runs."""
     plan = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", "train_4k", "--one-card",
          "--batch", str(shape["batch"]), "--seq-len", str(shape["seq_len"])]
-        + [a for k, v in cuts.items() for a in ("--override", f"{k}={v}")],
+        + [a for k, v in cuts.items() for a in ("--override", f"{k}={v}")]
+        + (["--compress-grads"] if compress_grads else []),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=ROOT,
         env={**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""})
     atexit.register(plan.kill)  # also on a failed phase's exit
@@ -3042,20 +3116,22 @@ def read_plan(plan, arch: str) -> dict:
 
 
 def planned_train_steps(torch, configs, T, kernels: dict, dev, seed: int, smi: str, plan, arch: str, cuts: dict,
-                        shape: dict, moe=None):
-    """The model work of phases 30, 41 and 42: ``arch`` at full width with
-    ``cuts``, bf16 weights initialised on the card, one bf16 gradient step
-    kernels off against on (loss within BF16_TOL; with ``moe``, the MoE
-    module, the kernel-on step routed by the kernel-off step's experts),
-    then RECURRENT_TRAIN_STEPS steps of ``make_train_step`` on one batch of
-    ``shape`` (batch, seq_len): finite losses, each kernel launched twice a
-    layer of its mixer a step (the forward, then remat's recompute) and
-    nothing else, and the measured peak within DRYRUN_PEAK_TOL or
-    DRYRUN_PEAK_SLACK of the dry-run's plan of the same step (``plan``,
-    ``launch/dryrun.py --one-card`` run under this torch), leaving FREE_GIB
-    of the card free. ``train_mfu`` counts the active parameters (of the
-    experts, top_k / n_experts). Returns (launches by wrapper over the timed
-    steps, steps)."""
+                        shape: dict, moe=None, *, compress_grads: bool = False, bf16_parity: bool = True, then=None):
+    """The model work of phases 30, 41, 42 and 43: ``arch`` at full width
+    with ``cuts``, bf16 weights initialised on the card, with
+    ``bf16_parity`` one bf16 gradient step kernels off against on (loss
+    within BF16_TOL; with ``moe``, the MoE module, the kernel-on step routed
+    by the kernel-off step's experts), then RECURRENT_TRAIN_STEPS steps of
+    ``make_train_step(..., compress_grads)`` on one batch of ``shape``
+    (batch, seq_len): finite losses, each kernel launched twice a layer of
+    its mixer a microbatch (the forward, then remat's recompute) and nothing
+    else, and the measured peak within DRYRUN_PEAK_TOL or DRYRUN_PEAK_SLACK
+    of the dry-run's plan of the same step (``plan``, ``launch/dryrun.py
+    --one-card`` run under this torch), leaving FREE_GIB of the card free.
+    ``train_mfu`` counts the active parameters (of the experts, top_k /
+    n_experts). ``then(cfg, params, opt_state, batch)``, if given, runs
+    after the checks, before the state is freed. Returns (launches by
+    wrapper over the timed steps, steps)."""
     from repro_torch.data.tokens import SyntheticTokens
     from repro_torch.kernels import costs
     from repro_torch.launch.dryrun import FREE_GIB
@@ -3066,7 +3142,8 @@ def planned_train_steps(torch, configs, T, kernels: dict, dev, seed: int, smi: s
     full = configs.get(arch)
     cfg = full.replace(**cuts)
     mixers = [kind.mixer for kind in cfg.pattern] * cfg.n_repeats
-    per_step = {c: 2 * mixers.count(mixer) for mixer, c in kernels.items()}
+    n_mb = max(1, cfg.microbatches)
+    per_step = {c: 2 * mixers.count(mixer) * n_mb for mixer, c in kernels.items()}
     n_params = n_expert = 0
     for path, dd in tree_paths(T.param_defs(cfg)):
         n_params += math.prod(dd.shape)
@@ -3078,7 +3155,7 @@ def planned_train_steps(torch, configs, T, kernels: dict, dev, seed: int, smi: s
     ds = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b, seed=seed)
     batch = {"tokens": torch.from_numpy(ds.global_batch_at(0)).to(dev)}
     loss_by, routes_by = {}, {}
-    for use_pallas in ("off", "on"):  # one bf16 gradient step, kernels off against on
+    for use_pallas in ("off", "on") if bf16_parity else ():  # one bf16 gradient step, kernels off against on
         for counter in kernels.values():
             counter.launches = 0
         pin = routes_by.get("off")
@@ -3089,7 +3166,6 @@ def planned_train_steps(torch, configs, T, kernels: dict, dev, seed: int, smi: s
         got = {c.__name__: c.launches for c in kernels.values()}
         if got != {c.__name__: n if use_pallas == "on" else 0 for c, n in per_step.items()}:
             fail(f"the bf16 {arch} gradient step with use_pallas={use_pallas} launched {got}")
-    loss_err = abs(loss_by["on"][0] - loss_by["off"][0]) / abs(loss_by["off"][0])
     depth = f"{cfg.n_layers} of {full.n_layers} layers"
     routed, fill = "", ""
     if moe:
@@ -3098,10 +3174,12 @@ def planned_train_steps(torch, configs, T, kernels: dict, dev, seed: int, smi: s
         fill = (f"; the capacity queue fills {share:.4f} of the expert GEMMs' slots (capacity factor "
                 f"{cfg.moe.capacity_factor}, the kernel-off bf16 step's routes) and drops {dropped} (token, slot) "
                 f"choices of {b * s * cfg.moe.top_k} a layer")
-    print(f"train parity {arch} bf16, {depth}, B={b} x {s}: loss kernel on {loss_by['on'][0]:.6f} off "
-          f"{loss_by['off'][0]:.6f}, relative {loss_err:.3g} (tol {BF16_TOL}){routed}")
-    if not loss_err <= BF16_TOL:
-        fail(f"the kernel-on {arch} gradient step's loss disagrees with kernel-off")
+    if bf16_parity:
+        loss_err = abs(loss_by["on"][0] - loss_by["off"][0]) / abs(loss_by["off"][0])
+        print(f"train parity {arch} bf16, {depth}, B={b} x {s}: loss kernel on {loss_by['on'][0]:.6f} off "
+              f"{loss_by['off'][0]:.6f}, relative {loss_err:.3g} (tol {BF16_TOL}){routed}")
+        if not loss_err <= BF16_TOL:
+            fail(f"the kernel-on {arch} gradient step's loss disagrees with kernel-off")
     del routes_by
 
     planned = read_plan(plan, arch)
@@ -3110,7 +3188,8 @@ def planned_train_steps(torch, configs, T, kernels: dict, dev, seed: int, smi: s
     gc.collect()
     torch.cuda.reset_peak_memory_stats(dev)
     params, opt_state, losses, auxes, step_ms, launches = timed_steps(
-        torch, make_train_step(cfg, opt), params, opt_state, batch, dev, kernels, RECURRENT_TRAIN_STEPS)
+        torch, make_train_step(cfg, opt, compress_grads), params, opt_state, batch, dev, kernels,
+        RECURRENT_TRAIN_STEPS)
     peak = torch.cuda.max_memory_allocated(dev)
     measured, plan_peak = peak - base, planned["memory"]["peak_bytes"]
     total = torch.cuda.get_device_properties(dev).total_memory
@@ -3122,9 +3201,11 @@ def planned_train_steps(torch, configs, T, kernels: dict, dev, seed: int, smi: s
     slack = max(DRYRUN_PEAK_TOL * measured, DRYRUN_PEAK_SLACK)
     counted = f"{n_active} active of {n_params}" if moe else f"{n_params}"
     aux = f"; aux losses {[round(x, 6) for x in auxes]}" if moe else ""
+    mb = f" in {n_mb} microbatches of {b // n_mb}" if n_mb > 1 else ""
+    ef = ", int8 error-feedback gradients" if compress_grads else ""
     print(f"train {arch}{' without experts' if full.moe and not cfg.moe else ''}, {depth} ({n_params} parameters), "
           f"bf16 weights, "
-          f"{cfg.opt_moment_dtype} moments, remat, B={b} x {s}, {RECURRENT_TRAIN_STEPS} steps on one batch "
+          f"{cfg.opt_moment_dtype} moments, remat, B={b} x {s}{mb}{ef}, {RECURRENT_TRAIN_STEPS} steps on one batch "
           f"(make_train_step, lr {TRAIN_LR}, deterministic algorithms): step ms {[round(x, 3) for x in step_ms]}, "
           f"p50 {p50:.3f} ms over steps 2-{RECURRENT_TRAIN_STEPS}; {b * s / (p50 / 1e3):.1f} tokens/s; train_mfu "
           f"{train_mfu(flops, p50):.4f} ({flops / 1e12:.3f} TFLOP a step: 6 x {counted} parameters x {b * s} "
@@ -3143,6 +3224,8 @@ def planned_train_steps(torch, configs, T, kernels: dict, dev, seed: int, smi: s
         fail(f"the dry-run's peak for {arch}'s train step is {plan_peak} bytes, the card's {measured}")
     if total - peak < FREE_GIB * 2**30:
         fail(f"{arch}'s train step leaves {(total - peak) / 2**30:.3f} GiB of the card free, under {FREE_GIB} GiB")
+    if then is not None:
+        then(cfg, params, opt_state, batch)
     del params, opt_state
     return launches, RECURRENT_TRAIN_STEPS
 
@@ -3177,6 +3260,189 @@ def train_cells_phase(torch, configs, T, kernels: dict, dev, seed: int, smi: str
         with deterministic(torch):  # as launch/train.py's command line runs the step
             out[arch] = planned_train_steps(torch, configs, T, kernels, dev, seed, smi, plans[arch], arch,
                                             TRAIN_CELLS[arch], CELL_TRAIN, moe=moe)
+    return out
+
+
+def written_bytes() -> dict:
+    """This process's ``wchar`` (bytes handed to write calls: files, pipes,
+    its output) and ``write_bytes`` (bytes sent to a block device: none for a
+    file system in memory) from /proc/self/io, its threads' included, its
+    children's not; empty where there is no such file."""
+    try:
+        with open("/proc/self/io") as f:
+            return {k: int(v) for k, v in (ln.split(": ") for ln in f) if k in ("wchar", "write_bytes")}
+    except OSError:
+        return {}
+
+
+def host_ms(torch, dev, fn) -> float:
+    """ms of ``fn()`` on the host clock, between two synchronises."""
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t) * 1e3
+
+
+def train_accum_phase(torch, configs, T, kernels: dict, dev, seed: int, smi: str, plans: dict) -> dict:
+    """Phase 43 (see the module docstring). ``plans`` holds the dry-run
+    processes started at the device phase: qwen3's step at ACCUM_TRAIN in
+    "one pass", and "accumulated" in ACCUM_CUTS' microbatches with int8
+    error-feedback gradients. Returns {run name: (launches by wrapper, steps)}
+    for the timed run and the resume."""
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.dryrun import FREE_GIB
+    from repro_torch.models.params import init_params
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.compression import ef_compress_tree
+    from repro_torch.core.repo import Repository
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.steps import accumulate_grads, make_grad_fn, make_train_step, mean_grads_bf16
+    from repro_torch.tree import leaves as tree_leaves, tree_map
+
+    arch = "qwen3_0_6b"
+    cfg = configs.get(arch)
+    b, s = ACCUM_TRAIN["batch"], ACCUM_TRAIN["seq_len"]
+    written_before = written_bytes()
+    one_pass = read_plan(plans["one pass"], arch)
+    free = one_pass["free_bytes"]
+    print(f"plan {arch} B={b} x {s} in one pass: planned peak {one_pass['memory']['peak_bytes'] / 2**30:.3f} GiB, "
+          f"{free / 2**30:.3f} GiB of the card free (launch/dryrun.py --one-card under this torch, "
+          f"{one_pass['plan_s']} s): {'fits' if free >= FREE_GIB * 2**30 else 'does not fit'}")
+    if free >= FREE_GIB * 2**30:
+        fail(f"{arch}'s train step at B={b} x {s} in one pass plans to fit one card, {free} bytes free")
+
+    # fp32 at full width, 2 layers, B=16 as 2 microbatches of 8: kernels on against off, and against one pass
+    pb, n_mb = ACCUM_SMALL["batch"], ACCUM_SMALL["microbatches"]
+    cfg2 = cfg.replace(n_layers=TRAIN_PARITY_LAYERS, microbatches=n_mb, use_pallas="off")
+    ds = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=s, global_batch=pb, seed=seed)
+    batch = {"tokens": torch.from_numpy(ds.global_batch_at(0)).to(dev)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(T.param_defs(cfg2), seed=seed, dtype=torch.float32, device=dev)
+    g_acc = train_parity(torch, make_grad_fn, f"{arch} accumulated", cfg2, params, batch,
+                         {c: 2 * TRAIN_PARITY_LAYERS * n_mb if mixer == "attn" else 0 for mixer, c in kernels.items()})
+    opt = AdamW(lr=TRAIN_LR)
+    stepped = {}
+    for n in (1, n_mb):
+        p = tree_map(lambda t: t.detach().clone(), params)
+        p, _, metrics = make_train_step(cfg2.replace(microbatches=n, use_pallas="on"), opt)(p, opt.init(p), batch)
+        stepped[n] = (metrics["loss"].item(), p)
+    loss_gap = abs(stepped[1][0] - stepped[n_mb][0])
+    # (|accumulated - one pass| - (atol + rtol |one pass|)) / max |one pass| of the worst leaf: at most 0 to pass
+    past = max(((a - w).abs() - MICROBATCH_PARAM_TOL * (1 + w.abs())).max().item()
+               for a, w in zip(tree_leaves(stepped[n_mb][1]), tree_leaves(stepped[1][1])))
+    print(f"train {arch} fp32, {cfg2.n_layers} layers, B={pb} x {s}: one AdamW step (lr {TRAIN_LR}) in {n_mb} "
+          f"microbatches against one pass: loss {stepped[n_mb][0]:.6f} against {stepped[1][0]:.6f}, |diff| "
+          f"{loss_gap:.3g} (bar {MICROBATCH_LOSS_TOL}); params' worst |diff| past atol + rtol |one pass| {past:.3g} "
+          f"(rtol = atol = {MICROBATCH_PARAM_TOL}; at most 0 to pass)")
+    if not loss_gap < MICROBATCH_LOSS_TOL or past > 0:
+        fail(f"the {n_mb}-microbatch {arch} step disagrees with one pass of B={pb}")
+    _, _, g32 = make_grad_fn(cfg2.replace(microbatches=1, use_pallas="on"))(params, batch)
+    del params, stepped, p
+    gc.collect()
+
+    # int8 error feedback on the card against the CPU, two rounds, the residual carried
+    for name, grads in ((f"the accumulated gradients ({n_mb} microbatches, bf16)", g_acc),
+                        ("the one-pass gradients (fp32)", g32)):
+        host = tree_map(lambda t: t.detach().cpu(), grads)
+        r_dev = r_cpu = None
+        t = time.perf_counter()
+        for k in range(2):
+            (deq_dev, r_dev), (deq_cpu, r_cpu) = ef_compress_tree(grads, r_dev), ef_compress_tree(host, r_cpu)
+            for what, got, want in (("dequantised gradients", deq_dev, deq_cpu), ("residual", r_dev, r_cpu)):
+                check_bit_equal(torch, f"ef_compress_tree round {k + 1} on the card, {name}, {what}",
+                                {p: v.cpu() for p, v in leaves(got)}, dict(leaves(want)), torch.device("cpu"))
+        ratio = {p: (r.abs().max() / g.float().abs().max()).item() for (p, r), (_, g) in zip(leaves(r_dev),
+                                                                                            leaves(grads))}
+        worst = max(ratio, key=ratio.get)
+        print(f"ef_compress_tree on the card = the CPU, bit for bit, over 2 rounds of {name} ({len(ratio)} leaves, "
+              f"{sum(v.numel() for _, v in leaves(grads))} elements; {time.perf_counter() - t:.3f} s): the "
+              f"dequantised gradients and both residuals; max |residual| / max |g| per leaf after round 2: largest "
+              f"{ratio[worst]:.4g} ({worst}), smallest {min(ratio.values()):.4g} (half an int8 step of the row's "
+              f"max is 1/254 = {1 / 254:.4g})")
+        del host, r_dev, r_cpu, deq_dev, deq_cpu
+    del g_acc, g32, grads, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def pieces(cfg_run, params, opt_state, batch):
+        """The accumulation's adds and cast and one ef_compress_tree, each alone on the step's gradients."""
+        _, _, grads = make_grad_fn(cfg_run)(params, batch)
+        flat = [g for _, g in leaves(grads)]
+        n_el = sum(g.numel() for g in flat)
+        gsum = [torch.zeros(g.shape, dtype=torch.float32, device=dev) for g in flat]
+        add_ms = host_ms(torch, dev, lambda: [accumulate_grads(gsum, flat) for _ in range(cfg_run.microbatches)])
+        cast_ms = host_ms(torch, dev, lambda: list(mean_grads_bf16(gsum, cfg_run.microbatches)))
+        del gsum
+        ef_ms = host_ms(torch, dev, lambda: ef_compress_tree(grads, opt_state["ef_residual"]))
+        # bytes each must move: an add reads bf16 g and the fp32 sum and writes the sum; the cast reads the sum and
+        # writes bf16; the compression reads bf16 g and the fp32 residual and writes both anew
+        bound = {"add": 10 * n_el * cfg_run.microbatches, "cast": 6 * n_el, "ef": 12 * n_el}
+        bound_ms = {k: v / H100_BYTES_PER_S * 1e3 for k, v in bound.items()}
+        print(f"  on the step's gradients ({n_el} elements, host clock between synchronises): the accumulation's "
+              f"{cfg_run.microbatches} adds into fp32 {add_ms:.3f} ms (bound {bound_ms['add']:.3f} ms, bytes), its "
+              f"mean's bf16 cast {cast_ms:.3f} ms (bound {bound_ms['cast']:.3f} ms), one ef_compress_tree "
+              f"{ef_ms:.3f} ms (bound {bound_ms['ef']:.3f} ms)")
+
+    out = {}
+    with deterministic(torch):
+        out[f"{arch} train, B={b} x {s} in {ACCUM_CUTS['microbatches']} microbatches, int8 error feedback"] = (
+            planned_train_steps(torch, configs, T, kernels, dev, seed, smi, plans["accumulated"], arch, ACCUM_CUTS,
+                                ACCUM_TRAIN, compress_grads=True, bf16_parity=False, then=pieces))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a resume across async saves through the launcher, bit for bit
+    rcuts = {"n_layers": CUT_TRAIN_LAYERS, "microbatches": n_mb}
+    runs, keys = {}, {}
+    for counter in kernels.values():
+        counter.launches = 0
+    with deterministic(torch):
+        for name, segments in ACCUM_RESUME.items():
+            with tempfile.TemporaryDirectory() as repo_dir:
+                for steps, every, async_ckpt in segments:
+                    t = time.perf_counter()
+                    res = launch_train.run(arch, full=True, steps=steps, ckpt_every=every, repo=repo_dir, seq_len=s,
+                                           batch=pb, async_ckpt=async_ckpt, device=dev, overrides=rcuts)
+                    runs[f"{name} to {steps}"] = (time.perf_counter() - t, res, async_ckpt)
+                ckpt = CheckpointManager(Repository(repo_dir))
+                oid, saved_step = ckpt.latest()
+                manifest = json.loads(ckpt._tree_bytes(oid, f"checkpoints/step_{saved_step:08d}/manifest.json"))
+                keys[name] = {p: m["key"] for p, m in manifest["leaves"].items()}
+                if saved_step != segments[-1][0]:
+                    fail(f"the {name} run's newest checkpoint is step {saved_step}")
+    resume_launches = {c.__name__: c.launches for c in kernels.values()}
+    n_steps = sum(r.end_step - r.start_step for _, r, _ in runs.values())
+    rcfg = cfg.replace(**rcuts)
+    want = {c.__name__: 2 * rcfg.n_layers * rcfg.microbatches * n_steps if mixer == "attn" else 0
+            for mixer, c in kernels.items()}
+    for run, (wall, r, async_ckpt) in runs.items():
+        marks = [f"{ms:.3f}{' (a save in flight)' if busy else ''}" for ms, busy in zip(r.step_ms, r.save_in_flight)]
+        print(f"  {run}: {wall:.3f} s; steps {r.start_step}->{r.end_step} ms {marks}; "
+              f"{'async' if async_ckpt else 'sync'} saves {[round(x, 4) for x in r.save_s]} s blocking the loop; "
+              f"losses {[round(x, 5) for x in r.losses]}")
+    unbroken, first = runs["unbroken to 4"][1], runs["preempted to 3"][1]
+    async_s = first.save_s + runs["preempted to 4"][1].save_s
+    unequal = sorted(p for p in keys["unbroken"] if keys["preempted"].get(p) != keys["unbroken"][p])
+    print(f"train resume {arch}, {rcfg.n_layers} of {cfg.n_layers} layers, B={pb} x {s} in {rcfg.microbatches} "
+          f"microbatches, launch.train.run (deterministic algorithms): 4 steps with one sync save against 3 with "
+          f"async saves at 2 and 3, then a new run to 4 with an async save: "
+          f"{len(keys['unbroken']) - len(unequal)} of {len(keys['unbroken'])} leaf annex keys of step 4 equal; "
+          f"step 3 {first.step_ms[2]:.3f} ms with the step-2 save in flight against {unbroken.step_ms[2]:.3f} ms "
+          f"without; async saves blocking {[round(x * 1e3, 3) for x in async_s]} ms against the sync save's "
+          f"{unbroken.save_s[0]:.3f} s; launches {resume_launches}")
+    if unequal or sorted(keys["unbroken"]) != sorted(keys["preempted"]):
+        fail(f"the resumed run's step-4 state differs from the unbroken run's in {unequal[:5]} ({len(unequal)} leaves)")
+    if first.save_in_flight != [False, False, True]:
+        fail(f"the step-2 async save was not in flight at the end of step 3: {first.save_in_flight}")
+    if resume_launches != want:
+        fail(f"the resumed runs launched {resume_launches}, expected {want}")
+    written = written_bytes()
+    print(f"this process's writes so far (/proc/self/io; its children's are not counted there): {written}; in this "
+          f"phase: { {k: v - written_before[k] for k, v in written.items()} }")
+    out[f"{arch} train resumed across async saves, {rcfg.n_layers} of {cfg.n_layers} layers, "
+        f"{rcfg.microbatches} microbatches"] = (resume_launches, n_steps)
     return out
 
 
@@ -3219,10 +3485,12 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    # the plans of phases 30, 41 and 42's train steps: meta tensors on the host, one process and one thread
+    # the plans of phases 30, 41, 42 and 43's train steps: meta tensors on the host, one process and one thread
     # each, beside the phases before them
     jamba_plan = start_plan(JAMBA, JAMBA_TRAIN_CUTS, JAMBA_TRAIN)
     train_plans = {arch: start_plan(arch, cuts, CELL_TRAIN) for arch, cuts in TRAIN_CELLS.items()}
+    accum_plans = {"one pass": start_plan("qwen3_0_6b", {}, ACCUM_TRAIN),
+                   "accumulated": start_plan("qwen3_0_6b", ACCUM_CUTS, ACCUM_TRAIN, compress_grads=True)}
     torch.cuda.set_device(dev)
 
     from repro_torch import configs
@@ -4024,7 +4292,16 @@ def main() -> None:
     with expandable_segments(torch):
         trained.update(train_cells_phase(torch, configs, T, all_kernels, dev, args.seed, smi, train_plans,
                                          [MIXTRAL], moe=moe))
-    print(f"train mixtral phase {time.perf_counter() - t0:.1f} s; all phases {time.perf_counter() - t_all:.1f} s")
+    print(f"train mixtral phase {time.perf_counter() - t0:.1f} s")
+
+    # ----------------------------------------- 43. train qwen3 accumulated
+    t0 = phase("train qwen3 accumulated")
+    gc.collect()
+    torch.cuda.empty_cache()
+    accumulated = train_accum_phase(torch, configs, T, all_kernels, dev, args.seed, smi, accum_plans)
+    print(f"train qwen3 accumulated phase {time.perf_counter() - t0:.1f} s; all phases "
+          f"{time.perf_counter() - t_all:.1f} s; this process's writes in the run (/proc/self/io; its children's "
+          f"are not counted there): {written_bytes()}")
 
     runs = {"qwen3_0_6b": (qwen_launches, qwen_res.prefills, "prefill"),
             "rwkv6_1_6b": (rwkv_launches, rwkv_res.prefills, "prefill"),
@@ -4057,7 +4334,8 @@ def main() -> None:
             **dense,
             **{f"{arch} train, {configs.get(arch).replace(**TRAIN_CELLS[arch]).n_layers} of "
                f"{configs.get(arch).n_layers} layers": (launches, n, "step")
-               for arch, (launches, n) in trained.items()}}
+               for arch, (launches, n) in trained.items()},
+            **{run: (launches, n, "step") for run, (launches, n) in accumulated.items()}}
 
     def launch_counts(name: str) -> dict:
         """The kernel's launches over the main-path runs, by path, and per

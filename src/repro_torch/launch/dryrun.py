@@ -26,7 +26,9 @@ neither is needed, and the kernel ops' formulas count the recurrences.
 ``--one-card`` plans a cell's kind of step unsharded, on one card, at
 each ``--batch`` x ``--seq-len`` (model state, batch and every temporary on
 one device): rank 0's peak against ``mesh.HBM_BYTES``, and the largest
-batch whose peak leaves ``FREE_GIB`` of the card free (``plan_one_card``).
+batch whose peak leaves ``FREE_GIB`` of the card free (``plan_one_card``);
+with ``--compress-grads`` the train step is the one with int8
+error-feedback gradients (``make_train_step(..., compress_grads=True)``).
 
 Usage:
     python -m repro_torch.launch.dryrun --arch internlm2_20b --shape train_4k
@@ -35,6 +37,8 @@ Usage:
         --override seq_shard_residual=False
     python -m repro_torch.launch.dryrun --arch jamba_1_5_large_398b --shape train_4k \\
         --one-card --batch 8 4 2 1 --seq-len 512 --override moe=None --override n_layers=8
+    python -m repro_torch.launch.dryrun --arch qwen3_0_6b --shape train_4k --one-card \\
+        --batch 64 --seq-len 512 --override microbatches=8 --compress-grads
 """
 from __future__ import annotations
 
@@ -74,18 +78,20 @@ def _parse_override(s: str):
 
 
 def plan_step(cfg, shape: configs.Shape, rules=None, *, cache_len: int | None = None,
-              pos: int | None = None) -> dict:
+              pos: int | None = None, compress_grads: bool = False) -> dict:
     """Run ``shape``'s step of ``cfg`` once on stand-ins (with ``rules``, as
     DTensors on its mesh) under ``OpStats``; ``cache_len`` and ``pos`` set a
     prefill's cache length and a decode step's cache length and position
-    (default: the shape's length, and its last position). Returns rank 0's
+    (default: the shape's length, and its last position); ``compress_grads``
+    plans a train step with int8 error-feedback gradients, its residual
+    among the optimizer state's stand-ins. Returns rank 0's
     counts: ``flops``, ``bytes``, collectives, ``ops`` (every op's count),
     ``memory`` and ``plan_s``, the host time of the run."""
     t0 = time.perf_counter()
     if shape.kind == "train":
-        params, opt_state = specs.model_state_specs(cfg, rules, True)
+        params, opt_state = specs.model_state_specs(cfg, rules, True, compress_grads)
         args = (params, opt_state, specs.batch_specs(cfg, shape, rules))
-        fn = make_train_step(cfg, specs.make_optimizer(cfg), rules=rules)
+        fn = make_train_step(cfg, specs.make_optimizer(cfg), compress_grads, rules=rules)
     elif shape.kind == "prefill":
         params, _ = specs.model_state_specs(cfg, rules, False)
         args = (params, specs.batch_specs(cfg, shape, rules))
@@ -175,17 +181,20 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, overrides: dict | None
     return cell
 
 
-def plan_one_card(arch: str, shape_name: str, batch: int, seq_len: int, overrides: dict | None = None) -> dict:
+def plan_one_card(arch: str, shape_name: str, batch: int, seq_len: int, overrides: dict | None = None,
+                  compress_grads: bool = False) -> dict:
     """``shape_name``'s kind of step of the full config (with ``overrides``)
     at ``batch`` x ``seq_len``, unsharded, as one card would run it:
     rank 0's counts from ``plan_step`` (no process group, no mesh) and the
-    card's memory left free at the planned peak."""
+    card's memory left free at the planned peak. ``compress_grads`` as in
+    ``plan_step``."""
     kind = configs.SHAPES[shape_name].kind
     cfg = configs.get(arch).replace(**(overrides or {}))
-    st = plan_step(cfg, configs.Shape(f"{kind}_{seq_len}x{batch}", kind, seq_len, batch))
+    st = plan_step(cfg, configs.Shape(f"{kind}_{seq_len}x{batch}", kind, seq_len, batch),
+                   compress_grads=compress_grads)
     return {"arch": arch, "kind": kind, "global_batch": batch, "seq_len": seq_len, "overrides": overrides or {},
-            "chips": 1, "status": "ok", "plan_s": round(st["plan_s"], 2), "flops_per_device": st["flops"],
-            "bytes_per_device": st["bytes"], "memory": st["memory"],
+            "compress_grads": compress_grads, "chips": 1, "status": "ok", "plan_s": round(st["plan_s"], 2),
+            "flops_per_device": st["flops"], "bytes_per_device": st["bytes"], "memory": st["memory"],
             "free_bytes": HBM_BYTES - st["memory"]["peak_bytes"], "kernel_calls": kernel_calls(st["ops"]),
             "torch": torch.__version__}
 
@@ -195,14 +204,16 @@ def one_card_main(args, overrides: dict | None) -> None:
     left free, then the largest batch that leaves ``FREE_GIB`` GiB."""
     fits = []
     for b in args.batch:
-        cell = plan_one_card(args.arch, args.shape, b, args.seq_len, overrides)
+        cell = plan_one_card(args.arch, args.shape, b, args.seq_len, overrides, args.compress_grads)
         peak, free = cell["memory"]["peak_bytes"], cell["free_bytes"]
         if free >= FREE_GIB * 2**30:
             fits.append(b)
         print(json.dumps(cell, sort_keys=True))
-        print(f"{args.arch} {cell['kind']} B={b} x {args.seq_len} {overrides or {}} on one card: planned peak "
-              f"{peak} B ({peak / 2**30:.3f} GiB) of {HBM_BYTES / 2**30:.3f} GiB, {free / 2**30:.3f} GiB free; "
-              f"kernel calls {cell['kernel_calls']}; planned in {cell['plan_s']} s", flush=True)
+        compressed = ", int8 error-feedback gradients" if args.compress_grads else ""
+        print(f"{args.arch} {cell['kind']} B={b} x {args.seq_len} {overrides or {}}{compressed} on one card: "
+              f"planned peak {peak} B ({peak / 2**30:.3f} GiB) of {HBM_BYTES / 2**30:.3f} GiB, "
+              f"{free / 2**30:.3f} GiB free; kernel calls {cell['kernel_calls']}; planned in {cell['plan_s']} s",
+              flush=True)
     print(f"largest batch leaving {FREE_GIB} GiB free: {max(fits) if fits else None}")
 
 
@@ -224,6 +235,8 @@ def main() -> None:
     ap.add_argument("--one-card", action="store_true", help="plan unsharded on one card at --batch x --seq-len")
     ap.add_argument("--batch", type=int, nargs="+", default=[8])
     ap.add_argument("--seq-len", type=int, default=512)
+    ap.add_argument("--compress-grads", action="store_true",
+                    help="--one-card: plan the train step with int8 error-feedback gradients")
     args = ap.parse_args()
 
     overrides = dict(_parse_override(s) for s in args.override) or None
@@ -231,6 +244,8 @@ def main() -> None:
         if not (args.arch and args.shape):
             ap.error("--one-card needs --arch and --shape")
         return one_card_main(args, overrides)
+    if args.compress_grads:
+        ap.error("--compress-grads plans with --one-card")
     RESULTS_DIR.mkdir(parents=True, exist_ok=True)
     archs = configs.ARCH_IDS if (args.all or not args.arch) else [args.arch]
     shapes = list(configs.SHAPES) if (args.all or not args.shape) else [args.shape]

@@ -81,9 +81,10 @@ def _zero1_defs(defs, rules):
     return one(defs)
 
 
-def model_state_specs(cfg: ModelConfig, rules, with_opt: bool) -> tuple:
+def model_state_specs(cfg: ModelConfig, rules, with_opt: bool, compress_grads: bool = False) -> tuple:
     """(params, opt_state) stand-ins: bf16 params, moments in the config's
-    moment dtype, the step a 0-d int32."""
+    moment dtype, the step a 0-d int32; with ``compress_grads`` also the
+    int8 error feedback's ``ef_residual``, fp32 and placed as the params."""
     defs = T.param_defs(cfg, rules)
     params = stand_ins(defs, torch.bfloat16, rules)
     if not with_opt:
@@ -97,6 +98,8 @@ def model_state_specs(cfg: ModelConfig, rules, with_opt: bool) -> tuple:
         "v": stand_ins(mdefs, mdt, rules),
         "step": stand_in((), torch.int32, P(), rules),
     }
+    if compress_grads:
+        opt_state["ef_residual"] = stand_ins(defs, torch.float32, rules)
     return params, opt_state
 
 

@@ -17,7 +17,10 @@ def compress_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row int8 quantisation (rows along the first axis). Returns (q, scale)."""
     x32 = x.float()
     flat = x32.reshape(x32.shape[0] if x32.ndim > 1 else 1, -1)
-    scale = flat.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-12
+    amax = flat.abs().amax(dim=-1, keepdim=True)
+    # a tensor divisor: CUDA divides by a Python scalar as a product with its reciprocal, which rounds some
+    # values otherwise than the division, so the card's codes would differ from the CPU's
+    scale = amax / torch.full_like(amax, 127.0) + 1e-12
     q = torch.clamp(torch.round(flat / scale), -127, 127).to(torch.int8)
     return q, scale
 

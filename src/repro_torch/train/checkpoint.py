@@ -194,6 +194,10 @@ class CheckpointManager:
         self._thread = threading.Thread(target=work)
         self._thread.start()
 
+    def saving(self) -> bool:
+        """Whether an async save is still writing."""
+        return self._thread is not None and self._thread.is_alive()
+
     def wait(self) -> None:
         """Block until the async save in flight ends; re-raise its failure."""
         if self._thread is not None:

@@ -35,9 +35,12 @@ class SegmentResult:
     final_loss: float
     checkpoint_commit: str | None
     # the port's own measurements: each step's loss, its time on the host
-    # clock (ending in a synchronise), and each save's time
+    # clock (ending in a synchronise), whether an async save was still
+    # writing when it ended, and each save's time (of an async save: the
+    # host copy and the writer's start, which block the loop)
     losses: list[float] = field(default_factory=list)
     step_ms: list[float] = field(default_factory=list)
+    save_in_flight: list[bool] = field(default_factory=list)
     save_s: list[float] = field(default_factory=list)
 
 
@@ -106,6 +109,7 @@ def train_segment(
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         _sync(dev)
         res.step_ms.append((time.perf_counter() - t0) * 1e3)
+        res.save_in_flight.append(ckpt.saving())
         res.final_loss = float(metrics["loss"])
         res.losses.append(res.final_loss)
         if (step + 1) % ckpt_every == 0 or step + 1 == n_steps:

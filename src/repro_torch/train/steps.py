@@ -51,6 +51,19 @@ def _split_microbatches(batch: dict, n: int) -> dict:
     return out
 
 
+def accumulate_grads(gsum: list, grads) -> None:
+    """Add one microbatch's gradient leaves into the fp32 accumulators ``gsum``."""
+    for a, g in zip(gsum, grads):
+        a.add_(g.float())
+
+
+def mean_grads_bf16(gsum: list, n: int):
+    """Yields each leaf of the mean of ``n`` microbatches' accumulated
+    gradients ``gsum``, cast to bf16."""
+    scale = 1.0 / n
+    return ((g * scale).to(torch.bfloat16) for g in gsum)
+
+
 def make_grad_fn(cfg: ModelConfig, *, rules=None):
     """``grads_of(params, batch) -> (loss, aux, grads)``: the loss and aux
     loss as fp32 scalars and the gradient tree of the weighted loss. Each
@@ -78,12 +91,10 @@ def make_grad_fn(cfg: ModelConfig, *, rules=None):
         gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves(params)]
         for i in range(n_mb):
             loss, aux, grads = one(params, {k: v[i] for k, v in mbs.items()})
-            for a, g in zip(gsum, grads):
-                a.add_(g.float())
+            accumulate_grads(gsum, grads)
             loss_sum, aux_sum = loss_sum + loss, aux_sum + aux
         scale = 1.0 / n_mb
-        return (loss_sum * scale, aux_sum * scale,
-                unflatten(params, ((g * scale).to(torch.bfloat16) for g in gsum)))
+        return loss_sum * scale, aux_sum * scale, unflatten(params, mean_grads_bf16(gsum, n_mb))
 
     return grads_of
 

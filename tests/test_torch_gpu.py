@@ -30,6 +30,7 @@ from repro_torch.models.params import init_params  # noqa: E402
 from repro_torch.core.repo import Repository  # noqa: E402
 from repro_torch.data.tokens import SyntheticTokens  # noqa: E402
 from repro_torch.optim.adamw import AdamW, cosine_schedule  # noqa: E402
+from repro_torch.optim.compression import ef_compress_tree  # noqa: E402
 from repro_torch.train.loop import train_segment  # noqa: E402
 from repro_torch.train.steps import make_grad_fn, make_prefill_step  # noqa: E402
 from repro_torch.tree import leaves, tree_map  # noqa: E402
@@ -630,6 +631,29 @@ def test_adamw_on_cuda_matches_the_cpu(cuda, schedule):
     for a, b in ((p_gpu, p_cpu), (s_gpu["m"], s_cpu["m"]), (s_gpu["v"], s_cpu["v"])):
         for x, y in zip(leaves(a), leaves(b)):
             torch.testing.assert_close(x.cpu().float(), y.float(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_ef_compression_on_cuda_equals_the_cpu(cuda):
+    """Two rounds of int8 error feedback, the residual carried, on the card
+    and on the CPU from the same gradients, fp32 and their bf16 cast: the
+    dequantised gradients and both residuals equal bit for bit (amax, a
+    division, round half to even, a clamp and fp32 products and sums, each
+    exact or correctly rounded)."""
+    g = torch.Generator().manual_seed(3)
+    grads32 = {"embed": 1e-3 * torch.randn(4099, 256, generator=g), "norm": torch.randn(256, generator=g),
+               "blocks": {"w": 1e-2 * torch.randn(2, 256, 768, generator=g).exp()}}
+    for dtype in (torch.float32, torch.bfloat16):
+        cpu = tree_map(lambda t: t.to(dtype), grads32)
+        on_card = tree_map(lambda t: t.to(cuda), cpu)
+        r_cpu = r_card = None
+        for _ in range(2):
+            (d_cpu, r_cpu), (d_card, r_card) = ef_compress_tree(cpu, r_cpu), ef_compress_tree(on_card, r_card)
+            for a, b in ((d_card, d_cpu), (r_card, r_cpu)):
+                for x, y in zip(leaves(a), leaves(b)):
+                    assert x.device.type == "cuda" and x.dtype == y.dtype
+                    bits = torch.int16 if y.dtype == torch.bfloat16 else torch.int32
+                    assert torch.equal(x.cpu().view(bits), y.view(bits))
 
 
 @pytest.mark.gpu
