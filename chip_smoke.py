@@ -513,6 +513,18 @@ Phases; any failure exits non-zero before the result lines are printed.
                     flight, each save's blocking time, and this process's
                     bytes written (/proc/self/io, its children's not
                     counted).
+ 44. checkpoint subdir — qwen3-0.6B at full width and depth, phase 5's
+                    bf16 weights, saved by ``CheckpointManager(repo,
+                    subdir="ckpt_alt")`` into a new repository: every path of
+                    the commit under ``ckpt_alt/step_00000000/``, each leaf's
+                    annex key phase 12's default-subdir save's. Restored 3
+                    times by a manager with ``fetch_workers=1`` and 3 times
+                    with 8, each bit for bit, and served from the last
+                    restore through the port's prefill and decode at phase 5's
+                    shape: the greedy tokens phase 5's, the flash kernel 28
+                    times in the one prefill and nothing else. Prints the save
+                    and each restore's seconds, the median and spread of each
+                    width. Starts no job and no process.
 Phases 3, 4 and 9 also run one backward through each kernel op
 (``ops.flash_attention``, ``ops.rwkv6``, ``ops.mamba_scan``) at a small fp32
 shape and hold its gradients against the plain version's autograd.
@@ -784,6 +796,9 @@ CACHE_GEN = dict(batch=8, prompt_len=64, gen=32)  # phase 39: examples/serve_bat
 DENSE_PARITY_LAYERS = 2  # phase 34: each of the three at full width, 2 layers
 # phase 40: bench_ingest's 8 jobs x 8 files, each file cut from 64 to 16 MiB (1 GiB of outputs a case)
 DATAPLANE = dict(n_jobs=8, files=8, mib=16)
+CKPT_SUBDIR = "ckpt_alt"  # phase 44: where its checkpoint's steps live
+RESTORE_WIDTHS = (1, 8)  # phase 44: each restore's fetch_workers
+RESTORE_REPEATS = 3
 DATAPLANE_CASES = {"a legacy": (dict(data_plane="legacy"), 0), "b fused": ({}, 0), "c fused, 8 workers": ({}, 8),
                    "d full": (dict(engine="full"), 0)}
 
@@ -3459,6 +3474,91 @@ def unflat(flat: dict, prefix: str) -> dict:
     return root
 
 
+def ckpt_subdir_phase(torch, configs, serve, kernels: dict, dev, seed: int, want_tokens, want_keys: dict | None,
+                      *, full: bool = True, shape: dict = SERVE) -> tuple[dict, int]:
+    """Phase 44 (see the module docstring): phase 5's qwen3 weights (at
+    smoke size with ``full=False``) saved under ``CKPT_SUBDIR`` in a new
+    repository, restored RESTORE_REPEATS times by a manager of each
+    ``fetch_workers`` in RESTORE_WIDTHS, bit for bit, and served from the
+    last restore: the greedy tokens must be ``want_tokens`` and each
+    attention layer must launch the flash kernel once per prefill (on a CPU
+    device, which runs the plain version, none). ``want_keys``: phase 12's
+    leaf keys from its default-subdir save of the same weights, or None.
+    Returns ({wrapper name: launches}, prefills)."""
+    from repro_torch.core.repo import Repository
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    cfg = configs.get("qwen3_0_6b") if full else configs.get_smoke("qwen3_0_6b")
+    params = init_params(T.param_defs(cfg), seed=seed, dtype=torch.bfloat16, device=dev)
+    saved = dict(leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in saved.values())
+    reldir = f"{CKPT_SUBDIR}/step_00000000"
+    with tempfile.TemporaryDirectory() as repo_dir:
+        repo = Repository.init(repo_dir)
+        t = time.perf_counter()
+        oid = CheckpointManager(repo, subdir=CKPT_SUBDIR).save(0, params, {})
+        save_s = time.perf_counter() - t
+        outside = [p for p in repo.tree_of(oid) if not p.startswith(reldir + "/")]
+        if outside:
+            fail(f"phase 44: the checkpoint commit holds {outside[:3]} outside {reldir}/")
+        manifest = json.loads(repo.objects.get_blob(repo.entry_at(oid, f"{reldir}/manifest.json")["oid"]))
+        keys = {p: m["key"] for p, m in manifest["leaves"].items()}
+        if want_keys is not None and keys != {p: k for p, k in want_keys.items() if p in keys}:
+            fail("phase 44: the leaves' annex keys under the other subdir differ from phase 12's default-subdir save")
+        if set(keys) != {f"params/{p}" for p in saved} or set(repo.annex.keys()) != set(keys.values()):
+            fail("phase 44: the manifest and the annex do not hold exactly the saved leaves")
+        restore_s: dict[int, list[float]] = {}
+        for workers in RESTORE_WIDTHS:
+            ckpt = CheckpointManager(Repository(repo_dir), subdir=CKPT_SUBDIR, fetch_workers=workers)
+            restore_s[workers] = []
+            for _ in range(RESTORE_REPEATS):
+                _sync(torch, dev)
+                t = time.perf_counter()
+                state, got = ckpt.restore(oid, device=dev)
+                _sync(torch, dev)
+                restore_s[workers].append(time.perf_counter() - t)
+                if got["step"] != 0:
+                    fail(f"phase 44 restored step {got['step']}, saved 0")
+                restored = state["params"]
+                check_bit_equal(torch, f"phase 44's restore with {workers} fetch workers",
+                                dict(leaves(restored)), saved, dev)
+                del state
+    del params, saved
+    for counter in kernels.values():
+        counter.launches = 0
+    prompts = serve.prompt_batch(cfg, shape["batch"], shape["prompt_len"], seed, dev)["tokens"]
+    tokens = pipeline_greedy(torch, cfg, restored, prompts, shape["gen"]).cpu()
+    launches = {counter.__name__: counter.launches for counter in kernels.values()}
+    del restored
+    flash = kernels["attn"].__name__
+    want_flash = cfg.n_layers if dev.type == "cuda" else 0
+    if launches != {name: (want_flash if name == flash else 0) for name in launches}:
+        fail(f"phase 44's prefill launched {launches}, expected {want_flash} {flash} and nothing else")
+    if not torch.equal(tokens, want_tokens):
+        fail(f"phase 44's greedy tokens differ from phase 5's in {int((tokens != want_tokens).sum())} of "
+             f"{want_tokens.numel()} places")
+
+    def spread(xs):
+        return (f"{statistics.median(xs):.3f} s median, {min(xs):.3f}-{max(xs):.3f} s "
+                f"({n_bytes / statistics.median(xs) / 1e9:.3f} GB/s)")
+
+    print(f"checkpoint under {CKPT_SUBDIR}/: qwen3_0_6b bf16, {len(keys)} leaves, {n_bytes} bytes; save "
+          f"{save_s:.3f} s; the leaves' keys those of phase 12's default-subdir save "
+          f"{'(checked)' if want_keys is not None else '(not checked)'}; restores onto {dev.type}, "
+          f"{RESTORE_REPEATS} each, bit for bit: "
+          + "; ".join(f"fetch_workers={w}: {spread(xs)} [{', '.join(f'{x:.3f}' for x in xs)}]"
+                      for w, xs in restore_s.items())
+          + f"; served: greedy tokens equal phase 5's {tuple(tokens.shape)}, launches {launches}")
+    return launches, 1
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3844,6 +3944,7 @@ def main() -> None:
         restore_s = time.perf_counter() - t
         check_bit_equal(torch, "restored qwen3_0_6b params", dict(leaves(state["params"])), saved, dev)
         keys = {m["key"] for m in manifest["leaves"].values()}
+        default_subdir_keys = {p: m["key"] for p, m in manifest["leaves"].items()}  # phase 44 holds its keys to these
         if set(ckpt.repo.annex.keys()) != keys:
             fail("the annex does not hold exactly the keys the checkpoint manifest names")
         if ckpt.repo.entry_at(oid, "checkpoints/step_00000001/manifest.json")["t"] != "blob":
@@ -4299,7 +4400,15 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     accumulated = train_accum_phase(torch, configs, T, all_kernels, dev, args.seed, smi, accum_plans)
-    print(f"train qwen3 accumulated phase {time.perf_counter() - t0:.1f} s; all phases "
+    print(f"train qwen3 accumulated phase {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------- 44. checkpoint under another subdir
+    t0 = phase("checkpoint subdir")
+    gc.collect()
+    torch.cuda.empty_cache()
+    subdir_launches, subdir_prefills = ckpt_subdir_phase(torch, configs, serve, all_kernels, dev, args.seed,
+                                                         qwen_res.tokens, default_subdir_keys)
+    print(f"checkpoint subdir phase {time.perf_counter() - t0:.1f} s; all phases "
           f"{time.perf_counter() - t_all:.1f} s; this process's writes in the run (/proc/self/io; its children's "
           f"are not counted there): {written_bytes()}")
 
@@ -4335,7 +4444,9 @@ def main() -> None:
             **{f"{arch} train, {configs.get(arch).replace(**TRAIN_CELLS[arch]).n_layers} of "
                f"{configs.get(arch).n_layers} layers": (launches, n, "step")
                for arch, (launches, n) in trained.items()},
-            **{run: (launches, n, "step") for run, (launches, n) in accumulated.items()}}
+            **{run: (launches, n, "step") for run, (launches, n) in accumulated.items()},
+            f"qwen3_0_6b served from a checkpoint under {CKPT_SUBDIR}/": (subdir_launches, subdir_prefills,
+                                                                           "prefill")}
 
     def launch_counts(name: str) -> dict:
         """The kernel's launches over the main-path runs, by path, and per

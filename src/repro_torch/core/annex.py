@@ -259,11 +259,12 @@ class AnnexStore:
         with self.fs.open_read(src) as chunks:
             self._publish_stream(chunks, key, src)
 
-    def ingest_file(self, src: str, chunked: bool = False) -> str:
-        """Single-pass ingest of the file ``src`` (one charged read, one
-        charged write); duplicate content is written once. Returns the key.
-        ``chunked`` routes it through the chunk tier."""
-        with self.fs.open_read(src) as chunks:
+    def ingest_file(self, src: str, chunk_size: int = 1 << 20, chunked: bool = False) -> str:
+        """Single-pass ingest of the file ``src``, read in blocks of
+        ``chunk_size`` bytes (one charged read, one charged write); duplicate
+        content is written once. Returns the key. ``chunked`` routes it
+        through the chunk tier."""
+        with self.fs.open_read(src, chunk_size) as chunks:
             return self._ingest_chunked(chunks) if chunked else self._publish_stream(chunks)
 
     def put_stream(self, blocks: Iterable[bytes], chunked: bool = False) -> str:

@@ -50,8 +50,6 @@ import threading
 import uuid
 from dataclasses import dataclass
 
-BACKOFF_BASE_S = 0.05  # the first transient retry's backoff (filesystem and Slurm); doubles with each retry
-
 # -- liveness token registry -------------------------------------------------
 
 _TOKEN_LOCK = threading.Lock()
@@ -232,9 +230,12 @@ class FaultPlan:
     Thread-safe: counters mutate under one lock. ``record_points=True``
     turns the plan into a crash-point recorder: a clean run logs every
     boundary it passes in ``crash_point_log``, which is how the crash-matrix
-    tests check that every named point is on the path they kill."""
+    tests check that every named point is on the path they kill.
 
-    max_fs_retries = 4  # transient filesystem faults retried by FS before one propagates
+    ``max_fs_retries`` and ``max_slurm_retries`` bound the transient faults
+    the filesystem and the scheduler's Slurm calls retry before one
+    propagates; each retry is charged ``backoff_base_s`` doubled per
+    attempt on the simulated clock."""
 
     def __init__(
         self,
@@ -242,13 +243,17 @@ class FaultPlan:
         rules: list[FaultRule] | tuple = (),
         crash_at: dict[str, int] | None = None,
         record_points: bool = False,
+        max_fs_retries: int = 4,
         max_slurm_retries: int = 4,
+        backoff_base_s: float = 0.05,
     ):
         self.rng = random.Random(seed)
         self.rules = list(rules)
         self.crash_at = dict(crash_at or {})
         self.record_points = record_points
+        self.max_fs_retries = max_fs_retries
         self.max_slurm_retries = max_slurm_retries
+        self.backoff_base_s = backoff_base_s
         self.crashed = False
         self.crash_origin: str | None = None
         self.crash_point_log: list[str] = []
@@ -266,7 +271,7 @@ class FaultPlan:
 
     def backoff_s(self, attempt: int) -> float:
         """The backoff charged before transient retry ``attempt``."""
-        return BACKOFF_BASE_S * (2 ** attempt)
+        return self.backoff_base_s * (2 ** attempt)
 
     # -- firing ---------------------------------------------------------
     def _check_crashed(self) -> None:

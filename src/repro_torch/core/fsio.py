@@ -269,6 +269,12 @@ class FS:
             n = self._dir_entries.get(dirpath, 0) + delta
             self._dir_entries[dirpath] = max(0, n)
 
+    def dir_entries_snapshot(self) -> dict[str, int]:
+        """A copy of the modelled entry count of every directory (a
+        bookkeeping read: charges nothing)."""
+        with self._stats_lock:
+            return dict(self._dir_entries)
+
     def purge_phantom_entries(self, dirpath: str) -> int:
         """Drop every *modelled* entry of ``dirpath`` that has no file behind
         it (a footprint seeded by :meth:`preload_dir_entries`), charging the
@@ -501,6 +507,15 @@ class FS:
                 os.fsync(f.fileno())
                 self._meta(1, path)
         return total
+
+    def write_atomic(self, path: str, data: bytes, fsync: bool = True) -> None:
+        """Publish ``data`` at ``path`` through a tmp file beside it and a
+        rename (:func:`.files.write_atomic`, the one publication every store
+        uses), fsynced unless ``fsync`` is false: a reader never sees a torn
+        file, and a crash leaves only the tmp."""
+        from .files import write_atomic  # files builds on this module
+
+        write_atomic(self, path, data, fsync=fsync)
 
     def create_exclusive(self, path: str, data: bytes) -> None:
         """Atomic O_CREAT|O_EXCL create+write+fsync — the lock-file

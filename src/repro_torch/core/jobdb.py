@@ -222,6 +222,10 @@ class JobDB:
                 )
         return job_ids
 
+    def add_job(self, spec: RunSpec) -> int:
+        """One spec through :meth:`add_jobs`."""
+        return self.add_jobs([spec])[0]
+
     @staticmethod
     def _check_one(conn: sqlite3.Connection, name: str) -> None:
         """The three §5.5 checks as indexed point lookups against the
@@ -247,6 +251,9 @@ class JobDB:
             self._check_one(conn, normalize(o))
 
     # ------------------------------------------------------------------
+    def set_slurm_id(self, job_id: int, slurm_id: int) -> None:
+        self.set_slurm_ids([(job_id, slurm_id)])
+
     def set_slurm_ids(self, pairs: list[tuple[int, int]]) -> None:
         """Batched ``(job_id, slurm_id)`` update, one transaction."""
         if not pairs:
@@ -254,6 +261,11 @@ class JobDB:
         with self._conn() as c:
             c.executemany("UPDATE jobs SET slurm_id=? WHERE job_id=?",
                           [(slurm_id, job_id) for job_id, slurm_id in pairs])
+
+    def heartbeat(self, job_id: int) -> None:
+        """Stamp the row's ``heartbeat`` column with the time now."""
+        with self._conn() as c:
+            c.execute("UPDATE jobs SET heartbeat=? WHERE job_id=?", (time.time(), job_id))
 
     def close_job(self, job_id: int, status: str) -> None:
         """Mark finished/failed-closed and release protected outputs."""
@@ -270,6 +282,10 @@ class JobDB:
 
     def get(self, job_id: int) -> dict | None:
         row = self._conn().execute(self._JOB_SELECT + " WHERE j.job_id=?", (job_id,)).fetchone()
+        return _to_dict(row) if row else None
+
+    def by_slurm_id(self, slurm_id: int) -> dict | None:
+        row = self._conn().execute(self._JOB_SELECT + " WHERE j.slurm_id=?", (slurm_id,)).fetchone()
         return _to_dict(row) if row else None
 
     def open_jobs(self) -> list[dict]:

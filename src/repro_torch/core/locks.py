@@ -84,6 +84,21 @@ class FileLock:
     def break_lock(self) -> None:
         self.fs.unlink(self.path)
 
+    def break_if_stale(self) -> bool:
+        """Break the lock iff its owner is provably dead or its heartbeat is
+        older than ``ttl_s`` (the recovery sweep's test); True if broken."""
+        info = self.read_info()
+        if info is self._GONE or not self.is_stale(info):
+            return False
+        self.break_lock()
+        return True
+
+    def beat(self) -> None:
+        """Refresh a held lock's heartbeat (a long holder's proof of life
+        across hosts), published through a tmp and a rename."""
+        if self._held:
+            self.fs.write_atomic(self.path, self._payload(), fsync=False)
+
     def acquire(self, wait_s: float = 30.0, poll_s: float = 0.02) -> "FileLock":
         deadline = time.monotonic() + wait_s
         while True:

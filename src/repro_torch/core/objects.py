@@ -275,7 +275,7 @@ class ObjectStore:
         bookkeeping reads): what the auto-repack threshold is held against."""
         return max(self.fs.dir_entry_count(d) for d in self._shard_dirs())
 
-    def repack(self, max_packs: int | None = 48) -> dict:
+    def repack(self, delete_loose: bool = True, max_packs: int | None = 48) -> dict:
         """Move every loose object into one new pack, publish it, then unlink
         the loose files and charge the unlinks of any seeded phantom entries
         (:meth:`~.fsio.FS.purge_phantom_entries`). Once
@@ -284,11 +284,13 @@ class ObjectStore:
         after it is live, so the pack directory stays near ``2 * max_packs``
         entries (``None``: never fold). Crash points ``repack:planned``,
         ``repack:pack-published`` and, after the first unlink,
-        ``repack:mid-unlink``. Returns the stats."""
+        ``repack:mid-unlink``. ``delete_loose=False`` stops once the pack is
+        published (a crash's state there: every object twice). Returns the
+        stats."""
         with self._repack_lock, FileLock(self._repack_lock_path, fs=self.fs):
-            return self._repack_locked(max_packs)
+            return self._repack_locked(delete_loose, max_packs)
 
-    def _repack_locked(self, max_packs: int | None) -> dict:
+    def _repack_locked(self, delete_loose: bool, max_packs: int | None) -> dict:
         fs, packs = self.fs, self.packs
         swept = packs.sweep_garbage()  # crash leftovers count against the pack dir's bound
         to_pack: list[tuple[str, str]] = []  # (oid, loose path) not packed yet
@@ -329,16 +331,17 @@ class ObjectStore:
         # the pack is live: losing the loose and folded copies loses nothing now
         fs.crash_point("repack:pack-published")
         unlinked = phantoms = 0
-        for path in loose_paths:
-            fs.unlink(path)
-            unlinked += 1
-            if unlinked == 1:
-                fs.crash_point("repack:mid-unlink")
-        for shard in self._shard_dirs():
-            phantoms += fs.purge_phantom_entries(shard)
-        for pid in consolidated:
-            if pid != pack_id:  # the same content packed again in place
-                packs.drop_pack_files(pid)
+        if delete_loose:
+            for path in loose_paths:
+                fs.unlink(path)
+                unlinked += 1
+                if unlinked == 1:
+                    fs.crash_point("repack:mid-unlink")
+            for shard in self._shard_dirs():
+                phantoms += fs.purge_phantom_entries(shard)
+            for pid in consolidated:
+                if pid != pack_id:  # the same content packed again in place
+                    packs.drop_pack_files(pid)
         return {
             "pack_id": pack_id,
             "objects_packed": len(to_pack),

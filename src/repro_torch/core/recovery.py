@@ -148,10 +148,13 @@ def _stale_locks(repo) -> list[FileLock]:
 # -- recover -----------------------------------------------------------------
 
 
-def recover(session: "Session") -> dict:
+def recover(session: "Session", close_unsubmitted: bool = True, max_tmp_age_s: float | None = 3600.0) -> dict:
     """Bring the repository back to a consistent state after a crash.
     Idempotent, and cheap when there is nothing to do. Returns a report with
-    the reference's keys."""
+    the reference's keys. ``max_tmp_age_s`` is the age past which a tmp
+    file is swept though its writer may live (None: never by age);
+    ``close_unsubmitted=False`` leaves the open rows with no Slurm id that
+    no journal covers open."""
     repo = session.repo
     db = session.scheduler.db
     report = {
@@ -176,9 +179,9 @@ def recover(session: "Session") -> dict:
         lock.break_lock()
         report["locks_broken"] += 1
     # 2. the tmp files of dead writers, here and on the sites
-    report["stale_tmps_swept"] += repo.sweep_stale_tmps()
+    report["stale_tmps_swept"] += repo.sweep_stale_tmps(max_tmp_age_s)
     for store in repo._remotes:
-        report["stale_tmps_swept"] += store.sweep_stale_tmps()
+        report["stale_tmps_swept"] += store.sweep_stale_tmps(max_tmp_age_s)
     # 3. journals in name order, but ``dag`` journals last: every submit
     # journal must have recovered its level's slurm ids and closed its dead
     # rows before a pipeline's levels are read back from their rows
@@ -205,9 +208,10 @@ def recover(session: "Session") -> dict:
             repo.fs.unlink(path)
             report["journals_replayed"] += 1
     # 4. orphan rows no journal covered (a crash before the journal)
-    for row in db.unsubmitted_open_jobs():
-        db.close_job(row["job_id"], status="closed-unsubmitted")
-        report["jobs_closed_unsubmitted"] += 1
+    if close_unsubmitted:
+        for row in db.unsubmitted_open_jobs():
+            db.close_job(row["job_id"], status="closed-unsubmitted")
+            report["jobs_closed_unsubmitted"] += 1
     # 5. protection owned by rows that are no longer open
     orphans = db.orphan_protection()
     if orphans:

@@ -143,7 +143,7 @@ class NetFaultRule:
     disconnect   the link dies mid-stream: fires per transferred block,
                  stranding the remote-side tmp of an in-flight upload,
     outage       the whole site goes down — every later request raises
-                 :class:`~.faults.RemoteUnavailable`.
+                 :class:`~.faults.RemoteUnavailable` until it is revived.
 
     Triggering mirrors :class:`~.faults.FaultRule`: ``nth`` /
     ``every`` / seeded ``p`` / always, capped by ``times``."""
@@ -166,7 +166,11 @@ class NetworkFaultModel:
     :class:`~.faults.FaultPlan` — counters and the rng mutate
     under one lock. Also owns the retry policy: ``max_retries`` transient
     attempts per transfer, each preceded by a seeded-jitter exponential
-    backoff charge (:meth:`backoff_s`) — same seed, same total charge."""
+    backoff charge (:meth:`backoff_s`) — same seed, same total charge.
+
+    A site marked dead stays dead until :meth:`revive` (or
+    :meth:`RemoteStore.mark_available`) brings it back; nothing else
+    caches its death."""
 
     def __init__(
         self,
@@ -190,6 +194,11 @@ class NetworkFaultModel:
     def mark_dead(self, remote: str) -> None:
         with self._lock:
             self._dead.add(remote)
+
+    def revive(self, remote: str) -> None:
+        """The site is back: its requests go through again."""
+        with self._lock:
+            self._dead.discard(remote)
 
     # -- retry policy ---------------------------------------------------
     def backoff_s(self, attempt: int) -> float:
@@ -262,7 +271,10 @@ class RemoteStore(AnnexStore):
     The backing store is real; the costs are the link's (its FS carries the
     :class:`NetProfile`). That FS's incarnation token stamps the remote-side
     tmps, so a killed client's half-uploaded objects are provably dead and
-    swept when the site is opened again."""
+    swept when the site is opened again (``sweep_on_open``, the default).
+
+    A site marked unavailable, by a failover or by hand, is skipped until
+    :meth:`mark_available`."""
 
     def __init__(
         self,
@@ -274,6 +286,7 @@ class RemoteStore(AnnexStore):
         chunk_threshold: int | None = None,
         fault_model: NetworkFaultModel | None = None,
         faults=None,
+        sweep_on_open: bool = True,
     ):
         self.net = coerce_net(net)
         self.fault_model = fault_model
@@ -284,7 +297,8 @@ class RemoteStore(AnnexStore):
         self.transfers = 0
         self.retries = 0
         fs = FS(self.net.to_fs_profile(), clock, faults=faults)
-        super().__init__(root, fs, name=name, chunk_params=chunk_params, chunk_threshold=chunk_threshold)
+        super().__init__(root, fs, name=name, sweep_on_open=sweep_on_open, chunk_params=chunk_params,
+                         chunk_threshold=chunk_threshold)
 
     # -- availability ---------------------------------------------------
     @property
@@ -295,6 +309,17 @@ class RemoteStore(AnnexStore):
 
     def mark_unavailable(self) -> None:
         self._marked_dead = True
+
+    def mark_available(self) -> None:
+        """Bring the site back after an outage or a failover: clear this
+        store's mark and the fault model's dead entry, and forget the keys
+        it was known to hold (what a site held before it went away is asked
+        again, not trusted)."""
+        self._marked_dead = False
+        with self._known_lock:
+            self._known.clear()
+        if self.fault_model is not None:
+            self.fault_model.revive(self.name)
 
     # -- fault gates ----------------------------------------------------
     def _gate(self, op: str) -> None:
@@ -320,7 +345,8 @@ class RemoteStore(AnnexStore):
     def has_many(self, keys, fresh: bool = False) -> set[str]:
         """ONE round trip for the whole batch (the site answers the probes
         at its own per-key cost), not one per key. ``fresh=True`` bypasses
-        the known-key set and asks the site."""
+        the known-key set and asks the site. The known-key set holds only
+        what a live site answered; :meth:`mark_available` clears it."""
         present: set[str] = set()
         misses: list[str] = []
         for key in keys:
@@ -574,14 +600,18 @@ def pull_keys(repo, keys: list[str] | None = None, journal: bool = True, db=None
     return report
 
 
-def fetch_one(repo, key: str, stores: list[AnnexStore], report: dict, on_fetch=None) -> str | None:
+def fetch_one(repo, key: str, stores: list[AnnexStore], report: dict, on_fetch=None,
+              chunked: bool = False) -> str | None:
     """Fetch ``key`` into the local annex from the first available store
     that holds it (a chunked key as a delta: only the chunks the local
     store lacks, the manifest bound last), failing over past a store that
-    is down or errors past its retries: that store is marked unavailable.
-    ``on_fetch`` is called after each object moved. Returns the serving
-    store's name; None when no store holds the key; raises the last error
-    when every store that might hold it failed."""
+    is down or errors past its retries: that store is marked unavailable
+    (until :meth:`RemoteStore.mark_available`; the order of ``stores`` is
+    the caller's, read afresh each call, so a revived site is asked in its
+    place again). A chunk-aware store (any store, with ``chunked``) is asked
+    for the key's manifest. ``on_fetch`` is called after each object moved.
+    Returns the serving store's name; None when no store holds the key;
+    raises the last error when every store that might hold it failed."""
     last_err: BaseException | None = None
     for store in stores:
         if isinstance(store, RemoteStore) and not store.available:
@@ -589,7 +619,8 @@ def fetch_one(repo, key: str, stores: list[AnnexStore], report: dict, on_fetch=N
         try:
             if key not in _store_has(store, [key], report):
                 continue  # this store never had it: not a failure
-            chunks = net_retry(store, lambda: store.manifest_of(key), report) if store.chunk_aware else None
+            chunks = (net_retry(store, lambda: store.manifest_of(key), report)
+                      if store.chunk_aware or chunked else None)
             if chunks is None:
                 net_retry(store, lambda: store.fetch_into(key, repo.annex), report)
                 report["chunks_fetched"] += 1

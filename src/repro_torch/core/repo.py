@@ -294,12 +294,13 @@ class Repository:
             raise ValueError(f"branch exists: {branch}")
         self.set_branch(branch, at)
 
-    def switch(self, branch: str) -> None:
-        """Make ``branch`` the current one and check out its tip."""
+    def switch(self, branch: str, checkout: bool = True) -> None:
+        """Make ``branch`` the current one and, with ``checkout``, write its
+        tip to the worktree."""
         if not self.fs.exists(self._ref_path(branch)):
             raise ValueError(f"no such branch: {branch}")
         write_atomic(self.fs, os.path.join(self.repro_dir, "HEAD"), branch.encode())
-        head = self.head_commit()
+        head = self.head_commit() if checkout else None
         if head:
             self.checkout(head)
 
@@ -537,14 +538,17 @@ class Repository:
         self,
         changes: dict[str, dict | None],
         message: str = "",
+        parents: list[str] | None = None,
+        author: str = "repro",
+        allow_empty: bool = False,
         base_commit: str | None = None,
         base_tree: str | None = None,
         spec: dict | None = None,
-        allow_empty: bool = False,
         defer: list | None = None,
     ) -> tuple[str, str | None]:
         """Apply ``changes`` on top of ``base_tree`` and write a commit whose
-        parent is ``base_commit``; moves no ref. Returns ``(commit oid, tree
+        parents are ``parents`` (default: ``base_commit``) and whose author
+        line is ``author``; moves no ref. Returns ``(commit oid, tree
         oid)``, or the base commit when nothing changed and ``allow_empty``
         is false. ``spec`` (a RunSpec JSON dict) becomes the commit's
         ``spec`` field. With ``defer`` the commit is appended there instead
@@ -555,8 +559,8 @@ class Repository:
             return base_commit, base_tree
         commit = {
             "tree": tree_oid or "",
-            "parents": [base_commit] if base_commit else [],
-            "author": "repro",
+            "parents": parents if parents is not None else ([base_commit] if base_commit else []),
+            "author": author,
             "timestamp": time.time(),
             "message": message,
         }
@@ -567,12 +571,15 @@ class Repository:
             return self.objects.oid_for("commit", canonical_json(commit)), tree_oid
         return self.objects.put_commit(commit), tree_oid
 
-    def save(self, paths=None, message: str = "", spec: dict | None = None, engine: str = "incremental",
-             branch: str | None = None) -> str:
+    def save(self, paths=None, message: str = "", parents: list[str] | None = None, author: str = "repro",
+             allow_empty: bool = False, branch: str | None = None, engine: str = "incremental",
+             spec: dict | None = None) -> str:
         """Stage ``paths`` (files or directories; None = the whole worktree,
         which also records tracked files that are gone) on top of the tip of
         ``branch`` (default: the current branch) and commit; moves that
-        branch. Returns the commit oid.
+        branch. Returns the commit oid. ``parents`` (default: the tip) and
+        ``author`` go into the commit; with ``allow_empty`` a save that
+        changes nothing still commits.
 
         ``engine="incremental"`` rebuilds only the dirty spine of the tree;
         ``engine="full"`` is the seed-era rebuild (``_save_full``). Both give
@@ -583,7 +590,7 @@ class Repository:
         with self.ref_lock:
             base = self.branch_head(branch)
             if engine == "full":
-                return self._save_full(paths, message, branch, base, spec)
+                return self._save_full(paths, message, parents, author, allow_empty, branch, base, spec)
             base_tree = self._tree_oid_of(base)
             if paths is None:
                 flat = self.tree_of(base) if base else {}
@@ -598,12 +605,14 @@ class Repository:
                         changes[rel] = entry
             else:
                 changes = dict(self.stage_paths(paths))
-            oid, _ = self.commit_changes(changes, message=message, base_commit=base, base_tree=base_tree, spec=spec)
+            oid, _ = self.commit_changes(changes, message=message, parents=parents, author=author,
+                                         allow_empty=allow_empty, base_commit=base, base_tree=base_tree, spec=spec)
             if oid != base:
                 self.set_branch(branch, oid)
             return oid
 
-    def _save_full(self, paths, message: str, branch: str, base: str | None, spec: dict | None) -> str:
+    def _save_full(self, paths, message: str, parents: list[str] | None, author: str, allow_empty: bool,
+                   branch: str, base: str | None, spec: dict | None) -> str:
         """The seed-era save: read the whole base tree, apply the staged
         paths to its flat map, and write every tree object again
         (O(repository files)); moves ``branch`` when the tree changed."""
@@ -625,12 +634,12 @@ class Repository:
                 for stale in [k for k in flat if k.startswith(rel + "/")]:
                     del flat[stale]
                 flat[rel] = self._hash_working_file(rel)
-        if flat == before and base is not None:
+        if flat == before and base is not None and not allow_empty:
             return base  # nothing changed: no commit
         commit = {
             "tree": self._write_nested(flat) or "",
-            "parents": [base] if base else [],
-            "author": "repro",
+            "parents": parents if parents is not None else ([base] if base else []),
+            "author": author,
             "timestamp": time.time(),
             "message": message,
         }
@@ -662,7 +671,7 @@ class Repository:
 
         return emit(root)
 
-    def merge_octopus(self, branches: list[str], message: str = "") -> str:
+    def merge_octopus(self, branches: list[str], message: str = "", author: str = "repro") -> str:
         """N-parent merge onto the current branch (paper §5.8): the union of
         each branch's changes against the branch's tip; a path two branches
         changed to different contents is a conflict (the scheduler's §5.5
@@ -688,7 +697,7 @@ class Repository:
             commit = {
                 "tree": self._update_tree(base_tree, merged) or "",
                 "parents": parent_oids,
-                "author": "repro",
+                "author": author,
                 "timestamp": time.time(),
                 "message": message or f"octopus merge of {len(branches)} branches",
             }
@@ -779,6 +788,11 @@ class Repository:
             raise KeyError(f"{path} is not an annexed file")
         return entry["key"]
 
+    def whereis(self, key: str) -> list[str]:
+        """Names of the stores holding ``key`` (the local store first), by
+        each store's own probe; a site marked unavailable is skipped."""
+        return [s.name for s in [self.annex, *self._remotes] if getattr(s, "available", True) and s.has(key)]
+
     def whereis_many(self, keys: list[str], fresh: bool = False) -> dict[str, list[str]]:
         """{key: names of the stores holding it}: one ``has_many`` per store
         (the known-key sets first, unless ``fresh``), never a listing. A
@@ -788,17 +802,19 @@ class Repository:
         present = {s.name: s.has_many(keys, fresh=fresh) for s in stores}
         return {key: [s.name for s in stores if key in present[s.name]] for key in keys}
 
-    def annex_fetch_key(self, key: str) -> AnnexStore:
+    def annex_fetch_key(self, key: str, chunked: bool = False) -> AnnexStore:
         """The local store, after fetching ``key`` into it if it is not
         there (a fresh probe: a key dropped behind this store's back is
         fetched, not read from a stale cache). A chunked object moves as a
-        delta: only the chunks the local store lacks. The sites are asked in
-        order; one that is down or errors past its retries is marked
-        unavailable and the next is asked (ROADMAP.md §C7: the reference
-        raises there). Raises when no site can serve the key."""
+        delta: only the chunks the local store lacks; ``chunked`` asks even
+        a store that is not chunk-aware for the key's manifest. The sites
+        are asked in order; one that is down or errors past its retries is
+        marked unavailable and the next is asked (ROADMAP.md §C7: the
+        reference raises there). Raises when no site can serve the key."""
         if self.annex.has(key, fresh=True):
             return self.annex
-        if fetch_one(self, key, self._remotes, {"retries": 0, "failovers": 0, "chunks_fetched": 0}) is None:
+        report = {"retries": 0, "failovers": 0, "chunks_fetched": 0}
+        if fetch_one(self, key, self._remotes, report, chunked=chunked) is None:
             raise FileNotFoundError(f"no store has {key}")
         return self.annex
 
@@ -809,8 +825,8 @@ class Repository:
         parsed = parse_pointer_full(self.fs.read_bytes(os.path.join(self.root, path)))
         if parsed is None:
             return False  # already content
-        key = parsed[0]
-        self.annex_fetch_key(key)
+        key, chunked = parsed
+        self.annex_fetch_key(key, chunked=chunked)
         self.annex.copy_to(key, os.path.join(self.root, path), tmp_dir=self.repro_dir)
         return True
 
@@ -890,6 +906,34 @@ class Repository:
         if self.annex.has(key):
             # a chunked drop removes the manifest; its chunks stay (gc)
             self.annex.drop(key)
+
+    def annex_push(self, store: AnnexStore, keys: list[str] | None = None) -> int:
+        """Copy local annex content to ``store`` (datalad push): ``keys``
+        (default: every local key) that the local store holds and ``store``
+        lacks, by one ``has_many`` on each side; a chunked object moves only
+        the chunks ``store`` lacks, then its manifest. Not journaled (the
+        journaled, resumable push to a site is ``Session.push``). Returns
+        the number of keys copied."""
+        if keys is None:
+            keys = self.annex.keys()
+        local = self.annex.has_many(keys)
+        remote = store.has_many(keys)
+        n = 0
+        for key in keys:
+            if key not in local or key in remote:
+                continue
+            chunks = self.annex.manifest_of(key) if self.annex.chunk_aware else None
+            if chunks is not None:
+                remote_chunks = store.has_many(chunks)
+                for ck in chunks:
+                    if ck not in remote_chunks:
+                        store.receive_file(ck, self.annex.fs, self.annex._path(ck))
+                        remote_chunks.add(ck)
+                store.put_manifest(key, chunks)
+            else:
+                store.receive_file(key, self.annex.fs, self.annex._path(key))
+            n += 1
+        return n
 
     # -- lock/unlock -----------------------------------------------------
     def unlock(self, path: str) -> None:

@@ -58,7 +58,7 @@ from dataclasses import dataclass
 
 from . import slurm as S
 from .dag import Pipeline
-from .faults import BACKOFF_BASE_S, is_crash, is_transient
+from .faults import is_crash, is_transient
 from .jobdb import JobDB, job_spec
 from .records import TITLE_SLURM, RunRecord, spec_of
 from .recovery import JournalHandle
@@ -123,6 +123,7 @@ class SlurmScheduler:
         retry budget is bounded, so a dead controller still surfaces."""
         plan = self.repo.faults
         retries = plan.max_slurm_retries if plan is not None else 3
+        base = plan.backoff_base_s if plan is not None else 0.05
         attempt = 0
         while True:
             try:
@@ -130,7 +131,7 @@ class SlurmScheduler:
             except BaseException as e:
                 if is_crash(e) or not is_transient(e) or attempt >= retries:
                     raise
-                self.repo.fs.clock.charge(BACKOFF_BASE_S * (2 ** attempt))
+                self.repo.fs.clock.charge(base * (2 ** attempt))
                 attempt += 1
 
     # ------------------------------------------------------------- submit
@@ -235,7 +236,7 @@ class SlurmScheduler:
         return job_ids
 
     # ---------------------------------------------------- pipelines (§14)
-    def submit_pipeline(self, pipeline: Pipeline, refresh: bool = False) -> dict[str, int]:
+    def submit_pipeline(self, pipeline: Pipeline, refresh: bool = False, run_id: str | None = None) -> dict[str, int]:
         """Submit a whole :class:`~.dag.Pipeline` as topologically batched
         ``submit_many`` calls, one per level, with ``afterok`` edges between
         levels. Returns {stage name: job DB id}.
@@ -250,9 +251,11 @@ class SlurmScheduler:
         The submission runs under an intent journal (kind ``dag``): the
         header carries the stage specs, the edges and ``refresh``, each
         level appends its job ids once landed, and ``recover()`` submits
-        again only the levels a crash prevented, with the same refresh."""
+        again only the levels a crash prevented, with the same refresh. The
+        run's id (``run_id``, default the pipeline id's head and a random
+        suffix) tags its rows and names it in the journal."""
         levels = pipeline.levels()
-        pid = f"{pipeline.pipeline_id[:12]}-{uuid.uuid4().hex[:8]}"
+        pid = run_id or f"{pipeline.pipeline_id[:12]}-{uuid.uuid4().hex[:8]}"
         repo = self.repo
         jh = JournalHandle.begin(repo, "dag", {
             "pipeline": pid,
@@ -463,7 +466,7 @@ class SlurmScheduler:
     def finish(self, job_id: int | None = None, slurm_job_id: int | None = None, close_failed_jobs: bool = False,
                commit_failed_jobs: bool = False, branches: bool = False, octopus: bool = False,
                engine: str = "incremental", data_plane: str = "fused", job_ids: list[int] | None = None,
-               push_to: str | list[str] | None = None) -> list[FinishResult]:
+               journal: bool = True, push_to: str | list[str] | None = None) -> list[FinishResult]:
         """``datalad slurm-finish``: commit results of finished jobs.
 
         Running jobs are ignored (they stay for a future call). Failed jobs
@@ -490,10 +493,12 @@ class SlurmScheduler:
         tree (``Repository.save(engine="full")``). Neither records run-cache
         rows.
 
-        An intent journal is written before the commit phase, so a crash
-        anywhere in it is replayed exactly once by ``Session.recover()``
-        (§10), with the engine and data plane that ``recover`` re-finishes
-        with; ``job_ids`` restricts the batch to
+        With ``journal`` (the default) an intent journal is written before
+        the commit phase, so a crash anywhere in it is replayed exactly once
+        by ``Session.recover()`` (§10), with the engine and data plane that
+        ``recover`` re-finishes with; without one, a killed batch's open
+        rows stay open for the next finish and its unpublished commits are
+        garbage. ``job_ids`` restricts the batch to
         those rows (recovery re-finishes precisely the jobs a crashed batch
         left open).
 
@@ -548,19 +553,22 @@ class SlurmScheduler:
             to_commit.append((job, state))
         if not to_commit:
             return results
-        jh = JournalHandle.begin(self.repo, "finish", {
-            "branch": self.repo.current_branch(),
-            "jobs": [{"job_id": j["job_id"], "slurm_id": j["slurm_id"], "state": st} for j, st in to_commit],
-            "flags": {"branches": branches, "octopus": octopus, "engine": engine, "data_plane": data_plane,
-                      "close_failed_jobs": close_failed_jobs, "commit_failed_jobs": commit_failed_jobs},
-        })
-        self.repo.crash_point("finish:journal-written")
+        jh = None
+        if journal:
+            jh = JournalHandle.begin(self.repo, "finish", {
+                "branch": self.repo.current_branch(),
+                "jobs": [{"job_id": j["job_id"], "slurm_id": j["slurm_id"], "state": st} for j, st in to_commit],
+                "flags": {"branches": branches, "octopus": octopus, "engine": engine, "data_plane": data_plane,
+                          "close_failed_jobs": close_failed_jobs, "commit_failed_jobs": commit_failed_jobs},
+            })
+            self.repo.crash_point("finish:journal-written")
         # a failure mid-batch that is no crash leaves the journal: the jobs it
         # covers are still open, and recover() or the next finish completes
         # them exactly once
         results += self._commit_jobs_batched(to_commit, use_branch=branches or octopus, octopus=octopus,
                                              engine=engine, data_plane=data_plane, journal=jh)
-        jh.done()
+        if jh is not None:
+            jh.done()
         self.maybe_repack()
         if push_to is not None and any(r.commit for r in results):
             self._auto_push(push_to, results)
@@ -614,16 +622,17 @@ class SlurmScheduler:
         return closed
 
     def _commit_jobs_batched(self, to_commit: list[tuple[dict, str]], use_branch: bool, octopus: bool,
-                             engine: str, data_plane: str, journal: JournalHandle) -> list[FinishResult]:
+                             engine: str, data_plane: str, journal: JournalHandle | None) -> list[FinishResult]:
         """One commit per job (§5.1: one reproducibility record each), the
         whole batch on one base-tree read. The data plane runs first and
         outside the locks; the ordered metadata phase (record, commit
         chaining, ref publication, job closing) runs under the ref locks, so
         concurrent finishers publish serially. A crash between the phases
         loses nothing: ingested objects are content-addressed and the jobs
-        are still open. Each commit is journaled before its ref moves, but
-        the full engine's, which ``save`` publishes itself: it is journaled
-        after, so the replay finds the ref at it and closes the row."""
+        are still open. Each commit is journaled (with a ``journal``) before
+        its ref moves, but the full engine's, which ``save`` publishes
+        itself: it is journaled after, so the replay finds the ref at it and
+        closes the row."""
         repo = self.repo
         prepared = []
         for job, state in to_commit:
@@ -674,7 +683,8 @@ class SlurmScheduler:
                 if engine == "full":
                     commit = repo.save(paths=save_paths, message=message, spec=spec_json, engine="full",
                                        branch=branch_name)
-                    journal.append({"job_id": job["job_id"], "commit": commit, "job_branch": branch_name})
+                    if journal is not None:
+                        journal.append({"job_id": job["job_id"], "commit": commit, "job_branch": branch_name})
                 else:
                     changes = staged[idx] if staged is not None else repo.stage_paths(save_paths, single_pass=False)
                     if use_branch:
@@ -686,7 +696,8 @@ class SlurmScheduler:
                         head_commit = commit
                     # journaled BEFORE the ref moves: the replay tells
                     # published from committed-only (exactly once)
-                    journal.append({"job_id": job["job_id"], "commit": commit, "job_branch": branch_name})
+                    if journal is not None:
+                        journal.append({"job_id": job["job_id"], "commit": commit, "job_branch": branch_name})
                     repo.crash_point("finish:before-publish")
                     # publish before closing the job: a closed job must always
                     # have its commit reachable
@@ -713,7 +724,8 @@ class SlurmScheduler:
             if octopus and new_branches:
                 repo.crash_point("finish:before-octopus")
                 merge = repo.merge_octopus(new_branches, message=f"octopus merge of {len(new_branches)} slurm jobs")
-                journal.append({"octopus": merge})
+                if journal is not None:
+                    journal.append({"octopus": merge})
                 repo.crash_point("finish:after-octopus")
         # recorded after publication: a crash before this insert costs a
         # future cache miss, never a wrong hit

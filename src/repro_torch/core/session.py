@@ -117,17 +117,19 @@ class Session:
     def head(self) -> str | None:
         return self.repo.head_commit()
 
-    def gc(self) -> dict:
+    def gc(self, delete_loose: bool = True, prune_cache: bool = True, sweep_chunks: bool = True) -> dict:
         """Compact the object store (DESIGN.md §8): move the loose objects
-        into a pack, published before any loose file is unlinked; drop the
-        chunks no manifest references (§12) and the run-cache rows whose
-        commit or annex objects are gone (§11). Returns the repack's stats,
-        plus ``chunks_swept`` (a chunk-aware annex only) and
-        ``cache_evicted``."""
-        stats = dict(self.repo.objects.repack())
-        if self.repo.annex.chunk_aware:
+        into a pack, published before any loose file is unlinked (with
+        ``delete_loose``); with ``sweep_chunks``, drop the chunks no
+        manifest references (§12); with ``prune_cache``, the run-cache rows
+        whose commit or annex objects are gone (§11). Returns the repack's
+        stats, plus ``chunks_swept`` (a chunk-aware annex only) and
+        ``cache_evicted`` where those ran."""
+        stats = dict(self.repo.objects.repack(delete_loose=delete_loose))
+        if sweep_chunks and self.repo.annex.chunk_aware:
             stats["chunks_swept"] = self.repo.annex.sweep_orphan_chunks()
-        stats["cache_evicted"] = len(RunCache(self.repo).evict_missing(self._db()))
+        if prune_cache:
+            stats["cache_evicted"] = len(RunCache(self.repo).evict_missing(self._db()))
         return stats
 
     # ------------------------------------------------------------ execution
@@ -236,31 +238,33 @@ class Session:
         Returns its :class:`~.remote.RemoteStore`."""
         return self.repo.add_remote(store_root, name=name, net=net)
 
-    def push(self, remote: str | None = None, keys: list[str] | None = None) -> list[dict]:
+    def push(self, remote: str | None = None, keys: list[str] | None = None, journal: bool = True) -> list[dict]:
         """Chunk-level resumable push of ``keys`` (default: every annex key
         HEAD references) to ``remote`` (a name; default: every available
-        site), journaled, recorded in the location hints. One report per
-        site."""
+        site), journaled (unless ``journal`` is false), recorded in the
+        location hints. One report per site."""
         stores = ([self.repo.remote_by_name(remote)] if remote is not None
                   else [st for st in self.repo.remote_stores if st.available])
         if not stores:
             raise ValueError("no (available) remotes configured")
         db = self._db()
-        return [push_keys(self.repo, st, keys, db=db) for st in stores]
+        return [push_keys(self.repo, st, keys, journal=journal, db=db) for st in stores]
 
-    def pull(self, paths: list[str] | None = None, keys: list[str] | None = None) -> dict:
+    def pull(self, paths: list[str] | None = None, keys: list[str] | None = None, journal: bool = True) -> dict:
         """Chunk-level resumable pull into the local annex, failing over
-        between sites. ``paths`` name worktree files (their HEAD keys),
-        ``keys`` keys; neither: every annex key HEAD references. Keys that
-        are local never move."""
+        between sites, journaled unless ``journal`` is false. ``paths`` name
+        worktree files (their HEAD keys), ``keys`` keys; neither: every
+        annex key HEAD references. Keys that are local never move."""
         if paths is not None:
             keys = list(keys or []) + [self.repo.annex_key_at(p) for p in paths]
-        return pull_keys(self.repo, keys, db=self._db())
+        return pull_keys(self.repo, keys, journal=journal, db=self._db())
 
-    def fetch(self) -> dict:
+    def fetch(self, missing_only: bool = True, journal: bool = True) -> dict:
         """Pull every annex key HEAD references that is not local (a cold
-        restore)."""
-        return self.pull()
+        restore). A pull never moves a local key, so ``missing_only`` is
+        always so (the reference keeps the parameter for symmetry)."""
+        del missing_only
+        return self.pull(journal=journal)
 
     def drop(self, path: str, force: bool = False) -> None:
         """Drop the local copy of an annexed file, leaving its pointer;
@@ -280,12 +284,13 @@ class Session:
         return {k: {"stores": stores[k], "recorded": recorded.get(k, [])} for k in keys}
 
     # ------------------------------------------------------------- recovery
-    def recover(self) -> dict:
-        """Crash recovery (§10): break stale locks, sweep dead-owner tmp
-        files, replay intent journals (exactly-once finish and submit),
-        close orphan rows, release orphan protection. Idempotent; returns a
-        report."""
-        return recovery.recover(self)
+    def recover(self, close_unsubmitted: bool = True, max_tmp_age_s: float | None = 3600.0) -> dict:
+        """Crash recovery (§10): break stale locks, sweep tmp files whose
+        writer is dead or older than ``max_tmp_age_s``, replay intent
+        journals (exactly-once finish and submit), close the open rows no
+        submission reached (with ``close_unsubmitted``), release orphan
+        protection. Idempotent; returns a report."""
+        return recovery.recover(self, close_unsubmitted=close_unsubmitted, max_tmp_age_s=max_tmp_age_s)
 
     def verify(self, repair: bool = False) -> dict:
         """fsck: cross-check the job database, refs, object store and annex
@@ -295,15 +300,17 @@ class Session:
 
 def open(root: str, create: bool = False, profile: FSProfile = NULL_FS, clock: SimClock | None = None,
          cluster: SlurmCluster | None = None, cli_startup_s: float = 0.0, max_workers: int = 8,
-         ingest_workers: int = 0, run_cache: bool = True, cache_env: dict | None = None, faults=None,
-         net_faults=None, **init_kwargs) -> Session:
+         auto_repack_threshold: int | None | str = "auto", ingest_workers: int = 0, run_cache: bool = True,
+         cache_env: dict | None = None, faults=None, net_faults=None, **init_kwargs) -> Session:
     """Open (or with ``create=True``, initialize) a repository at ``root``
     and return a :class:`Session` over it. ``run_cache`` turns the §11 run
     cache on or off (``submit*(..., refresh=True)`` skips its lookup for one
     call); ``cache_env`` folds a fingerprint of the environment into every
     execution key. ``cli_startup_s`` is the CLI start-up charged once per
     submission batch and per finish (0.0: the library alone);
-    ``ingest_workers`` the finish's ingest threads (§9). ``profile`` and ``clock`` put the repository on the filesystem cost
+    ``ingest_workers`` the finish's ingest threads (§9);
+    ``auto_repack_threshold`` is the :class:`Session`'s. ``profile`` and
+    ``clock`` put the repository on the filesystem cost
     model (every operation charged on ``clock``); ``faults`` attaches a
     :class:`~.faults.FaultPlan` to its FS and the (lazily created) cluster,
     the fault-injection harness of §10; ``net_faults`` attaches a
@@ -319,4 +326,5 @@ def open(root: str, create: bool = False, profile: FSProfile = NULL_FS, clock: S
     else:
         raise FileNotFoundError(f"not a repro repository: {root} (pass create=True to initialize)")
     return Session(repo, cluster=cluster, cli_startup_s=cli_startup_s, max_workers=max_workers,
-                   ingest_workers=ingest_workers, run_cache=run_cache, cache_env=cache_env)
+                   auto_repack_threshold=auto_repack_threshold, ingest_workers=ingest_workers,
+                   run_cache=run_cache, cache_env=cache_env)

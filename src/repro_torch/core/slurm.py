@@ -161,15 +161,16 @@ def _kill(proc: subprocess.Popen) -> None:
 
 
 class LocalSlurmCluster(SlurmCluster):
-    SBATCH_COST_S = 0.05  # the simulated clock's charge for one sbatch (the reference's default)
-    SACCT_COST_S = 0.02  # and for one accounting query
     CANCEL_WAIT_S = 10.0  # how long scancel waits for the processes it killed
 
-    def __init__(self, max_workers: int = 8, clock: SimClock | None = None, first_job_id: int = 11_452_000,
-                 faults=None):
+    def __init__(self, max_workers: int = 8, clock: SimClock | None = None, sbatch_cost_s: float = 0.05,
+                 sacct_cost_s: float = 0.02, first_job_id: int = 11_452_000, faults=None):
         self.pool = ThreadPoolExecutor(max_workers=max_workers)
         self.clock = clock or SimClock()
         self.faults = faults  # a FaultPlan: Slurm rules and task fates
+        # the simulated clock's charge for one sbatch and one accounting query
+        self.sbatch_cost_s = sbatch_cost_s
+        self.sacct_cost_s = sacct_cost_s
         self._fs = FS()  # the compute nodes' own writes: uncharged, never faulted
         self._jobs: dict[int, SlurmJob] = {}
         self._procs: dict[tuple[int, int], subprocess.Popen] = {}
@@ -187,7 +188,7 @@ class LocalSlurmCluster(SlurmCluster):
                dependency: list[int] | None = None) -> int:
         if self.faults is not None:
             self.faults.on_slurm("sbatch")
-        self.clock.charge(self.SBATCH_COST_S)
+        self.clock.charge(self.sbatch_cost_s)
         if not os.path.exists(os.path.join(workdir, script)) and not os.path.isabs(script):
             raise FileNotFoundError(f"job script not found: {script} (cwd {workdir})")
         failed_parent = False
@@ -394,7 +395,7 @@ class LocalSlurmCluster(SlurmCluster):
     def _sacct(self) -> None:
         """One accounting query: the fault plan, then its charge."""
         self._on_slurm("sacct")
-        self.clock.charge(self.SACCT_COST_S)
+        self.clock.charge(self.sacct_cost_s)
 
     def sacct(self, job_id: int) -> str:
         self._sacct()

@@ -51,10 +51,8 @@ from ..core.repo import Repository
 from ..core.spec import RunSpec
 
 MARKER = "[REPRO CKPT]"
-SUBDIR = "checkpoints"  # the reference's default: step N lives in checkpoints/step_<N:08d>
 
 _BLOCK = 1 << 20  # streaming quantum for leaf serialization
-FETCH_WORKERS = 8  # restore's default thread count
 
 
 def _flatten(tree, prefix=""):
@@ -133,8 +131,14 @@ def _from_rank0(obj):
 
 
 class CheckpointManager:
-    def __init__(self, repo: Repository):
+    """Checkpoints of one repository: step N lives in
+    ``{subdir}/step_{N:08d}``; ``fetch_workers`` is the threads a restore
+    reads leaves on unless it is given its own."""
+
+    def __init__(self, repo: Repository, subdir: str = "checkpoints", fetch_workers: int = 8):
         self.repo = repo
+        self.subdir = subdir
+        self.fetch_workers = fetch_workers
         self._thread: threading.Thread | None = None
         self._async_exc: BaseException | None = None
         self._async_sharded = False  # the save in flight ends in a barrier of every rank
@@ -211,7 +215,7 @@ class CheckpointManager:
             raise exc
 
     def _write(self, step: int, host: dict, data_step: int, extra: dict | None, message: str) -> str:
-        reldir = f"{SUBDIR}/step_{step:08d}"
+        reldir = f"{self.subdir}/step_{step:08d}"
         manifest = {"step": step, "data_step": data_step, "leaves": {}, "extra": extra or {}}
         for path, (raw, dtype_name) in host.items():
             fname = path.replace("/", ".") + ".npy"
@@ -300,11 +304,11 @@ class CheckpointManager:
         return self.repo.annex.read(entry["key"])
 
     def restore(self, commitish: str | None = None, device: str | torch.device = "cuda",
-                fetch_workers: int = FETCH_WORKERS, shardings=None):
+                fetch_workers: int | None = None, shardings=None):
         """(state tree of tensors on ``device``, manifest) of a checkpoint
         commit (branch, oid or unique prefix; default the newest), or
         (None, None) when there is none. Leaves are read and verified on
-        ``fetch_workers`` threads.
+        ``fetch_workers`` threads (default: the manager's).
 
         ``shardings``: a tree like the state's, or a flat ``{path: (mesh,
         placements)}``, to restore under a mesh (the elastic restart; any
@@ -316,10 +320,11 @@ class CheckpointManager:
             return self._restore_sharded(commitish, device, fetch_workers, _flatten(shardings))
         return self._restore(commitish, device, fetch_workers)
 
-    def _restore(self, commitish: str | None, device, fetch_workers: int = FETCH_WORKERS, params_only: bool = False):
+    def _restore(self, commitish: str | None, device, fetch_workers: int | None = None, params_only: bool = False):
         """``restore`` onto one device; ``params_only`` reads the ``params``
         part of the state alone, as serving does (it needs no moments)."""
         dev = resolve_device(device)
+        workers = fetch_workers if fetch_workers is not None else self.fetch_workers
         if commitish is None:
             latest = self.latest()
             if latest is None:
@@ -329,7 +334,7 @@ class CheckpointManager:
         rec = RunRecord.from_message(self.repo.objects.get_commit(oid)["message"])
         if rec is None or "checkpoint_step" not in rec.extras:
             raise ValueError(f"commit {oid} is not a checkpoint")
-        reldir = f"{SUBDIR}/step_{rec.extras['checkpoint_step']:08d}"
+        reldir = f"{self.subdir}/step_{rec.extras['checkpoint_step']:08d}"
         manifest = json.loads(self._tree_bytes(oid, f"{reldir}/manifest.json"))
         leaves = {path: meta for path, meta in manifest["leaves"].items()
                   if not params_only or path.split("/", 1)[0] == "params"}
@@ -358,8 +363,8 @@ class CheckpointManager:
             return path, np.load(io.BytesIO(data))
 
         items = list(jobs.items())
-        if fetch_workers > 1 and len(items) > 1:
-            with ThreadPool(min(fetch_workers, len(items))) as pool:
+        if workers > 1 and len(items) > 1:
+            with ThreadPool(min(workers, len(items))) as pool:
                 arrays = dict(pool.map(fetch, items))
         else:
             arrays = dict(fetch(it) for it in items)
@@ -370,7 +375,7 @@ class CheckpointManager:
                           else tensor_from_numpy(arr, dev))
         return _unflatten(flat), manifest
 
-    def _restore_sharded(self, commitish, device, fetch_workers: int, shardings: dict):
+    def _restore_sharded(self, commitish, device, fetch_workers: int | None, shardings: dict):
         """``restore`` with ``shardings`` (flat): rank 0 restores to the CPU
         and every leaf is sent from there."""
         dev = resolve_device(device)

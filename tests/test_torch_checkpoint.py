@@ -4,7 +4,9 @@ A checkpoint that either package writes restores bit for bit in the other;
 for the same values both write the same annex keys and the same checkpoint
 subtree; the port's chunk cutter gives the reference's chunks; and serving
 from a JAX-saved checkpoint gives JAX's greedy tokens exactly (fp32, smoke
-sizes).
+sizes). A checkpoint saved under another ``subdir`` by either package is
+restored by the other at either restore width (the manager's
+``fetch_workers``), and ``chip_smoke.py``'s phase 44 runs at smoke size.
 """
 import json
 import os
@@ -307,3 +309,80 @@ def test_serve_main_refuses_dtype_with_repo(tmp_path, capsys):
     with pytest.raises(SystemExit):
         serve.main(["--arch", ARCH, "--device", "cpu", "--repo", str(tmp_path), "--dtype", "float32"])
     assert "--dtype is not used with --repo" in capsys.readouterr().err
+
+
+# ------------------------------------------------- another subdir, both restore widths
+@pytest.mark.parametrize("writer", ["port", "ref"])
+def test_a_checkpoint_under_another_subdir_crosses_the_packages(writer, tmp_path, monkeypatch):
+    """A smoke qwen3 checkpoint saved with ``subdir="ckpt_alt"`` by one
+    package: its files lie under ``ckpt_alt/step_00000003/`` only, with the
+    annex keys and subtree of the other package's save and of a
+    default-subdir save; the other package restores it bit for bit by a
+    manager with ``fetch_workers=1`` and with 8 (each restore reading on the
+    manager's width unless given its own), and so does the writer."""
+    import repro_torch.train.checkpoint as pckpt
+
+    params, opt_state = _jax_state(jnp.bfloat16)
+    tparams, topt = (params_from_numpy(t, device="cpu") for t in (params, opt_state))
+    managers = {"port": lambda root, **kw: CheckpointManager(Repository(root), **kw),
+                "ref": lambda root, **kw: JCheckpointManager(JRepository(root), **kw)}
+    states = {"port": (tparams, topt), "ref": (params, opt_state)}
+    oids = {}
+    for side in ("port", "ref"):
+        root = str(tmp_path / side)
+        (Repository if side == "port" else JRepository).init(root)
+        oids[side] = managers[side](root, subdir="ckpt_alt").save(3, *states[side], data_step=5)
+    root = str(tmp_path / writer)
+    repo = Repository(root)
+    rel = "ckpt_alt/step_00000003"
+    assert all(p.startswith(rel + "/") for p in repo.tree_of(oids[writer]))
+    assert (Repository(str(tmp_path / "port")).entry_at(oids["port"], rel)
+            == JRepository(str(tmp_path / "ref")).entry_at(oids["ref"], rel))
+    default = JRepository.init(str(tmp_path / "default"))
+    dmanifest = JCheckpointManager(default).restore(JCheckpointManager(default).save(3, params, opt_state))[1]
+    pools = []
+    plain_pool = pckpt.ThreadPool
+    monkeypatch.setattr(pckpt, "ThreadPool", lambda n: pools.append(n) or plain_pool(n))
+    for reader in ("port", "ref"):
+        for workers in (1, 8):
+            ckpt = managers[reader](root, subdir="ckpt_alt", fetch_workers=workers)
+            n_pools = len(pools)
+            state, manifest = (ckpt.restore(oids[writer], device="cpu") if reader == "port"
+                               else ckpt.restore(oids[writer]))
+            _assert_bit_equal(state, {"params": params, "opt_state": opt_state})
+            assert manifest["step"] == 3 and manifest["data_step"] == 5
+            assert manifest["leaves"] == dmanifest["leaves"]  # every leaf's key, shape and dtype name
+            if reader == "port":
+                assert pools[n_pools:] == ([] if workers == 1 else [min(8, len(manifest["leaves"]))])
+        # a manager of the default subdir finds no step there
+        with pytest.raises(FileNotFoundError):
+            managers[reader](root).restore(oids[writer], **({"device": "cpu"} if reader == "port" else {}))
+    # an explicit width overrides the manager's
+    n_pools = len(pools)
+    CheckpointManager(repo, subdir="ckpt_alt", fetch_workers=1).restore(oids[writer], device="cpu", fetch_workers=4)
+    assert pools[n_pools:] == [4]
+
+
+def test_phase_44_on_the_cpu():
+    """``chip_smoke.py``'s phase 44 at smoke size on the CPU: the weights
+    saved under ``ckpt_alt/``, restored at both widths bit for bit, and
+    served from there: the greedy tokens equal a direct serve's, and the
+    flash kernel's count stays 0 (the CPU runs the plain version)."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.mamba import mamba_scan_fwd
+    from repro_torch.kernels.rwkv6 import rwkv6_fwd
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    shape = dict(batch=2, prompt_len=16, gen=4)
+    want = serve.run(ARCH, full=False, device="cpu", dtype="bfloat16", seed=0, **shape).tokens
+    kernels = {"attn": flash_attention_fwd, "rwkv6": rwkv6_fwd, "mamba": mamba_scan_fwd}
+    launches, prefills = cs.ckpt_subdir_phase(torch, configs, serve, kernels, torch.device("cpu"), 0, want, None,
+                                              full=False, shape=shape)
+    assert prefills == 1
+    assert launches == {"flash_attention_fwd": 0, "rwkv6_fwd": 0, "mamba_scan_fwd": 0}

@@ -129,56 +129,16 @@ def test_encoder_decoder_and_mrope_layers_build(change, added):
 
 
 # --------------------------------------------------------------- API parity
-OPTION = "an option no caller of the port set, left out under the rule that the port keeps no unused option"
 ONE_FS = ("the port runs every store operation on one FS per repository: the FS, its fault plan and its owner "
           "are reached through the repository, not passed")
-GONE = "a helper no caller of the port used, left out for the same rule"
 # every public parameter or member of repro.core that repro_torch.core lacks:
 # {"Name.member": (the reference's parameters the port's counterpart lacks, or MISSING, reason)}
 MISSING = "missing"
 DEVIATIONS = {
-    "AnnexStore.ingest_file": (["chunk_size"], OPTION),
-    "RemoteStore.ingest_file": (["chunk_size"], OPTION),
-    "RemoteStore.__init__": (["sweep_on_open"], OPTION),
-    "FS.dir_entries_snapshot": (MISSING, GONE),
-    "FS.write_atomic": (MISSING, "the port publishes through files.write_atomic(fs, path, data), one copy for "
-                                 "every store"),
-    "FaultPlan.__init__": (["max_fs_retries", "backoff_base_s"],
-                           "the retry budget and backoff base are the reference's defaults, constants in the port "
-                           "(faults.BACKOFF_BASE_S); " + OPTION),
     "FaultPlan.attach_fs": (["fs"], ONE_FS),
     "FaultPlan.crash_point": (["fs"], ONE_FS),
     "JournalHandle.begin": (["fs", "repro_dir"], ONE_FS),
-    "FileLock.beat": (MISSING, GONE),
-    "FileLock.break_if_stale": (MISSING, GONE + "; recover() and verify() break stale locks"),
-    "JobDB.add_job": (MISSING, GONE + "; add_jobs takes one spec or many"),
-    "JobDB.by_slurm_id": (MISSING, GONE),
-    "JobDB.heartbeat": (MISSING, GONE),
-    "JobDB.set_slurm_id": (MISSING, GONE + "; set_slurm_ids takes one pair or many"),
-    "LocalSlurmCluster.__init__": (["sbatch_cost_s", "sacct_cost_s"],
-                                   "the charges are the reference's defaults, class constants in the port; "
-                                   + OPTION),
-    "NetworkFaultModel.revive": (MISSING, "no caller in the reference's tests, examples or gates, nor in the "
-                                          "port: a site marked dead stays dead for the model's life"),
-    "RemoteStore.mark_available": (MISSING, "as NetworkFaultModel.revive, which it calls"),
-    "Repository.annex_fetch_key": (["chunked"], OPTION),
-    "Repository.annex_push": (MISSING, "the seed-era push to one store; the port pushes through Session.push "
-                                       "(remote.push_keys: chunk by chunk, journaled, resumable)"),
-    "Repository.commit_changes": (["parents", "author"], OPTION),
-    "Repository.merge_octopus": (["author"], OPTION),
-    "Repository.save": (["parents", "author", "allow_empty"], OPTION),
-    "Repository.switch": (["checkout"], OPTION),
-    "Repository.whereis": (MISSING, GONE + "; whereis_many answers one key or many"),
-    "Session.fetch": (["missing_only", "journal"], OPTION),
-    "Session.gc": (["delete_loose", "prune_cache", "sweep_chunks"], OPTION),
-    "Session.pull": (["journal"], OPTION),
-    "Session.push": (["journal"], OPTION),
-    "Session.recover": (["close_unsubmitted", "max_tmp_age_s"], OPTION),
-    "SlurmScheduler.finish": (["journal"], OPTION + "; the port's finish always journals"),
-    "SlurmScheduler.submit_pipeline": (["run_id"], OPTION),
-    "open": (["auto_repack_threshold"], OPTION + "; Session(repo, auto_repack_threshold=...) keeps it"),
 }
-
 
 def _parameters(fn) -> list[str] | None:
     try:
@@ -228,6 +188,109 @@ def test_core_takes_the_reference_parameter_names():
         named[base] = MISSING if params == MISSING else named.get(base, []) + params
     assert {k: sorted(v) if v != MISSING else v for k, v in found.items()} == {
         k: sorted(v) if v != MISSING else v for k, v in named.items()}
+
+
+MESH = "a jax Mesh; the port's counterpart takes the ShardingRules (rules=), which carry their DeviceMesh"
+PALLAS_LAYOUT = ("the Pallas call in its kernel's own layout; the port's CUDA kernel takes the model's layout "
+                 "through its *_fwd wrapper (kernels.ops)")
+INTERPRET = ("Pallas's interpret mode; the port's wrapper runs its kernel's plain version on a CPU tensor, so no "
+             "flag picks it")
+NAIVE = ("a lax.scan oracle; the port's step-by-step oracle is kernels.ref's plain version, which the reference "
+         "keeps too")
+# every public parameter, function, class or module of the reference's model
+# side that the port's counterpart lacks: JAX idiom only, each with its reason
+MODEL_DEVIATIONS = {
+    "kernels.flash_attention:flash_attention_bhsd": (MISSING, PALLAS_LAYOUT),
+    "kernels.rwkv6:rwkv6_bhsd": (MISSING, PALLAS_LAYOUT),
+    "kernels.mamba:mamba_scan_bsd": (MISSING, PALLAS_LAYOUT),
+    "kernels.ops:flash_attention": (["interpret"], INTERPRET),
+    "kernels.ops:rwkv6": (["interpret"], INTERPRET),
+    "kernels.ops:mamba_scan": (["interpret"], INTERPRET),
+    "models.attention:attention": (["unroll_chunks"], "how XLA traces the query-chunk loop (unrolled or "
+                                                      "lax.map); eager PyTorch runs it as a Python loop"),
+    "models.params:abstract_params": (["mesh"], MESH),
+    "models.params:param_shardings": (["mesh"], MESH),
+    "models.ssm:rwkv6_naive": (MISSING, NAIVE),
+    "models.ssm:mamba_scan_naive": (MISSING, NAIVE),
+    "models.transformer:abstract_cache": (["mesh"], MESH),
+    "models.transformer:Ctx.__init__": (["aux"], "jit collects the MoE layers' aux losses in the Ctx; the port's "
+                                                 "apply_block returns each layer's"),
+    "models.transformer:apply_block": (["rules"], "the port's Ctx carries the rules (Ctx.rules)"),
+    "launch.dryrun:run_cell": (["keep_hlo"], "keeps XLA's compiled HLO text; the port plans from meta tensors, "
+                                             "with no HLO"),
+    "launch.hlo_stats": (MISSING, "statistics of XLA's HLO text; the port counts a plan's ops with "
+                                  "launch.op_stats"),
+    "launch.specs:batch_specs": (["mesh"], MESH),
+    "launch.specs:decode_specs": (["mesh"], MESH),
+    "launch.specs:input_specs": (["mesh"], MESH),
+    "launch.specs:model_state_specs": (["mesh"], MESH),
+}
+MODEL_SIDE = ["configs", "kernels", "models", "launch", "train", "optim"]
+
+
+def _model_modules(pkg) -> list[str]:
+    """The model side's packages of ``pkg`` and their modules, as dotted
+    names below ``pkg``."""
+    import importlib
+    import pkgutil
+
+    out = []
+    for top in MODEL_SIDE:
+        out.append(top)
+        out += [f"{top}.{m.name}" for m in pkgutil.iter_modules(importlib.import_module(f"{pkg}.{top}").__path__)]
+    return out
+
+
+def _module_members(mod) -> dict:
+    """{"name" or "Class.member": callable} for every public callable a
+    module defines (functions, custom-gradient wrappers, classes and their
+    public methods)."""
+    out = {}
+    for name, obj in vars(mod).items():
+        if name.startswith("_") or not callable(obj) or getattr(obj, "__module__", None) != mod.__name__:
+            continue
+        if inspect.isclass(obj):
+            out[f"{name}.__init__"] = obj.__init__
+            out.update({f"{name}.{m}": f for m, f in inspect.getmembers(obj, callable) if not m.startswith("_")})
+        else:
+            out[name] = obj
+    return out
+
+
+def test_model_side_takes_the_reference_parameter_names():
+    """For every public function, class and method of the reference's
+    ``configs``, ``kernels``, ``models``, ``launch``, ``train`` and ``optim``
+    modules, the port's module and counterpart exist and take the
+    reference's parameter names, but for the JAX idiom named in
+    ``MODEL_DEVIATIONS``, each with its reason. The list must be exact, as
+    the core's is. (The port may take more parameters and have more
+    modules.)"""
+    import importlib
+
+    from repro.train.checkpoint import CheckpointManager as JCheckpointManager
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    port_modules = set(_model_modules("repro_torch"))
+    found = {}
+    for name in _model_modules("repro"):
+        if name not in port_modules:
+            found[name] = MISSING
+            continue
+        ref = _module_members(importlib.import_module(f"repro.{name}"))
+        port = _module_members(importlib.import_module(f"repro_torch.{name}"))
+        for key, fn in ref.items():
+            if key not in port:
+                found[f"{name}:{key}"] = MISSING
+                continue
+            want, got = _parameters(fn), _parameters(port[key])
+            if want is not None and got is not None and (lacking := [p for p in want if p not in got]):
+                found[f"{name}:{key}"] = lacking
+    assert all(reason for _, reason in MODEL_DEVIATIONS.values())
+    assert found == {k: params for k, (params, _) in MODEL_DEVIATIONS.items()}
+    # the checkpoint manager's two constructor parameters, with the reference's defaults
+    for cls in (CheckpointManager, JCheckpointManager):
+        sig = inspect.signature(cls.__init__).parameters
+        assert (sig["subdir"].default, sig["fetch_workers"].default) == ("checkpoints", 8)
 
 
 _LOAD_EXAMPLE = """
