@@ -6,7 +6,8 @@ launches the kernel, once, or raises: a CUDA tensor never falls back to the
 plain version. Its backward recomputes through the plain version and
 returns that version's vector-Jacobian product, as the reference's
 ``custom_vjp``s do (``repro/kernels/ops.py``); there is no backward kernel.
-Each backward runs inside a profiler range (``BACKWARD_RANGES``).
+Each backward runs inside a program span (``BACKWARD_RANGES``, through
+``spans.span``: a profiler range while a profiler runs).
 Under ``torch.inference_mode()`` or ``no_grad`` nothing is recorded, and the
 forward is the one launch.
 
@@ -29,6 +30,7 @@ import torch
 from torch.distributed.tensor import DTensor
 from torch.utils.flop_counter import register_flop_formula
 
+from ..spans import span
 from . import costs, ref
 from .flash_attention import flash_attention_fwd as launch_flash_attention
 from .mamba import mamba_scan_fwd as launch_mamba_scan
@@ -127,7 +129,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        with torch.profiler.record_function(BACKWARD_RANGE):  # names the recompute in a profile
+        with span(BACKWARD_RANGE):  # names the recompute in a profile
             return _recompute_vjp(ctx, ref.attention_ref, 3, (g,)) + (None, None)
 
 
@@ -142,7 +144,7 @@ class RWKV6(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out, g_state):
-        with torch.profiler.record_function(RWKV6_BACKWARD_RANGE):
+        with span(RWKV6_BACKWARD_RANGE):
             return _recompute_vjp(ctx, ref.rwkv6_ref, 6, (g_out, g_state))
 
 
@@ -161,7 +163,7 @@ class MambaScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_y, g_h):
-        with torch.profiler.record_function(MAMBA_BACKWARD_RANGE):
+        with span(MAMBA_BACKWARD_RANGE):
             return _recompute_vjp(ctx, ref.mamba_ref, 6, (g_y, g_h))
 
 

@@ -19,6 +19,8 @@ share is 1 - busy / wall, with wall taken on the host clock around the
 window, which ends in a synchronize. Busy time is also split by kind of
 kernel (``profile_train.by_kind``) and, for MoE layers, by the ranges of
 ``models.moe.RANGES``: the device time of the kernels each range launched.
+Busy time leaves out the device-side span of every range the program names
+(``profile_train.device_rows``).
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from .. import configs
 from ..models.moe import RANGES
-from .profile_train import by_kind
+from .profile_train import by_kind, device_rows
 from .serve import DTYPES, add_override_args, overrides_from_args, run
 
 
@@ -45,9 +47,7 @@ def _window(name: str, top: int):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     averages = prof.key_averages()
-    # device-side rows only (an aten op's row also carries its kernels' time), less the
-    # ranges' own device spans, which cover kernels counted already
-    rows = [e for e in averages if e.device_type == DeviceType.CUDA and e.key not in RANGES]
+    rows = device_rows(averages)  # an aten op's host row also carries its kernels' time
     if not rows:
         raise RuntimeError(f"{name}: the profiler recorded no device time")
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3

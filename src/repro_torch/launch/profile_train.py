@@ -13,10 +13,12 @@ Needs a CUDA device. Busy time is the sum of the device-side events' time
 backward includes remat's recompute of every repeat's forward and the
 kernel ops' backwards, each through its plain version (flash through
 ``attention_ref``, WKV through ``rwkv6_ref``, Mamba through
-``ssm.mamba_scan_chunked``); their device and host times come from their
-profiler ranges, ``ops.BACKWARD_RANGES``. ``--n-layers``, ``--n-experts``
-and ``--no-moe`` cut the config as in ``launch.serve``. It runs with
-PyTorch's deterministic algorithms, as ``launch.train``'s command line does.
+``mamba_ref``); their device and host times come from their profiler
+ranges, ``ops.BACKWARD_RANGES``. Busy time leaves out the device-side span
+of every range the program names (``spans.py``), which covers kernels
+counted already. ``--n-layers``, ``--n-experts`` and ``--no-moe`` cut the
+config as in ``launch.serve``. It runs with PyTorch's deterministic
+algorithms, as ``launch.train``'s command line does.
 """
 from __future__ import annotations
 
@@ -56,6 +58,14 @@ def by_kind(rows) -> dict[str, float]:
         kind = next((name for name, frags in KINDS if any(f in key for f in frags)), "elementwise and other")
         kinds[kind] += e.self_device_time_total / 1e3
     return kinds
+
+
+def device_rows(averages) -> list:
+    """The device-side rows of the profiler's ``key_averages()``, less each
+    user annotation's own: a ``record_function`` range's span on the device
+    covers kernels that have rows of their own, and ranges nest."""
+    names = {e.key for e in averages if e.device_type == DeviceType.CPU and getattr(e, "is_user_annotation", False)}
+    return [e for e in averages if e.device_type == DeviceType.CUDA and e.key not in names]
 
 
 def _timed(dev, fn) -> tuple[float, object]:
@@ -122,8 +132,7 @@ def main(argv: list[str] | None = None) -> dict:
         torch.cuda.synchronize(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
     averages = prof.key_averages()
-    # device-side rows only, less the ranges' own device spans, which cover kernels counted already
-    rows = [e for e in averages if e.device_type == DeviceType.CUDA and e.key not in BACKWARD_RANGES]
+    rows = device_rows(averages)
     if not rows:
         raise RuntimeError("the profiler recorded no device time")
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3

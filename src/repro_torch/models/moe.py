@@ -21,18 +21,19 @@ Where torch and jax differ, the port computes what the reference does:
 - Capacity is ``max(1, int(cf * s * k / e))`` in Python floats, in the
   reference's operand order; queue positions come from an fp32 cumsum.
 
-``moe_ffn`` names its three parts as profiler ranges (``RANGES``): the
-router and the dispatch and combine tensors with the gather into the expert
-buffer (two ranges of that name a layer: the router's, then
-``expert_ffn``'s), the expert GEMMs, and the combine back to tokens.
+``moe_ffn`` names its three parts as program spans (``RANGES``, through
+``spans.span``, so only while a profiler runs): the router and the dispatch
+and combine tensors with the gather into the expert buffer (two ranges of
+that name a layer: the router's, then ``expert_ffn``'s), the expert GEMMs,
+and the combine back to tokens.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ..configs.base import MoEConfig
+from ..spans import span
 
 DISPATCH, EXPERTS, COMBINE = "moe dispatch", "moe experts", "moe combine"
 RANGES = (DISPATCH, EXPERTS, COMBINE)
@@ -63,7 +64,7 @@ def moe_ffn(
     cfg: MoEConfig,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (output [B,S,D] in x's dtype, aux_loss fp32)."""
-    with record_function(DISPATCH):
+    with span(DISPATCH):
         gates, idx, aux = router_topk(x, w_router, cfg)
     return expert_ffn(x, gates, idx, w1, w3, w2, cfg), aux.float()
 
@@ -76,7 +77,7 @@ def expert_ffn(x: torch.Tensor, gates: torch.Tensor, idx: torch.Tensor, w1: torc
     on each rank's batch shard (``models/transformer.py``)."""
     b, s, d = x.shape
     e, k = w1.shape[0], cfg.top_k
-    with record_function(DISPATCH):
+    with span(DISPATCH):
         capacity = max(1, int(cfg.capacity_factor * s * k / e))
         # expert one-hot per (token, k-slot), flattened to the (S, k) order: [B, S*k, E]
         mask_flat = F.one_hot(idx, e).float().reshape(b, s * k, e)
@@ -91,9 +92,9 @@ def expert_ffn(x: torch.Tensor, gates: torch.Tensor, idx: torch.Tensor, w1: torc
         dispatch = dispatch.sum(dim=2)  # [B, S, E, C]
         expert_in = torch.einsum("bsec,bsd->ebcd", dispatch, x)  # [E, B, C, D]
 
-    with record_function(EXPERTS):
+    with span(EXPERTS):
         gate_h = F.silu(torch.einsum("ebcd,edf->ebcf", expert_in, w1))
         lin_h = torch.einsum("ebcd,edf->ebcf", expert_in, w3)
         y = torch.einsum("ebcf,efd->ebcd", gate_h * lin_h, w2)  # [E, B, C, D]
-    with record_function(COMBINE):
+    with span(COMBINE):
         return torch.einsum("bsec,ebcd->bsd", combine, y)

@@ -42,6 +42,13 @@ position, stacked along a leading ``n_repeats`` axis:
   mamba : ``{"h"}`` state [B, Di, St] fp32 and ``{"conv"}`` tail
           [B, K-1, Di], the last K-1 conv inputs
 
+While a profiler runs, the self-attention and feed-forward sub-layers run
+in the program spans ``block attention`` and ``block feed-forward``
+(``spans.py``), in every mode. Prefill's cache build runs in ``prefill kv
+cache`` inside ``block attention``, and the stack of each pattern
+position's decode state after the last block in ``prefill kv cache`` too,
+outside every block.
+
 In train mode each stacked leaf is split once into its repeats
 (``torch.unbind``, whose backward is one stack), and with ``cfg.remat`` each
 repeat runs under ``torch.utils.checkpoint`` while autograd records, as the
@@ -97,6 +104,7 @@ from .attention import (NEG_INF, _grouped, attention, cache_insert, decode_atten
 from .layers import apply_mrope, apply_rope, rmsnorm, swiglu
 from ..distributed.sharding import P, axis_size, distribute_local, placements, sharded_region
 from .params import ParamDef, stand_ins
+from ..spans import BLOCK_ATTENTION, BLOCK_FFN, PREFILL_KV_CACHE, span
 
 
 def _use_kernels(cfg: ModelConfig, x: torch.Tensor) -> bool:
@@ -639,23 +647,24 @@ def _rope(cfg: ModelConfig, ctx: Ctx, q: torch.Tensor, k: torch.Tensor):
 
 def _self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, ctx: Ctx, cache):
     """Returns (mixer_out, new_cache_entries)."""
-    h = _seq_whole(ctx, rmsnorm(x, p["ln1"], cfg.norm_eps))
-    q, k, v = _project_qkv(cfg, p["attn"], h, ctx)
-    q, k = _rope(cfg, ctx, q, k)
-    new_cache = {}
-    if ctx.mode == "decode":
-        kc, vc = _cache_insert(ctx, cache["k"], cache["v"], k, v, ctx.pos)
-        out = _decode_attend(ctx, q, kc, vc, ctx.pos, ring=cfg.sliding_window is not None)
-        new_cache = {"k": kc, "v": vc}
-    else:
-        if _use_kernels(cfg, q):
-            out = _attend(ctx, lambda q, k, v: flash_attention(q, k, v, ctx.causal, cfg.sliding_window), q, k, v)
+    with span(BLOCK_ATTENTION):
+        h = _seq_whole(ctx, rmsnorm(x, p["ln1"], cfg.norm_eps))
+        q, k, v = _project_qkv(cfg, p["attn"], h, ctx)
+        q, k = _rope(cfg, ctx, q, k)
+        new_cache = {}
+        if ctx.mode == "decode":
+            kc, vc = _cache_insert(ctx, cache["k"], cache["v"], k, v, ctx.pos)
+            out = _decode_attend(ctx, q, kc, vc, ctx.pos, ring=cfg.sliding_window is not None)
+            new_cache = {"k": kc, "v": vc}
         else:
-            out = _attend(ctx, lambda q, k, v: attention(q, k, v, causal=ctx.causal, window=cfg.sliding_window,
-                                                         q_chunk=cfg.attn_q_chunk), q, k, v)
-        if ctx.mode == "prefill":
-            new_cache = _prefill_kv_cache(cfg, ctx, k, v)
-    return _merge_heads(ctx, out) @ p["attn"]["wo"], new_cache
+            if _use_kernels(cfg, q):
+                out = _attend(ctx, lambda q, k, v: flash_attention(q, k, v, ctx.causal, cfg.sliding_window), q, k, v)
+            else:
+                out = _attend(ctx, lambda q, k, v: attention(q, k, v, causal=ctx.causal, window=cfg.sliding_window,
+                                                             q_chunk=cfg.attn_q_chunk), q, k, v)
+            if ctx.mode == "prefill":
+                new_cache = _prefill_kv_cache(cfg, ctx, k, v)
+        return _merge_heads(ctx, out) @ p["attn"]["wo"], new_cache
 
 
 def _prefill_kv_cache(cfg: ModelConfig, ctx: Ctx, k: torch.Tensor, v: torch.Tensor) -> dict:
@@ -677,7 +686,8 @@ def _prefill_kv_cache(cfg: ModelConfig, ctx: Ctx, k: torch.Tensor, v: torch.Tens
             buf = ctx.rules.constrain(buf, ctx.rules.kv_cache(ctx.batch_shardable))
         return buf
 
-    return {"k": build(k), "v": build(v)}
+    with span(PREFILL_KV_CACHE):
+        return {"k": build(k), "v": build(v)}
 
 
 def _cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, ctx: Ctx, cache):
@@ -802,16 +812,17 @@ def _ffn_or_moe(cfg: ModelConfig, kind: LayerKind, p: dict, x: torch.Tensor, ctx
     plus, with a dense residual, a SwiGLU on the same normed input (every
     token gets it, the capacity queue's drops included). Returns (out, aux):
     aux is the MoE layer's load-balancing loss (fp32 scalar), else None."""
-    h = _seq_whole(ctx, rmsnorm(x, p["ln2"], cfg.norm_eps))
-    if not kind.moe:
-        f = p["ffn"]
-        return swiglu(h, f["w1"], f["w3"], f["w2"]), None
-    pm = p["moe"]
-    out, aux = _experts(ctx, cfg, pm, h)
-    if cfg.moe.dense_residual:
-        d = pm["dense"]
-        out = out + swiglu(h, d["w1"], d["w3"], d["w2"])
-    return out, aux
+    with span(BLOCK_FFN):
+        h = _seq_whole(ctx, rmsnorm(x, p["ln2"], cfg.norm_eps))
+        if not kind.moe:
+            f = p["ffn"]
+            return swiglu(h, f["w1"], f["w3"], f["w2"]), None
+        pm = p["moe"]
+        out, aux = _experts(ctx, cfg, pm, h)
+        if cfg.moe.dense_residual:
+            d = pm["dense"]
+            out = out + swiglu(h, d["w1"], d["w3"], d["w2"])
+        return out, aux
 
 
 def apply_block(cfg: ModelConfig, kind: LayerKind, p: dict, x: torch.Tensor, ctx: Ctx, cache):
@@ -892,8 +903,11 @@ def _run_blocks(cfg: ModelConfig, blocks: dict, x: torch.Tensor, ctx: Ctx, cache
                 layers.append(nc)
     if ctx.mode == "decode":
         return x, caches, None
-    return x, {key: {n: torch.stack([c[n] for c in cs]) for n in cs[0]}
-               for key, cs in new.items()}, None
+    stacked = {}
+    for key, cs in new.items():
+        with span(PREFILL_KV_CACHE):
+            stacked[key] = {n: torch.stack([c[n] for c in cs]) for n in cs[0]}
+    return x, stacked, None
 
 
 def _embed(params: dict, tokens: torch.Tensor, ctx: Ctx | None = None) -> torch.Tensor:

@@ -30,6 +30,7 @@ from dataclasses import dataclass
 import torch
 from torch.distributed.tensor import DTensor
 
+from ..spans import ADAMW_UPDATE, span
 from ..tree import leaves, tree_map
 
 SLICE = 1 << 24  # elements a step of the update or the clipping takes at once: 64 MiB in fp32
@@ -123,25 +124,26 @@ class AdamW:
     def update(self, grads, state, params):
         """Clip ``grads``, then update ``params`` and the moments of ``state``
         in place. Returns (params, {"m", "v", "step"}, {"grad_norm", "lr"})."""
-        grads = tree_map(_placed_like, grads, params)
-        grads, gnorm = clip_by_global_norm(grads, self.max_grad_norm)
-        step = state["step"] + 1
-        lr = self.lr(step) if callable(self.lr) else self.lr
-        t = step.float()
-        bc1, bc2 = 1 - self.b1**t, 1 - self.b2**t
-        b1, b2 = self.b1, self.b2
-        for g, m, v, p in zip(leaves(grads), leaves(state["m"]), leaves(state["v"]), leaves(params)):
-            wd = self.weight_decay if p.ndim >= 2 else 0.0  # the stacked norms [R, D] get decay, as there
-            for gs, ms, vs, ps in _slices(g, m, v, p):
-                g32 = gs.float()
-                m32 = b1 * ms.float() + (1 - b1) * g32
-                v32 = b2 * vs.float() + (1 - b2) * g32.square()
-                mhat = m32 / bc1
-                vhat = v32 / bc2
-                p32 = ps.float()
-                ps.copy_(p32 - lr * (mhat / (vhat.sqrt() + self.eps) + wd * p32))
-                ms.copy_(m32)
-                vs.copy_(v32)
-        return params, {"m": state["m"], "v": state["v"], "step": step}, {
-            "grad_norm": gnorm, "lr": torch.as_tensor(lr, dtype=torch.float32, device=step.device),
-        }
+        with span(ADAMW_UPDATE):  # once a step, never once a slice
+            grads = tree_map(_placed_like, grads, params)
+            grads, gnorm = clip_by_global_norm(grads, self.max_grad_norm)
+            step = state["step"] + 1
+            lr = self.lr(step) if callable(self.lr) else self.lr
+            t = step.float()
+            bc1, bc2 = 1 - self.b1**t, 1 - self.b2**t
+            b1, b2 = self.b1, self.b2
+            for g, m, v, p in zip(leaves(grads), leaves(state["m"]), leaves(state["v"]), leaves(params)):
+                wd = self.weight_decay if p.ndim >= 2 else 0.0  # the stacked norms [R, D] get decay, as there
+                for gs, ms, vs, ps in _slices(g, m, v, p):
+                    g32 = gs.float()
+                    m32 = b1 * ms.float() + (1 - b1) * g32
+                    v32 = b2 * vs.float() + (1 - b2) * g32.square()
+                    mhat = m32 / bc1
+                    vhat = v32 / bc2
+                    p32 = ps.float()
+                    ps.copy_(p32 - lr * (mhat / (vhat.sqrt() + self.eps) + wd * p32))
+                    ms.copy_(m32)
+                    vs.copy_(v32)
+            return params, {"m": state["m"], "v": state["v"], "step": step}, {
+                "grad_norm": gnorm, "lr": torch.as_tensor(lr, dtype=torch.float32, device=step.device),
+            }

@@ -14,6 +14,9 @@ and optimizer state are DTensors placed by ``param_defs(cfg, rules)``; the
 forward and the backward run inside ``sharded_region(rules)``, and the
 serving steps under ``torch.no_grad()`` rather than ``inference_mode()``,
 whose tensors DTensor's views refuse.
+
+Each microbatch's forward and loss run in the ``train forward`` span and
+``AdamW.update`` in ``adamw update`` (``spans.py``), while a profiler runs.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from ..models import transformer as T
 from ..models.layers import cross_entropy
 from ..optim.adamw import AdamW
 from ..optim.compression import ef_compress_tree
+from ..spans import TRAIN_FORWARD, span
 from ..tree import leaves, unflatten
 
 
@@ -77,9 +81,11 @@ def make_grad_fn(cfg: ModelConfig, *, rules=None):
     def one(params, batch):
         flat = [p.requires_grad_() for p in leaves(params)]
         with sharded_region(rules):
-            logits, aux = T.forward_train(cfg, params, batch, rules=rules)
-            loss = masked_loss(logits, batch["tokens"], cfg.vocab_size)
-            grads = torch.autograd.grad(loss + aux_w * aux, flat)
+            with span(TRAIN_FORWARD):  # the backward runs on autograd's own thread: no span holds it
+                logits, aux = T.forward_train(cfg, params, batch, rules=rules)
+                loss = masked_loss(logits, batch["tokens"], cfg.vocab_size)
+                objective = loss + aux_w * aux
+            grads = torch.autograd.grad(objective, flat)
         return loss.detach(), aux.detach(), grads
 
     def grads_of(params, batch):
